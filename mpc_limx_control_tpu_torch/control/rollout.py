@@ -1,23 +1,28 @@
 """Batched closed-loop walking simulation harness.
 
-Counterpart of the main path of ``mpc_limx_control_tpu.control.rollout``: a
-batched SRBD plant driven by the controller tick (truth odometry), with
-the swing leg tracking its command ideally and the stance foot pinned
-where it touched down (its joints from IK). Batch-first throughout.
+Counterpart of ``mpc_limx_control_tpu.control.rollout``: a batched SRBD
+plant driven by the controller tick, with the swing leg tracking its
+command ideally and the stance foot pinned where it touched down (its
+joints from IK). The controller sees the plant truth
+(``estimator_mode="truth"``) or the 12-state Kalman filter's estimate fed
+by sensors synthesized from the truth (``"kf"``). Batch-first throughout.
 
 Dispatch of :func:`plant_step`:
 
 * CUDA tensors and a config :func:`ops.tick_fused_cuda.supports_fused_tick`
-  accepts: the whole tick is ONE launch of the ``walking_tick`` kernel;
-* CUDA tensors with any other config (standing, the KF estimator, held
-  dtMPC ticks, the receding attitude reference, ...): NotImplementedError
-  naming the ROADMAP item that ports it;
+  accepts (walk mode; truth or KF odometry): the whole tick is ONE launch
+  of a ``walking_tick`` kernel variant, chosen by the estimator and by
+  whether the tick holds a force (``grf_override``, the dtMPC schedule);
+* CUDA tensors with any other config (standing, the receding attitude
+  reference, ...): NotImplementedError naming the ROADMAP item that ports
+  it;
 * CPU tensors: :func:`_plant_step_ref`, the plain composition, as the JAX
   package runs off the TPU.
 
 :func:`rollout` / :func:`batched_rollout` write the per-tick metrics into
 tensors preallocated on the state's device and never synchronize with the
-host inside the loop.
+host inside the loop; :func:`soak_rollout` reduces them per window on the
+device and fetches the reductions once.
 """
 
 from __future__ import annotations
@@ -27,8 +32,10 @@ import dataclasses
 import torch
 
 from mpc_limx_control_tpu_torch.core.config import ControllerConfig
-from mpc_limx_control_tpu_torch.core.types import JointState, OdomState
+from mpc_limx_control_tpu_torch.core.types import (ImuData, JointState,
+                                                   KFState, OdomState)
 from mpc_limx_control_tpu_torch.control import controller as ctrl
+from mpc_limx_control_tpu_torch.control import estimator as est
 from mpc_limx_control_tpu_torch.control import gait as gaitmod
 from mpc_limx_control_tpu_torch.models import kinematics as kin
 from mpc_limx_control_tpu_torch.models import srbd
@@ -37,8 +44,10 @@ from mpc_limx_control_tpu_torch.utils import rotations as rot
 
 METRIC_KEYS = ("est_error", "height", "velocity", "grf", "qp_residual",
                "foot_target")
+KF_METRIC_KEYS = ("kf_cov_pos", "kf_cov_vel")
 _METRIC_WIDTH = {"est_error": (), "height": (), "velocity": (3,),
-                 "grf": (6,), "qp_residual": (), "foot_target": (3,)}
+                 "grf": (6,), "qp_residual": (), "foot_target": (3,),
+                 "kf_cov_pos": (3,), "kf_cov_vel": (3,)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +57,10 @@ class PlantState:
     xi [B,13] SRBD state; q [B,6] joints; foot_l / foot_r [B,3] world;
     qp_z [B,nz] / qp_lam [B,m] warm state of the GRF QP (None when
     qp_warm_start is off); ref_anchor [B,3] = (x, y, yaw) tracking anchor
-    (None = receding reference). The KF fields of the JAX PlantState come
-    with the Kalman-filter slice.
+    (None = receding reference). With estimator_mode "kf": the filter
+    state kf, and the previous tick's truth velocity prev_v [B,3] and
+    joints prev_q [B,6], from which the IMU acceleration and the joint
+    velocities are synthesized (None otherwise).
     """
 
     xi: torch.Tensor
@@ -59,6 +70,9 @@ class PlantState:
     qp_z: torch.Tensor | None = None
     qp_lam: torch.Tensor | None = None
     ref_anchor: torch.Tensor | None = None
+    kf: KFState | None = None
+    prev_v: torch.Tensor | None = None
+    prev_q: torch.Tensor | None = None
 
     def replace(self, **kw) -> "PlantState":
         return dataclasses.replace(self, **kw)
@@ -67,12 +81,8 @@ class PlantState:
 def initial_plant_state(cfg: ControllerConfig, batch=(), device=None,
                         dtype=torch.float32) -> PlantState:
     """Standing at the configured base height, feet at their nominal
-    offsets on the ground, joints from IK. ``batch`` is () for one
-    scenario or (B,)."""
-    if cfg.estimator_mode != "truth":
-        raise NotImplementedError(
-            f"estimator_mode={cfg.estimator_mode!r}: the Kalman-filter "
-            "state is ROADMAP queue 1, item 10")
+    offsets on the ground, joints from IK; in KF mode the filter starts at
+    the true pose and feet. ``batch`` is () for one scenario or (B,)."""
     batch = tuple(batch)
     B = batch[0] if batch else 1
 
@@ -112,14 +122,31 @@ def initial_plant_state(cfg: ControllerConfig, batch=(), device=None,
     ref_anchor = None
     if cfg.ref_anchor_band > 0.0 and cfg.mode == "walk":
         ref_anchor = torch.cat([pos[:, :2], zero3[:, :1]], -1)
+    kf = prev_v = prev_q = None
+    if cfg.estimator_mode == "kf":
+        # seeded at the truth, so the transient is the filter's own and
+        # not a cold start from the origin
+        kf = KFState.initial((B,), cfg.estimator.initial_covariance, dtype,
+                             device)
+        kf = kf.replace(x_hat=torch.cat([pos, kf.x_hat[:, 3:6], foot_l,
+                                         foot_r], -1))
+        prev_v = torch.zeros((B, 3), dtype=dtype, device=device)
+        prev_q = q
     state = PlantState(xi=xi, q=q, foot_l=foot_l, foot_r=foot_r, qp_z=qp_z,
-                       qp_lam=qp_lam, ref_anchor=ref_anchor)
+                       qp_lam=qp_lam, ref_anchor=ref_anchor, kf=kf,
+                       prev_v=prev_v, prev_q=prev_q)
     return state if batch else _unbatch(state)
 
 
 def _map_state(state: PlantState, fn) -> PlantState:
-    return PlantState(**{f.name: (None if getattr(state, f.name) is None
-                                  else fn(getattr(state, f.name)))
+    def one(v):
+        if v is None:
+            return None
+        if isinstance(v, KFState):
+            return KFState(x_hat=fn(v.x_hat), p_cov=fn(v.p_cov))
+        return fn(v)
+
+    return PlantState(**{f.name: one(getattr(state, f.name))
                          for f in dataclasses.fields(state)})
 
 
@@ -133,18 +160,52 @@ def _odom_from_xi(xi: torch.Tensor) -> OdomState:
                      v_pos=xi[:, 9:12], v_ori=xi[:, 6:9])
 
 
+def _kf_estimate(cfg: ControllerConfig, state: PlantState,
+                 iteration: torch.Tensor):
+    """Synthesize IMU and joint readings from the plant truth and run one
+    KF tick (the intended path of src/mpc_control.cpp:158-192); returns
+    (kf_new, odom, truth)."""
+    truth = _odom_from_xi(state.xi)
+    dt = cfg.gait.dt
+    joints = JointState(q=state.q, dq=(state.q - state.prev_q) / dt,
+                        tau=torch.zeros_like(state.q))
+    R_wb = rot.quat_to_rot(truth.quat)
+    a_world = (truth.v_pos - state.prev_v) / dt
+    g_vec = torch.tensor([0.0, 0.0, -9.81], dtype=state.xi.dtype,
+                         device=state.xi.device)
+    # the accelerometer reads the specific force in the body frame
+    imu = ImuData(quat=truth.quat,
+                  acc=(R_wb.transpose(-1, -2)
+                       @ (a_world - g_vec)[..., None])[..., 0],
+                  gyro=(R_wb.transpose(-1, -2)
+                        @ truth.v_ori[..., None])[..., 0])
+    ls = gaitmod.gait_clock(cfg.gait, iteration).left_swing
+    contact = torch.stack([~ls, ls], -1)
+    out = est.estimator_tick(cfg, state.kf, joints, imu, contact, dt)
+    return out.kf, out.odom, truth
+
+
+def _kf_metrics(kf: KFState) -> dict:
+    """Covariance health per tick (the role of the reference's 200 Hz
+    pose-with-covariance stream, include/stateEstimator.h:404-419)."""
+    d = torch.diagonal(kf.p_cov, dim1=-2, dim2=-1)
+    return {"kf_cov_pos": d[:, 0:3], "kf_cov_vel": d[:, 3:6]}
+
+
 def plant_step(cfg: ControllerConfig, state: PlantState,
                iteration: torch.Tensor, grf_override=None, v_des=None):
     """One 1 kHz simulation tick for a batch of scenarios; returns
-    (new_state, metrics) with metrics[k] [B, ...]. See the module
+    (new_state, metrics) with metrics[k] [B, ...].
+
+    With ``grf_override`` [B,6] the MPC solve is skipped and the given
+    force held on the foot now in stance (the intermediate ticks of the
+    reference's mpcStep = 5 re-solve schedule, include/MPCParam.h:46-47).
+    ``v_des`` overrides the configured velocity command. See the module
     docstring for the dispatch."""
     if state.xi.device.type == "cpu":
         return _plant_step_ref(cfg, state, iteration,
                                grf_override=grf_override, v_des=v_des)
     reason = tfc.unsupported_reason(cfg, state)
-    if grf_override is not None:
-        reason = ("held dtMPC ticks (grf_override, mpc_every > 1) are the "
-                  "hold variant of the tick kernel, ROADMAP queue 2, K4")
     if reason is not None:
         raise NotImplementedError(f"plant_step on {state.xi.device}: "
                                   f"{reason}")
@@ -157,38 +218,55 @@ def plant_step(cfg: ControllerConfig, state: PlantState,
     it = torch.as_tensor(iteration, dtype=dtype, device=device).expand(B)
     anc = (state.ref_anchor if state.ref_anchor is not None
            else torch.cat([state.xi[:, 3:5], state.xi[:, 2:3]], -1))
-    (xi, q, fl, fr, z, y, anc_n, res, grf, tgt) = tfc.fused_walking_tick(
-        state.xi, state.q, state.foot_l, state.foot_r, state.qp_z,
-        state.qp_lam, anc.contiguous(), it.contiguous(), vd.contiguous(),
-        wd, cfg=cfg)
+    kf = state.kf
+    # (a state from _plant_step_ref holds prev_v as a view of xi)
+    kf_args = {} if kf is None else dict(
+        kf_x=kf.x_hat, kf_p=kf.p_cov, prev_v=state.prev_v.contiguous(),
+        prev_q=state.prev_q)
+    (xi, q, fl, fr, z, y, anc_n, res, grf, tgt, *kf_out) = \
+        tfc.fused_walking_tick(
+            state.xi, state.q, state.foot_l, state.foot_r, state.qp_z,
+            state.qp_lam, anc.contiguous(), it.contiguous(),
+            vd.contiguous(), wd, grf_held=grf_override, cfg=cfg, **kf_args)
     new_state = PlantState(
         xi=xi, q=q, foot_l=fl, foot_r=fr, qp_z=z, qp_lam=y,
         ref_anchor=anc_n if state.ref_anchor is not None else None)
-    metrics = {"est_error": torch.zeros_like(res), "height": xi[:, 5],
-               "velocity": xi[:, 9:12], "grf": grf, "qp_residual": res,
-               "foot_target": tgt}
+    metrics = {"height": xi[:, 5], "velocity": xi[:, 9:12], "grf": grf,
+               "qp_residual": res, "foot_target": tgt}
+    if kf is None:
+        metrics["est_error"] = torch.zeros_like(res)
+    else:
+        kf_new = KFState(x_hat=kf_out[0], p_cov=kf_out[1])
+        # the filter's input was the pre-step truth: prev_v / prev_q and
+        # the error are taken against it
+        new_state = new_state.replace(
+            kf=kf_new, prev_v=state.xi[:, 9:12].contiguous(), prev_q=state.q)
+        metrics["est_error"] = torch.linalg.vector_norm(
+            kf_new.x_hat[:, 0:3] - state.xi[:, 3:6], dim=-1)
+        metrics.update(_kf_metrics(kf_new))
     return new_state, metrics
 
 
 def _plant_step_ref(cfg: ControllerConfig, state: PlantState,
                     iteration: torch.Tensor, grf_override=None, v_des=None,
                     yaw_rate_des=None, solve_form: str | None = None):
-    """The plain composition of one tick (truth odometry).
+    """The plain composition of one tick.
 
     ``solve_form`` ("kinv" / "subst") runs the walking QP as the plain
     composition with that solve form on any device; None lets the
     controller dispatch it (the kernel on CUDA, "kinv" on the CPU).
     ``yaw_rate_des`` overrides cfg.desired_yaw_rate.
     """
-    if cfg.estimator_mode != "truth":
-        raise NotImplementedError(
-            f"estimator_mode={cfg.estimator_mode!r}: the Kalman-filter "
-            "tick is ROADMAP queue 1, item 10")
     dtype, device = state.xi.dtype, state.xi.device
     B = state.xi.shape[0]
     iteration = torch.as_tensor(iteration, dtype=dtype,
                                 device=device).expand(B)
-    odom = _odom_from_xi(state.xi)
+    if cfg.estimator_mode == "kf":
+        # the controller sees the filter's estimate, the plant the truth
+        kf_new, odom, truth = _kf_estimate(cfg, state, iteration)
+    else:
+        kf_new = None
+        odom = truth = _odom_from_xi(state.xi)
     joints = JointState(q=state.q, dq=torch.zeros_like(state.q),
                         tau=torch.zeros_like(state.q))
     qp_warm = (state.qp_z, state.qp_lam) if cfg.qp_warm_start else None
@@ -237,15 +315,20 @@ def _plant_step_ref(cfg: ControllerConfig, state: PlantState,
     new_state = PlantState(
         xi=xi_new, q=q_new, foot_l=foot_l, foot_r=foot_r, qp_z=qp_z,
         qp_lam=qp_lam,
-        ref_anchor=diag.ref_anchor if state.ref_anchor is not None else None)
+        ref_anchor=diag.ref_anchor if state.ref_anchor is not None else None,
+        kf=kf_new,
+        prev_v=truth.v_pos if state.prev_v is not None else None,
+        prev_q=state.q if state.prev_q is not None else None)
     metrics = {
-        "est_error": torch.zeros_like(xi_new[:, 0]),   # truth odometry
+        "est_error": torch.linalg.vector_norm(odom.pos - truth.pos, dim=-1),
         "height": xi_new[:, 5],
         "velocity": xi_new[:, 9:12],
         "grf": diag.grf,
         "qp_residual": diag.qp_residual,
         "foot_target": diag.foot_target,
     }
+    if kf_new is not None:
+        metrics.update(_kf_metrics(kf_new))
     return new_state, metrics
 
 
@@ -261,8 +344,10 @@ def _rollout_batched(cfg, state0: PlantState, steps: int, start_iteration,
     # its[t] = t + start (float, as the JAX scan's arange + start)
     its = (torch.arange(steps, dtype=dtype, device=device)[:, None]
            + start[None, :]).contiguous()
+    keys = METRIC_KEYS + (KF_METRIC_KEYS if cfg.estimator_mode == "kf"
+                          else ())
     metrics = {k: torch.empty((B, steps, *_METRIC_WIDTH[k]), dtype=dtype,
-                              device=device) for k in METRIC_KEYS}
+                              device=device) for k in keys}
     # the command lives on the device before the loop: a per-tick copy
     # from pageable host memory would block the host behind the queued
     # kernels every tick
@@ -274,7 +359,7 @@ def _rollout_batched(cfg, state0: PlantState, steps: int, start_iteration,
         s, m = plant_step(cfg, s, its[t], grf_override=hold, v_des=vd_cfg)
         if mpc_every > 1 and t % mpc_every == 0:
             grf = m["grf"]
-        for k in METRIC_KEYS:
+        for k in keys:
             metrics[k][:, t] = m[k]
     return s, metrics
 
@@ -283,9 +368,10 @@ def rollout(cfg: ControllerConfig, state0: PlantState, steps: int,
             start_iteration=0, mpc_every: int = 1):
     """Closed-loop simulation of ONE scenario (unbatched state, e.g. from
     ``initial_plant_state(cfg)``); returns (final, metrics) with metrics
-    stacked over time on axis 0. ``mpc_every`` > 1 re-solves the MPC
-    every `mpc_every` ticks and holds the force in between (CPU only in
-    this slice)."""
+    stacked over time on axis 0. ``mpc_every`` > 1 reproduces the
+    reference's dtMPC schedule: the MPC is re-solved every `mpc_every`
+    ticks (mpcStep = 5, include/MPCParam.h:46-47) and the force held in
+    between, while gait, swing tracking and the plant run every tick."""
     s0 = _map_state(state0, lambda x: x[None])
     final, metrics = _rollout_batched(cfg, s0, steps, start_iteration,
                                       mpc_every)
@@ -298,3 +384,82 @@ def batched_rollout(cfg: ControllerConfig, state0: PlantState, steps: int,
     a scalar or a [B] tensor (staggered gait phases). Returns (final,
     metrics) with metrics[k] [B, steps, ...]."""
     return _rollout_batched(cfg, state0, steps, start_iteration, mpc_every)
+
+
+SOAK_KEYS = ("height_mean", "height_min", "height_max", "vx_mean", "vy_mean",
+             "qp_res_max", "est_err_max", "nonfinite_ticks")
+SOAK_KF_KEYS = ("kf_cov_pos_max", "kf_cov_pos_mean", "kf_cov_vel_max")
+
+
+def soak_rollout(cfg: ControllerConfig, state0: PlantState, n_windows: int,
+                 window: int, start_iteration=0, mpc_every: int = 1):
+    """Endurance soak: `n_windows` blocks of `window` ticks, the metrics of
+    each block reduced to summary statistics on the device.
+
+    The per-tick metrics of a minute-long batched soak (60k ticks x B x
+    ~20 floats) never leave the device: each window's reductions are
+    written into one [n_keys, n_windows] tensor that is fetched once, at
+    the end. `start_iteration` may be a [B] tensor (staggered gait
+    phases); `mpc_every` > 1 soaks the dtMPC hold schedule. An unbatched
+    state runs as one scenario. Returns (final_state, stats) with every
+    stats entry a CPU tensor [n_windows].
+    """
+    batched = state0.xi.ndim == 2
+    s = state0 if batched else _map_state(state0, lambda x: x[None])
+    device = s.xi.device
+    B = s.xi.shape[0]
+    keys = SOAK_KEYS + (SOAK_KF_KEYS if cfg.estimator_mode == "kf" else ())
+    stats = torch.empty((len(keys), n_windows), dtype=torch.float64,
+                        device=device)
+    it = torch.as_tensor(start_iteration, dtype=s.xi.dtype,
+                         device=device).expand(B)
+    for w in range(n_windows):
+        s, m = _rollout_batched(cfg, s, window, it, mpc_every)
+        h, v = m["height"], m["velocity"]
+        red = [h.mean(), h.min(), h.max(), v[..., 0].mean(),
+               v[..., 1].mean(), m["qp_residual"].max(),
+               m["est_error"].max(), (~torch.isfinite(h)).sum()]
+        if cfg.estimator_mode == "kf":
+            red += [m["kf_cov_pos"].max(), m["kf_cov_pos"].mean(),
+                    m["kf_cov_vel"].max()]
+        stats[:, w] = torch.stack([r.to(torch.float64) for r in red])
+        it = it + window
+    host = stats.cpu()
+    out = {k: host[i] for i, k in enumerate(keys)}
+    out["nonfinite_ticks"] = out["nonfinite_ticks"].to(torch.int32)
+    return (s if batched else _unbatch(s)), out
+
+
+def soak_stationary(stats: dict, tail_frac: float = 0.8) -> dict:
+    """Host-side stationarity summary of :func:`soak_rollout` stats.
+
+    Over the last `tail_frac` of windows: the tail mean, its spread and a
+    least-squares drift slope per window of height, vx and (KF) the mean
+    position covariance. A limit cycle has ~zero drift; anchor windup, the
+    KF touchdown sink or f32 accumulation show as a slope long before they
+    cross a hard floor."""
+    import numpy as np
+
+    out = {}
+    n = len(np.asarray(stats["height_mean"]))
+    i0 = int(round((1.0 - tail_frac) * n))
+    w = np.arange(n - i0, dtype=np.float64)
+    for key in ("height_mean", "vx_mean", "kf_cov_pos_mean"):
+        if key not in stats:
+            continue
+        y = np.asarray(stats[key], np.float64)[i0:]
+        slope = float(np.polyfit(w, y, 1)[0]) if len(y) > 1 else 0.0
+        out[f"{key}_tail_mean"] = float(y.mean())
+        out[f"{key}_tail_ptp"] = float(y.max() - y.min())
+        out[f"{key}_drift_per_window"] = slope
+    out["height_min"] = float(np.asarray(stats["height_min"]).min())
+    out["nonfinite_ticks"] = int(np.asarray(stats["nonfinite_ticks"]).sum())
+    if "kf_cov_pos_max" in stats:
+        # the all-time max is the initial-covariance transient; steady-
+        # state boundedness is the tail max
+        cov_max = np.asarray(stats["kf_cov_pos_max"])
+        out["kf_cov_pos_max"] = float(cov_max.max())
+        out["kf_cov_pos_max_tail"] = float(cov_max[i0:].max())
+        out["kf_cov_vel_max"] = float(np.asarray(
+            stats["kf_cov_vel_max"]).max())
+    return out

@@ -3,8 +3,7 @@
 Counterparts of the chex dataclasses of ``mpc_limx_control_tpu.core.types``
 (reference structs RobotOdomState, limxsdk RobotState / RobotCmd). Every
 field carries an explicit leading batch dimension ``[B, ...]``; the port
-writes the batch out instead of relying on ``vmap``. ``KFState`` and
-``ImuData`` come with the Kalman-filter slice.
+writes the batch out instead of relying on ``vmap``.
 """
 
 from __future__ import annotations
@@ -33,6 +32,15 @@ class JointState:
     q: torch.Tensor    # [B, J]
     dq: torch.Tensor   # [B, J]
     tau: torch.Tensor  # [B, J]
+
+
+@dataclasses.dataclass(frozen=True)
+class ImuData:
+    """IMU sample (limxsdk ImuData: quat, acc, gyro); quat is (x, y, z, w)."""
+
+    quat: torch.Tensor  # [B, 4]
+    acc: torch.Tensor   # [B, 3] specific force, body frame
+    gyro: torch.Tensor  # [B, 3] angular velocity, body frame
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,3 +86,26 @@ class TickDiagnostics(NamedTuple):
     predicted_xi: torch.Tensor  # [B, 13] one-step-ahead SRBD state
     qp_state: tuple | None      # (z, y) warm state for the next tick
     ref_anchor: torch.Tensor | None = None  # [B, 3] next-tick anchor
+
+
+@dataclasses.dataclass(frozen=True)
+class KFState:
+    """Kalman-filter state (include/stateEstimator.h:142-147): x_hat
+    [B, 12] = base position, base velocity, left and right foot positions;
+    p_cov [B, 12, 12] its covariance."""
+
+    x_hat: torch.Tensor
+    p_cov: torch.Tensor
+
+    def replace(self, **kw) -> "KFState":
+        return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def initial(cls, batch=(), initial_covariance: float = 100.0,
+                dtype=torch.float32, device=None) -> "KFState":
+        """Zero estimate with covariance ``initial_covariance * I``."""
+        batch = tuple(batch)
+        eye = torch.eye(12, dtype=dtype, device=device) * initial_covariance
+        return cls(x_hat=torch.zeros((*batch, 12), dtype=dtype,
+                                     device=device),
+                   p_cov=eye.expand(*batch, 12, 12).clone())

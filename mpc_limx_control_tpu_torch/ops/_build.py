@@ -84,7 +84,8 @@ def build_library() -> dict:
     lib = ctypes.CDLL(str(out))
     lib.mpc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mpc_cuda_error_string.restype = ctypes.c_char_p
-    for name in ("walking_mpc_prep_smem_bytes", "walking_tick_smem_bytes"):
+    for name in ("walking_mpc_prep_smem_bytes", "walking_tick_smem_bytes",
+                 "walking_tick_kf_smem_bytes"):
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
     for name in ("walking_mpc_params_bytes", "walking_tick_params_bytes"):

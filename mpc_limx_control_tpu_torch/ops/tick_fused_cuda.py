@@ -3,14 +3,23 @@
 Counterpart of ``mpc_limx_control_tpu.ops.tick_fused_pallas``. The TPU
 kernel ``_tick_kernel`` (tick_fused_pallas.py:130, pallas_call at :868
 via ``_fused_tick_core`` :737, ``fused_walking_tick`` :626 and
-``make_tick_fused`` :911) becomes ``csrc/walking_tick.cu`` in walk mode
-with truth odometry: gait clock, FK, anchor clip, capture placement, swing
-+ analytic IK, contact schedule and moment arms, the shared MPC core of
+``make_tick_fused`` :911) becomes ``csrc/walking_tick.cu`` in walk mode:
+gait clock, FK, anchor clip, capture placement, swing + analytic IK,
+contact schedule and moment arms, the shared MPC core of
 ``csrc/mpc_core.cuh``, GRF split, exact-ZOH plant step, rigid-ground
 clamp and next-tick FK / IK, one launch per tick for the whole batch.
 
-Its hold (K4), in-kernel KF (K5) and standing (K6) variants are later
-slices: :func:`supports_fused_tick` accepts only what this kernel runs.
+Four entry points, one per variant of the TPU kernel's ``est_kf`` /
+``hold`` flags, each with its own launch counter:
+
+* ``walking_tick``: truth odometry, MPC solve;
+* ``walking_tick_hold`` (K4): the dtMPC held-force tick, no MPC;
+* ``walking_tick_kf`` (K5): the 12-state Kalman filter in the kernel, its
+  estimate driving the controller while the plant steps from the truth;
+* ``walking_tick_kf_hold``: both.
+
+The standing variant (K6) is a later slice: :func:`supports_fused_tick`
+accepts only what these kernels run.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -25,9 +35,21 @@ from mpc_limx_control_tpu_torch.ops import _build
 from mpc_limx_control_tpu_torch.ops.mpc_fused_cuda import (
     NX, MpcParams, mpc_params, supports_fused_walking_qp)
 
-# The kernel and its launch counter (see ops/_build.py).
-WALKING_TICK = _build.Kernel("walking_tick", n_ptr=20,
-                             params_sizer="walking_tick_params_bytes")
+# The kernels and their launch counters (see ops/_build.py). The hold
+# variants take neither the warm QP state nor return it (it passes
+# through); the KF variants take the filter state, prev_v and prev_q and
+# return the filter state.
+_SIZER = "walking_tick_params_bytes"
+WALKING_TICK = _build.Kernel("walking_tick", n_ptr=20, params_sizer=_SIZER)
+WALKING_TICK_HOLD = _build.Kernel("walking_tick_hold", n_ptr=17,
+                                  params_sizer=_SIZER)
+WALKING_TICK_KF = _build.Kernel("walking_tick_kf", n_ptr=26,
+                                params_sizer=_SIZER)
+WALKING_TICK_KF_HOLD = _build.Kernel("walking_tick_kf_hold", n_ptr=23,
+                                     params_sizer=_SIZER)
+TICK_KERNELS = {(False, False): WALKING_TICK, (False, True): WALKING_TICK_HOLD,
+                (True, False): WALKING_TICK_KF,
+                (True, True): WALKING_TICK_KF_HOLD}
 
 
 class TickParams(ctypes.Structure):
@@ -43,14 +65,15 @@ class TickParams(ctypes.Structure):
                 ("anchor_gain", ctypes.c_float),
                 ("yaw_band", ctypes.c_float),
                 ("off_l", ctypes.c_float * 2), ("off_r", ctypes.c_float * 2),
-                ("geom", ctypes.c_float * 12)]
+                ("geom", ctypes.c_float * 12), ("kf", ctypes.c_float * 8)]
 
 
 def _tick_statics(cfg) -> dict:
     """Compile-time constants of the whole-tick kernel from the config
-    (the tick-level statics of the JAX _tick_statics; the MPC's come from
-    mpc_fused_cuda.walking_constants)."""
+    (the tick-level statics and ``est_c`` of the JAX _tick_statics; the
+    MPC's come from mpc_fused_cuda.walking_constants)."""
     g = cfg.gait
+    e = cfg.estimator
     legs = cfg.robot.legs
     use_capture = cfg.placement_mode == "capture"
     if use_capture:
@@ -75,7 +98,16 @@ def _tick_statics(cfg) -> dict:
         geom=tuple(float(v) for v in (
             *legs.abad_offset, *legs.hip_offset, *legs.knee_offset,
             *(a + b for a, b in zip(legs.foot_offset,
-                                    legs.contact_offset)))))
+                                    legs.contact_offset)))),
+        # process noise as ops/kf.py scales it, then the sensor noise,
+        # the contact-gate factor and the foot radius
+        kf=tuple(float(v) for v in (
+            (g.dt / 20.0) * e.imu_process_noise_position,
+            (g.dt * 9.81 / 20.0) * e.imu_process_noise_velocity,
+            g.dt * e.foot_process_noise_position,
+            e.foot_sensor_noise_position, e.foot_sensor_noise_velocity,
+            e.foot_height_sensor_noise, e.high_suspect_number,
+            e.foot_radius)))
 
 
 @functools.lru_cache(maxsize=16)
@@ -94,10 +126,10 @@ def tick_params(cfg) -> TickParams:
 
 
 def supports_fused_tick(cfg) -> bool:
-    """True when ``walking_tick`` implements the config's tick: walk mode,
-    truth odometry, analytic IK, the warm ``admm_fused`` solver, capture or
-    reference placement, and a walking QP the MPC core implements (level
-    attitude, horizon <= 21)."""
+    """True when the ``walking_tick`` kernels implement the config's tick:
+    walk mode, truth or KF odometry, analytic IK, the warm ``admm_fused``
+    solver, capture or reference placement, and a walking QP the MPC core
+    implements (level attitude, horizon <= 21)."""
     return _config_reason(cfg) is None
 
 
@@ -105,9 +137,8 @@ def _config_reason(cfg) -> str | None:
     if cfg.mode != "walk":
         return ("standing is the two-foot variant of the tick kernel, "
                 "ROADMAP queue 2, K6")
-    if cfg.estimator_mode != "truth":
-        return ("the in-kernel Kalman filter is ROADMAP queue 2, K5 "
-                "(queue 1, item 10)")
+    if cfg.estimator_mode not in ("truth", "kf"):
+        return f"estimator_mode={cfg.estimator_mode!r} is unknown"
     if cfg.ik_method != "analytic":
         return "iterative IK is ROADMAP queue 1, item 15"
     if not cfg.qp_warm_start or cfg.srbd.solver.method != "admm_fused":
@@ -126,11 +157,18 @@ def unsupported_reason(cfg, state) -> str | None:
     reason = _config_reason(cfg)
     if reason is None and (state.qp_z is None or state.qp_lam is None):
         reason = "the tick kernel needs the warm QP state (qp_warm_start)"
+    kf_state = (state.kf is not None and state.prev_v is not None
+                and state.prev_q is not None)
+    if reason is None and kf_state != (cfg.estimator_mode == "kf"):
+        reason = (f"estimator_mode={cfg.estimator_mode!r} needs a state "
+                  f"{'with' if not kf_state else 'without'} the filter "
+                  "fields (kf, prev_v, prev_q)")
     return reason
 
 
 def fused_walking_tick(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
-                       v_des, yaw_rate, *, cfg):
+                       v_des, yaw_rate, kf_x=None, kf_p=None, prev_v=None,
+                       prev_q=None, grf_held=None, *, cfg):
     """Batched whole-tick dispatch (kernel wrapper).
 
     xi [B,13]; q [B,6]; foot_l / foot_r [B,3]; z_warm [B,3N];
@@ -138,47 +176,103 @@ def fused_walking_tick(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
     yaw_rate [B]. Returns (xi', q', foot_l', foot_r', z, y, anchor',
     residual [B], grf [B,6], target [B,3]).
 
-    CUDA tensors launch ``walking_tick``; CPU tensors run its plain
-    version, ``rollout._plant_step_ref`` with the exact-solve ADMM
-    (``solve_form="subst"``).
+    With kf_x [B,12] / kf_p [B,12,12] / prev_v [B,3] / prev_q [B,6] (the
+    config's estimator_mode must be "kf") the filter runs in the kernel
+    and the outputs gain (kf_x', kf_p'). With grf_held [B,6] the tick holds
+    that force on the foot now in stance and runs no MPC: z and y are
+    returned as given (the same tensors) and the residual is 0.
+
+    CUDA tensors launch the matching ``walking_tick*`` kernel; CPU
+    tensors run its plain version, ``rollout._plant_step_ref`` with the
+    exact-solve ADMM (``solve_form="subst"``).
     """
     reason = _config_reason(cfg)
     if reason is not None:
         raise ValueError(f"walking_tick does not implement this config: "
                          f"{reason}")
+    est_kf = cfg.estimator_mode == "kf"
+    kf_in = (kf_x, kf_p, prev_v, prev_q)
+    if any((t is None) == est_kf for t in kf_in):
+        raise ValueError(f"estimator_mode={cfg.estimator_mode!r}: pass "
+                         "kf_x, kf_p, prev_v and prev_q exactly when it is "
+                         "'kf'")
     if xi.device.type == "cpu":
         from mpc_limx_control_tpu_torch.control import rollout as ro
+        from mpc_limx_control_tpu_torch.core.types import KFState
 
         st = ro.PlantState(xi=xi, q=q, foot_l=foot_l, foot_r=foot_r,
-                           qp_z=z_warm, qp_lam=y_warm, ref_anchor=anchor)
-        st2, m = ro._plant_step_ref(cfg, st, it, v_des=v_des,
-                                    yaw_rate_des=yaw_rate,
+                           qp_z=z_warm, qp_lam=y_warm, ref_anchor=anchor,
+                           kf=KFState(x_hat=kf_x, p_cov=kf_p) if est_kf
+                           else None, prev_v=prev_v, prev_q=prev_q)
+        st2, m = ro._plant_step_ref(cfg, st, it, grf_override=grf_held,
+                                    v_des=v_des, yaw_rate_des=yaw_rate,
                                     solve_form="subst")
-        return (st2.xi, st2.q, st2.foot_l, st2.foot_r, st2.qp_z,
+        outs = (st2.xi, st2.q, st2.foot_l, st2.foot_r, st2.qp_z,
                 st2.qp_lam, st2.ref_anchor, m["qp_residual"], m["grf"],
                 m["foot_target"])
+        return outs + ((st2.kf.x_hat, st2.kf.p_cov) if est_kf else ())
+    plan = prepare_tick_launch(xi, q, foot_l, foot_r, z_warm, y_warm, anchor,
+                               it, v_des, yaw_rate, kf_x, kf_p, prev_v,
+                               prev_q, grf_held, cfg=cfg)
+    plan.kernel.launch(plan.params, plan.ptrs, plan.batch,
+                       torch.cuda.current_stream(xi.device).cuda_stream)
+    return plan.results
+
+
+class TickLaunch(NamedTuple):
+    """One launch of a ``walking_tick*`` kernel, ready to go: the kernel,
+    its constants, its device pointers (inputs then outputs), the batch,
+    and what :func:`fused_walking_tick` returns once it has run."""
+
+    kernel: _build.Kernel
+    params: TickParams
+    ptrs: list
+    batch: int
+    results: tuple
+
+
+def prepare_tick_launch(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
+                        v_des, yaw_rate, kf_x=None, kf_p=None, prev_v=None,
+                        prev_q=None, grf_held=None, *, cfg) -> TickLaunch:
+    """Check the CUDA tensors of :func:`fused_walking_tick` (same
+    arguments) and allocate its outputs, without launching: the kernel
+    variant is chosen by the config's estimator and by ``grf_held``."""
     if xi.device.type != "cuda":
         raise ValueError(f"walking_tick runs on CUDA tensors, got "
                          f"{xi.device}")
+    est_kf = cfg.estimator_mode == "kf"
+    hold = grf_held is not None
     N = int(cfg.srbd.horizon)
     B = xi.shape[0]
     dev = xi.device
-    ins = (("xi", xi, (B, NX)), ("q", q, (B, 6)), ("foot_l", foot_l, (B, 3)),
-           ("foot_r", foot_r, (B, 3)), ("z_warm", z_warm, (B, 3 * N)),
-           ("y_warm", y_warm, (B, 6 * N)), ("anchor", anchor, (B, 3)),
-           ("it", it, (B,)), ("v_des", v_des, (B, 3)),
-           ("yaw_rate", yaw_rate, (B,)))
+    state_in = (("xi", xi, (B, NX)), ("q", q, (B, 6)),
+                ("foot_l", foot_l, (B, 3)), ("foot_r", foot_r, (B, 3)))
+    warm_in = (("z_warm", z_warm, (B, 3 * N)), ("y_warm", y_warm, (B, 6 * N)))
+    cmd_in = (("anchor", anchor, (B, 3)), ("it", it, (B,)),
+              ("v_des", v_des, (B, 3)), ("yaw_rate", yaw_rate, (B,)))
+    ins = state_in + (() if hold else warm_in) + cmd_in
+    if hold:
+        ins += (("grf_held", grf_held, (B, 6)),)
+    if est_kf:
+        ins += (("kf_x", kf_x, (B, 12)), ("kf_p", kf_p, (B, 12, 12)),
+                ("prev_v", prev_v, (B, 3)), ("prev_q", prev_q, (B, 6)))
     for name, t, shape in ins:
         _build.check_tensor(name, t, shape, dev)
+    if hold:
+        # the warm QP state passes through untouched
+        _build.check_tensor("z_warm", z_warm, (B, 3 * N), dev)
+        _build.check_tensor("y_warm", y_warm, (B, 6 * N), dev)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
-    outs = (empty(B, NX), empty(B, 6), empty(B, 3), empty(B, 3),
-            empty(B, 3 * N), empty(B, 6 * N), empty(B, 3), empty(B),
-            empty(B, 6), empty(B, 3))
-    WALKING_TICK.launch(
-        tick_params(cfg),
-        [t.data_ptr() for _, t, _ in ins] + [t.data_ptr() for t in outs],
-        B, torch.cuda.current_stream(dev).cuda_stream)
-    return outs
+    state_out = (empty(B, NX), empty(B, 6), empty(B, 3), empty(B, 3))
+    warm_out = () if hold else (empty(B, 3 * N), empty(B, 6 * N))
+    cmd_out = (empty(B, 3), empty(B), empty(B, 6), empty(B, 3))
+    kf_out = (empty(B, 12), empty(B, 12, 12)) if est_kf else ()
+    outs = state_out + warm_out + cmd_out + kf_out
+    results = (state_out + (z_warm, y_warm) + cmd_out + kf_out if hold
+               else outs)
+    return TickLaunch(TICK_KERNELS[(est_kf, hold)], tick_params(cfg),
+                      [t.data_ptr() for _, t, _ in ins]
+                      + [t.data_ptr() for t in outs], B, results)

@@ -2,7 +2,8 @@
 
 Counterpart of ``mpc_limx_control_tpu.utils.rotations``. Quaternions are
 (x, y, z, w) (include/state_estimator_fake.h:69-72); rpy = (roll, pitch,
-yaw) with R = Rz(yaw) Ry(pitch) Rx(roll).
+yaw) with R = Rz(yaw) Ry(pitch) Rx(roll); zyx = (yaw, pitch, roll) is the
+reference's quatToZyx (include/stateEstimator.h:76-84).
 """
 
 from __future__ import annotations
@@ -23,6 +24,23 @@ def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
         torch.stack([xy + wz, 1 - (xx + zz), yz - wx], -1),
         torch.stack([xz - wy, yz + wx, 1 - (xx + yy)], -1),
     ], -2)
+
+
+def quat_to_zyx(q: torch.Tensor) -> torch.Tensor:
+    """[..., 4] -> [..., 3] ZYX Euler (yaw, pitch, roll), the reference's
+    quatToZyx including its 0.99999 asin clamp."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    as_ = torch.clamp(-2.0 * (x * z - w * y), max=0.99999)
+    yaw = torch.atan2(2 * (x * y + w * z), w * w + x * x - y * y - z * z)
+    pitch = torch.asin(as_)
+    roll = torch.atan2(2 * (y * z + w * x), w * w - x * x - y * y + z * z)
+    return torch.stack([yaw, pitch, roll], -1)
+
+
+def quat_to_rpy(q: torch.Tensor) -> torch.Tensor:
+    """[..., 4] -> [..., 3] (roll, pitch, yaw), the layout of
+    OdomState.ori (include/state_estimator_fake.h:62-67)."""
+    return quat_to_zyx(q).flip(-1)
 
 
 def rpy_to_quat(rpy: torch.Tensor) -> torch.Tensor:

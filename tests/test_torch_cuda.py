@@ -63,7 +63,7 @@ def _prep_inputs(cfg, B, seed, device):
             t(np.abs(rng.standard_normal((B, 6 * N)))), anchor)
 
 
-def _states(cfg, B, seed, device):
+def _states(cfg, B, seed, device, yaw=0.1):
     s0 = ro.initial_plant_state(cfg, batch=(B,), device=device)
     rng = np.random.default_rng(seed)
     xi = s0.xi.clone()
@@ -71,7 +71,7 @@ def _states(cfg, B, seed, device):
                      device=device)
     xi[:, 9] += 0.08 * n[0]
     xi[:, 10] += 0.05 * n[1]
-    xi[:, 2] += 0.1 * n[2]
+    xi[:, 2] += yaw * n[2]
     return s0.replace(xi=xi)
 
 
@@ -95,9 +95,7 @@ def test_tick_kernel_matches_plain(cuda_device):
     cfg = ControllerConfig.walking()
     B = 257
     s0 = _states(cfg, B, 0, cuda_device)
-    pattern = torch.tensor([0.0, 40.0, 180.0, 299.0, 300.0, 455.0],
-                           device=cuda_device)
-    its = pattern.repeat(B // 6 + 1)[:B]
+    its = _staggered(B, cuda_device)
     before = tfc.WALKING_TICK.launches
     s_k, m_k = ro.plant_step(cfg, s0, its)
     assert tfc.WALKING_TICK.launches == before + 1
@@ -119,6 +117,90 @@ def test_tick_kernel_matches_plain(cuda_device):
     torch.testing.assert_close(m_k["grf"], m_p["grf"], atol=2e-1, rtol=0)
 
 
+def _staggered(B, device):
+    pattern = torch.tensor([0.0, 40.0, 180.0, 299.0, 300.0, 455.0],
+                           device=device)
+    return pattern.repeat(B // 6 + 1)[:B]
+
+
+@pytest.mark.parametrize("variant", ["hold", "kf", "kf_hold"])
+def test_tick_variant_matches_plain(cuda_device, variant):
+    """walking_tick_hold / _kf / _kf_hold against the plain tick at
+    B = 257, staggered phases, from states three plain ticks in (so the
+    filter and prev_v / prev_q are past their seed): one tick, then five
+    threaded ticks, each launching its kernel once."""
+    est_kf, hold = variant.startswith("kf"), variant.endswith("hold")
+    cfg = ControllerConfig.walking()
+    if est_kf:
+        cfg = dataclasses.replace(cfg, estimator_mode="kf")
+    kern = tfc.TICK_KERNELS[(est_kf, hold)]
+    B = 257
+    # the filter's states get no yaw kick (as in the JAX KF tests): a yaw
+    # off the joints' frame puts its measured feet ~10 cm from its state,
+    # and within three ticks some swing targets leave the leg's reach,
+    # where the IK branch is a tie that rounding decides
+    s0 = _states(cfg, B, 0, cuda_device, yaw=0.0 if est_kf else 0.1)
+    its = _staggered(B, cuda_device)
+    for j in range(3):
+        s0, m0 = ro._plant_step_ref(cfg, s0, its + j, solve_form="subst")
+    its = its + 3.0
+    held = m0["grf"] if hold else None
+    before = kern.launches
+    s_k, m_k = ro.plant_step(cfg, s0, its, grf_override=held)
+    assert kern.launches == before + 1
+    s_p, m_p = ro._plant_step_ref(cfg, s0, its, grf_override=held,
+                                  solve_form="subst")
+    for k, a in (("xi", 3e-4), ("q", 5e-4), ("foot_l", 5e-4),
+                 ("foot_r", 5e-4), ("ref_anchor", 1e-5)):
+        torch.testing.assert_close(getattr(s_k, k), getattr(s_p, k),
+                                   atol=a, rtol=0)
+    torch.testing.assert_close(m_k["grf"], m_p["grf"], atol=5e-2, rtol=0)
+    torch.testing.assert_close(m_k["foot_target"], m_p["foot_target"],
+                               atol=5e-4, rtol=0)
+    if hold:
+        assert float(m_k["qp_residual"].abs().max()) == 0.0
+        assert s_k.qp_z is s0.qp_z and s_k.qp_lam is s0.qp_lam
+    if est_kf:
+        torch.testing.assert_close(s_k.kf.x_hat, s_p.kf.x_hat, atol=5e-4,
+                                   rtol=0)
+        torch.testing.assert_close(s_k.kf.p_cov, s_p.kf.p_cov, atol=1e-5,
+                                   rtol=0)
+        torch.testing.assert_close(m_k["est_error"], m_p["est_error"],
+                                   atol=5e-4, rtol=0)
+    s_k = s_p = s0
+    for j in range(5):
+        s_k, m_k = ro.plant_step(cfg, s_k, its + j, grf_override=held)
+        s_p, m_p = ro._plant_step_ref(cfg, s_p, its + j, grf_override=held,
+                                      solve_form="subst")
+    assert kern.launches == before + 6
+    torch.testing.assert_close(s_k.xi, s_p.xi, atol=5e-4, rtol=0)
+    torch.testing.assert_close(s_k.q, s_p.q, atol=1e-3, rtol=0)
+    torch.testing.assert_close(m_k["grf"], m_p["grf"], atol=2e-1, rtol=0)
+    if est_kf:
+        torch.testing.assert_close(s_k.kf.x_hat, s_p.kf.x_hat, atol=5e-4,
+                                   rtol=0)
+        torch.testing.assert_close(s_k.kf.p_cov, s_p.kf.p_cov, atol=1e-5,
+                                   rtol=0)
+
+
+def test_dtmpc_rollout_launch_counts(cuda_device):
+    """batched_rollout(mpc_every=5) with the KF: one tick in five runs
+    the solving kernel, four the hold kernel."""
+    cfg = dataclasses.replace(ControllerConfig.walking(),
+                              estimator_mode="kf")
+    s = ro.initial_plant_state(cfg, batch=(8,), device=cuda_device)
+    counts = [k.launches for k in tfc.TICK_KERNELS.values()]
+    _, m = ro.batched_rollout(cfg, s, 50, mpc_every=5)
+    after = dict(zip(tfc.TICK_KERNELS, (k.launches - c for k, c in zip(
+        tfc.TICK_KERNELS.values(), counts))))
+    assert after == {(False, False): 0, (False, True): 0, (True, False): 10,
+                     (True, True): 40}
+    assert bool(torch.isfinite(m["kf_cov_pos"]).all())
+    res = m["qp_residual"]
+    assert float(res[:, 1::5].abs().max()) == 0.0 and bool(
+        (res[:, ::5] > 0).all())
+
+
 def test_controller_tick_launches_prep_kernel(cuda_device):
     cfg = ControllerConfig.walking()
     s = _states(cfg, 16, 1, cuda_device)
@@ -136,9 +218,11 @@ def test_unsupported_configs_raise_on_cuda(cuda_device):
     cfg = ControllerConfig.walking()
     s = ro.initial_plant_state(cfg, batch=(2,), device=cuda_device)
     it = torch.zeros(2, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="K4"):
-        ro.plant_step(cfg, s, it, grf_override=torch.zeros(
-            2, 6, device=cuda_device))
+    # held ticks (K4) are ported: they launch the hold variant
+    before = tfc.WALKING_TICK_HOLD.launches
+    ro.plant_step(cfg, s, it, grf_override=torch.zeros(
+        2, 6, device=cuda_device))
+    assert tfc.WALKING_TICK_HOLD.launches == before + 1
     rec = dataclasses.replace(cfg, srbd=dataclasses.replace(
         cfg.srbd, attitude_ref="receding"))
     with pytest.raises(NotImplementedError, match="level-attitude"):

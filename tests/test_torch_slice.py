@@ -297,17 +297,17 @@ def test_tick_twin_matches_jax_kernel_interpret():
 
 def test_unsupported_configs_refuse():
     cfg = TCfg.walking()
-    assert ttfc.supports_fused_tick(cfg)
+    kf = dataclasses.replace(cfg, estimator_mode="kf")
+    assert ttfc.supports_fused_tick(cfg) and ttfc.supports_fused_tick(kf)
     for bad in (TCfg.standing(),
-                dataclasses.replace(cfg, estimator_mode="kf"),
+                dataclasses.replace(kf, mode="stand"),
                 dataclasses.replace(cfg, ik_method="damped_ls"),
                 dataclasses.replace(cfg, qp_warm_start=False),
                 dataclasses.replace(cfg, srbd=dataclasses.replace(
                     cfg.srbd, attitude_ref="receding"))):
         assert not ttfc.supports_fused_tick(bad)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tro.initial_plant_state(dataclasses.replace(cfg,
-                                                    estimator_mode="kf"))
+    # the KF state is ported; standing still raises
+    assert tro.initial_plant_state(kf).kf.x_hat.shape == (12,)
     stand = TCfg.standing()
     s = tro.initial_plant_state(stand, batch=(1,))
     with pytest.raises(NotImplementedError, match="item 11"):
@@ -344,11 +344,12 @@ def test_kernel_wrappers_validate_on_cuda_only_paths():
     """CPU tensors never count a launch; a meta-device tensor is refused
     instead of being sent to the kernel or the plain version."""
     cfg = TCfg.walking()
-    before = (tmfc.WALKING_MPC_PREP.launches, ttfc.WALKING_TICK.launches)
+    kernels = (tmfc.WALKING_MPC_PREP, *ttfc.TICK_KERNELS.values())
+    before = [k.launches for k in kernels]
     s = tro.initial_plant_state(cfg, batch=(2,))
     tro.plant_step(cfg, s, torch.zeros(2))
-    assert (tmfc.WALKING_MPC_PREP.launches,
-            ttfc.WALKING_TICK.launches) == before
+    tro.plant_step(cfg, s, torch.zeros(2), grf_override=torch.zeros(2, 6))
+    assert [k.launches for k in kernels] == before
     meta = torch.zeros(1, 13, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         tmfc.fused_walking_qp_prep(meta, meta, meta, meta, meta, meta, meta,
