@@ -1,5 +1,6 @@
-"""Chip smoke for the PyTorch/CUDA port: drive the walking closed loop on
-one NVIDIA GPU through the port's own entry points and check its kernels.
+"""Chip smoke for the PyTorch/CUDA port: drive the walking and standing
+closed loops on one NVIDIA GPU through the port's own entry points and
+check its kernels.
 
 Run from the root of a checkout on a machine with a CUDA card:
 
@@ -11,24 +12,33 @@ non-zero):
 1. torch / CUDA versions, TF32 flags, the card's name and power limit;
 2. build the kernels from ops/csrc (nvcc, sm_90a) and print the build time;
 3. ``walking_mpc_prep`` against its plain version (exact-solve ADMM) at
-   N = 20 and N = 8, B = 257, numpy-seeded inputs;
+   N = 20 and N = 8, B = 257, numpy-seeded inputs; ``fused_qp_nu3`` /
+   ``fused_qp_nu6`` (given, dense Ad) against theirs at N = 20, B = 257;
 4. ``walking_tick`` and its hold, KF and KF + hold variants against the
    plain tick at B = 257: one tick with staggered iterations (both swing
-   sides, 299/300), then five threaded ticks;
+   sides, 299/300), then five threaded ticks; the four ``standing_tick``
+   forms likewise at full width (n = 120);
 5. the main paths, each run with every kernel's launch counter set to 0
    just before it and checked just after (one launch per tick of the
    path's own kind, none of any other): closed-loop quality through
    ``batched_rollout`` / ``rollout`` (walking, turning, push, terrain; the
    KF straight, turning and push gates; the dtMPC schedule with truth and
    with KF odometry; the bands of bench.py and
-   tests/test_mpc_schedule.py), a ``controller.tick`` closed loop, and
+   tests/test_mpc_schedule.py), a ``controller.tick`` closed loop,
    20-window x 1000-tick ``soak_rollout`` soaks at B = 64 of the KF loop
    and of the dtMPC schedule (the 10k-tick bands of tests/test_soak.py);
+   then standing: bench.py's ``stand_ok`` (2000 ticks) and ``kf_stand_ok``
+   (1200 ticks), the standing dtMPC schedule with truth and KF odometry,
+   a standing ``controller.tick`` closed loop (``fused_qp_nu6``) and the
+   ``make_admm_fused`` entry point with one foot (``fused_qp_nu3``, held
+   against ``walking_mpc_prep`` on the same QP);
 6. with CUDA events at B = 1, 1024 and 4096: the time per tick of each
    tick form through ``plant_step`` and of its plain version, the tick
-   kernel alone, and the prep kernel and its plain version; then the
-   ``batched_rollout`` rate at B = 4096 for truth odometry, the KF and
-   the dtMPC schedule.
+   kernel alone, and the prep and fused-QP kernels and their plain
+   versions; then the ``batched_rollout`` rate at B = 4096 for truth
+   odometry, the KF and the dtMPC schedule, walking and standing. Each
+   kernel's bound (the card's least time for the same bytes and
+   operations) is worked out from the shapes of this run.
 
 It prints the kernels' JSON summary on the line before the last and, as
 the last line, {"ok": true, "device": {...}}. Without a CUDA card it exits
@@ -46,14 +56,24 @@ import time
 import numpy as np
 import torch
 
-PREP_SRC = "mpc_limx_control_tpu_torch/ops/csrc/walking_mpc_prep.cu"
-TICK_SRC = "mpc_limx_control_tpu_torch/ops/csrc/walking_tick.cu"
+CSRC = "mpc_limx_control_tpu_torch/ops/csrc/"
+PREP_SRC = CSRC + "walking_mpc_prep.cu"
+TICK_SRC = CSRC + "walking_tick.cu"
+STAND_SRC = CSRC + "standing_tick.cu"
+QP_SRC = CSRC + "fused_qp.cu"
 PREP_TPU = "mpc_limx_control_tpu/ops/mpc_fused_pallas.py:374"
+QP_TPU = "mpc_limx_control_tpu/ops/mpc_fused_pallas.py:355"
 TICK_TPU = "mpc_limx_control_tpu/ops/tick_fused_pallas.py:130"
 # (est_kf, hold) -> kernel name; the four forms of the TPU tick kernel
 VARIANTS = {(False, False): "walking_tick", (False, True): "walking_tick_hold",
             (True, False): "walking_tick_kf",
             (True, True): "walking_tick_kf_hold"}
+STAND_VARIANTS = {k: v.replace("walking", "standing")
+                  for k, v in VARIANTS.items()}
+# the card's published peaks (H100 SXM): HBM bytes/s, f32 FLOP/s outside
+# the tensor cores
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
 # the bench.py push: +0.3 m/s lateral velocity at tick 600
 PUSH = torch.tensor([0.0] * 10 + [0.3, 0.0, 0.0])
 
@@ -99,12 +119,109 @@ def prep_inputs(cfg, B: int, seed: int, device):
             anchor)
 
 
+def core_flops(N: int, nu: int, iters: int, dense_ad: bool,
+               nbd: int = 0) -> float:
+    """Operations (a multiply or an add each) of one condensation +
+    factorization + warm ADMM as ops/csrc/mpc_core.cuh runs it.
+
+    `dense_ad`: every product with Ad is a dense 13-term one (fused_qp:
+    2 * 13 per element); else the SRBD closed forms (22 per 13-vector or
+    13-row column: two yaw-rotated rows at 5, four single couplings at 2
+    and the double one at 4).  `nbd` > 0 adds the
+    in-kernel linearization: I_w^-1 (243) and `nbd` Bd blocks of nu / 3
+    feet (66 per foot: the moment arm, I_w^-1 [r]x, the scaled rows) --
+    N blocks walking, one step-invariant block standing."""
+    n, nx = nu * N, 13
+    ad_vec = 2 * nx * nx if dense_ad else 22   # Ad x, Ad' t, one column
+    blocks, pairs = N * (N + 1) // 2, N * (N - 1) // 2
+    prep = (243 + 66 * nbd * (nu // 3)) if nbd else 0
+    gram = (N - 1) * (2 * nx * ad_vec + nx)    # Ad' W, (.) Ad, + Q
+    band = (n * 2 * nx * nx                    # t = W_k Bd_k column
+            + blocks * nu * nu * (2 * nx + 1)  # K blocks 2 t' Bd_j
+            + pairs * nu * ad_vec)             # t <- Ad' t
+    fsweep = N * (2 * ad_vec + 3 * nx + nu * (2 * nx + 1))
+    chol = n ** 3 / 3
+    sweeps = 2 * (iters + 1) * n * n           # forward + backward, n^2 each
+    cone = ((iters + 2) * 10 * n               # G z: 5 per row, 2 n rows
+            + (iters + 1) * 20 * n             # -f + rho G'(v - y)
+            + iters * 12 * n)                  # relaxation, clip, dual
+    pred = ad_vec + 2 * nx * nu
+    return prep + gram + band + fsweep + chol + sweeps + cone + pred
+
+
+def bound(B: int, floats_in: int, floats_out: int, flops: float) -> dict:
+    """The least time the card could take: every input read once and every
+    output written once over the HBM rate, or the operations over the f32
+    rate, whichever is larger."""
+    t_bytes = 4.0 * B * (floats_in + floats_out) / HBM_BPS * 1e3
+    t_ops = B * flops / F32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes_ms=t_bytes, bound_operations_ms=t_ops)
+
+
+def tick_bound(cfg, B: int, est_kf: bool, hold: bool) -> dict:
+    """Bound of one tick kernel launch from its tensors' shapes (the
+    pointer lists of ops/tick_fused_cuda.py) and the operations of the MPC
+    core (none when holding), the filter (~6k) and the scalar tick (~1k)."""
+    nu = 6 if cfg.mode == "stand" else 3
+    n = nu * cfg.srbd.horizon
+    state, cmd = 13 + 6 + 3 + 3, 3 + 1 + 3 + 1
+    f_in = state + cmd + (6 if hold else 3 * n) + (165 if est_kf else 0)
+    f_out = state + 3 + 1 + 6 + 3 + (0 if hold else 3 * n) \
+        + (156 if est_kf else 0)
+    N = cfg.srbd.horizon
+    flops = 1e3 + (6e3 if est_kf else 0.0) + (0.0 if hold else core_flops(
+        N, nu, cfg.srbd.solver.admm_warm_iters, dense_ad=False,
+        nbd=1 if cfg.mode == "stand" else N))
+    return bound(B, f_in, f_out, flops)
+
+
+def qp_inputs(cfg, nu: int, B: int, seed: int, device):
+    """Inputs of the generic fused QP: the SRBD matrices of perturbed
+    poses with a dense perturbation on Ad (the kernel takes any Ad), a
+    walking reference and a warm state, drawn with numpy."""
+    from mpc_limx_control_tpu_torch.models import srbd
+
+    N = cfg.srbd.horizon
+    rng = np.random.default_rng(seed)
+    feet = nu // 3
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32,
+                            device=device)
+
+    pos = np.array([0.0, 0.0, 0.65]) + 0.02 * rng.standard_normal((B, 3))
+    ori = np.concatenate([0.01 * rng.standard_normal((B, 2)),
+                          0.1 * rng.standard_normal((B, 1))], -1)
+    x0 = srbd.initial_state(t(ori), t(pos), t(np.zeros((B, 3))),
+                            t(0.1 * rng.standard_normal((B, 3))))
+    arms = (pos[:, None, None, :] + np.array([0.0, 0.1, -0.65])
+            + 0.03 * rng.standard_normal((B, N, feet, 3)))
+    if feet == 2:
+        arms[:, :, 1, 1] -= 0.2
+    Ac, Bc = srbd.linearize_shared(cfg.robot, t(arms.reshape(B, -1, 3)),
+                                   x0[:, 3:6], x0[:, 2])
+    Ad, Bd = srbd.discretize_srbd(Ac, Bc, cfg.srbd.ts)
+    Bd_t = Bd.reshape(B, N, feet, 13, 3).permute(0, 1, 3, 2, 4).reshape(
+        B, N, 13, nu)
+    Ad = Ad + t(2e-3 * rng.standard_normal((B, 13, 13)))
+    x_ref = srbd.walking_reference(
+        x0, cfg.srbd, N, t(np.tile([0.3, 0.0, 0.0], (B, 1))),
+        t(0.05 * rng.standard_normal(B)), height_des=0.65)
+    return (Ad.contiguous(), Bd_t.contiguous(), x_ref.contiguous(),
+            x0.contiguous(), t(5.0 * rng.standard_normal((B, N * nu))),
+            t(np.abs(rng.standard_normal((B, 2 * N * nu)))))
+
+
 def perturbed_states(cfg, B: int, seed: int, device, yaw: float = 0.1):
-    """Initial walking states with perturbed vx, vy and yaw
+    """Initial states with perturbed vx, vy and yaw
     (tests/test_tick_fused.py:_states recipe, drawn with numpy)."""
     from mpc_limx_control_tpu_torch.control import rollout as ro
 
     s0 = ro.initial_plant_state(cfg, batch=(B,), device=device)
+    if cfg.mode == "stand":
+        yaw = 0.0     # standing states are kicked in vx / vy only
     rng = np.random.default_rng(seed)
     xi = s0.xi.clone()
     noise = torch.tensor(rng.standard_normal((3, B)), dtype=torch.float32,
@@ -126,10 +243,10 @@ def tick_both(cfg, s_k, s_p, its, held=None):
 
 
 def variant_vs_plain(cfg, est_kf: bool, hold: bool, B: int, device):
-    """A tick variant against the plain tick from states three plain
-    ticks in (the filter and prev_v / prev_q past their seed): one tick
-    and five threaded ticks. Returns (errors after one tick, after
-    five)."""
+    """A tick variant (walking or standing, by the config's mode) against
+    the plain tick from states three plain ticks in (the filter and
+    prev_v / prev_q past their seed): one tick and five threaded ticks.
+    Returns (errors after one tick, after five)."""
     from mpc_limx_control_tpu_torch.control import rollout as ro
 
     if est_kf:
@@ -138,6 +255,7 @@ def variant_vs_plain(cfg, est_kf: bool, hold: bool, B: int, device):
     # joints' frame puts its measured feet ~10 cm from its state, and
     # within three ticks some swing targets leave the leg's reach, where
     # the IK branch is a tie that rounding decides
+    stand = cfg.mode == "stand"
     s0 = perturbed_states(cfg, B, seed=1, device=device,
                           yaw=0.0 if est_kf else 0.1)
     pattern = torch.tensor([0.0, 40.0, 180.0, 299.0, 300.0, 455.0],
@@ -154,8 +272,15 @@ def variant_vs_plain(cfg, est_kf: bool, hold: bool, B: int, device):
                  foot_r=maxerr(s_k.foot_r, s_p.foot_r),
                  grf=maxerr(m_k["grf"], m_p["grf"]),
                  target=maxerr(m_k["foot_target"], m_p["foot_target"]),
-                 anchor=maxerr(s_k.ref_anchor, s_p.ref_anchor),
                  finite=bool(torch.isfinite(s_k.xi).all()))
+        if stand:
+            check(s_k.ref_anchor is None, "standing state grew an anchor")
+            e["anchor"] = 0.0
+            if not hold:
+                e["z"] = maxerr(s_k.qp_z, s_p.qp_z)
+                e["z_scale"] = float(s_p.qp_z.abs().max()) + 1.0
+        else:
+            e["anchor"] = maxerr(s_k.ref_anchor, s_p.ref_anchor)
         if hold:
             e["res_max"] = float(m_k["qp_residual"].abs().max())
         if est_kf:
@@ -216,6 +341,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     kernels = {"walking_mpc_prep": mfc.WALKING_MPC_PREP}
     kernels.update({VARIANTS[v]: k for v, k in tfc.TICK_KERNELS.items()})
+    kernels.update({STAND_VARIANTS[v]: k
+                    for v, k in tfc.STAND_KERNELS.items()})
+    kernels.update({f"fused_qp_nu{nu}": k for nu, k in mfc.FUSED_QP.items()})
+    for name, kern in kernels.items():
+        check(kern.name == name, f"kernel {kern.name} listed as {name}")
 
     # ---- 1. environment ------------------------------------------------
     smi = subprocess.run(
@@ -240,7 +370,9 @@ def main() -> int:
              if "registers" in ln or "Compiling entry" in ln]
     lib = info["lib"]
     smem = {f"{name}_N{N}": getattr(lib, f"{name}_smem_bytes")(N)
-            for name in ("walking_mpc_prep", "walking_tick", "walking_tick_kf")
+            for name in ("walking_mpc_prep", "walking_tick", "walking_tick_kf",
+                         "standing_tick", "standing_tick_kf", "fused_qp_nu3",
+                         "fused_qp_nu6")
             for N in (8, 20)}
     say("build", seconds=round(info["seconds"], 3), built=info["built"],
         library=info["path"], ptxas=ptxas, dynamic_smem_bytes=smem)
@@ -249,6 +381,14 @@ def main() -> int:
     summary["walking_mpc_prep"].update(source=PREP_SRC, replaces=PREP_TPU)
     for name in VARIANTS.values():
         summary[name].update(source=TICK_SRC, replaces=TICK_TPU)
+    for name in STAND_VARIANTS.values():
+        summary[name].update(source=STAND_SRC, replaces=TICK_TPU)
+    for nu in mfc.FUSED_QP:
+        summary[f"fused_qp_nu{nu}"].update(source=QP_SRC, replaces=QP_TPU)
+    # no single PyTorch call computes a whole tick or a condensed-QP ADMM
+    # solve, so no kernel has a library yardstick
+    for k in kernels:
+        summary[k]["library_ms"] = None
 
     # ---- 3. walking_mpc_prep vs its plain version -----------------------
     base = ControllerConfig.walking()
@@ -275,6 +415,29 @@ def main() -> int:
         if N == 20:
             prep_err = e["u"]
     summary["walking_mpc_prep"]["max_abs_err"] = prep_err
+
+    # the generic fused QP (given, dense Ad), one and two feet per step
+    for nu in mfc.FUSED_QP:
+        args = qp_inputs(base, nu, 257, seed=40 + nu, device=dev)
+        solve = mfc.make_admm_fused(base.srbd, two_feet=nu == 6)
+        sol, (z, y) = solve(*args)
+        torch.cuda.synchronize()
+        sol_p, (z_p, y_p) = mfc.make_admm_fused(
+            base.srbd, two_feet=nu == 6, solve_form="subst")(*args)
+        # bands a few times the f32 rounding of the two routes, each on
+        # its own scale: forces of ~100 N, duals of a few N
+        scale = float(z_p.abs().max()) + 1.0
+        y_scale = float(y_p.abs().max()) + 1.0
+        e = dict(u=maxerr(z, z_p), y=maxerr(y, y_p),
+                 res=maxerr(sol.residual, sol_p.residual))
+        say("fused_qp_vs_plain", nu=nu, N=20, B=257, scale=scale,
+            y_scale=y_scale, **e, finite=bool(torch.isfinite(z).all()))
+        check(bool(torch.isfinite(z).all() and torch.isfinite(y).all()),
+              f"fused_qp_nu{nu} output not finite")
+        check(e["u"] <= 1e-4 * scale, f"nu={nu} u error {e['u']}")
+        check(e["y"] <= 1e-4 * y_scale, f"nu={nu} y error {e['y']}")
+        check(e["res"] <= 1e-4, f"nu={nu} residual error {e['res']}")
+        summary[f"fused_qp_nu{nu}"]["max_abs_err"] = e["u"]
 
     # ---- 4. walking_tick vs the plain tick ------------------------------
     cfg = base
@@ -331,6 +494,32 @@ def main() -> int:
                   f"{name}: held tick with a non-zero residual")
         summary[name]["max_abs_err"] = v1["xi"]
 
+    # the four standing forms at full width (n = 120), same bands; the
+    # feet do not move, the solving forms' z within 2e-3 of its scale
+    scfg = ControllerConfig.standing()
+    for (est_kf, hold), name in STAND_VARIANTS.items():
+        v1, v5 = variant_vs_plain(scfg, est_kf, hold, B, dev)
+        say("variant_vs_plain", kernel=name, B=B, one=v1, five=v5)
+        bands1 = [("xi", 3e-4), ("q", 5e-4), ("foot_l", 0.0),
+                  ("foot_r", 0.0), ("grf", 5e-2), ("target", 5e-4)]
+        bands5 = [("xi", 5e-4), ("q", 1e-3), ("grf", 2e-1)]
+        if est_kf:
+            bands1 += [("x_hat", 5e-4), ("p_cov", 1e-5), ("est_error", 5e-4)]
+            bands5 += [("x_hat", 5e-4), ("p_cov", 1e-5)]
+        for k, tol in bands1:
+            check(v1[k] <= tol, f"{name} one-tick {k} error {v1[k]} > {tol}")
+        for k, tol in bands5:
+            check(v5[k] <= tol, f"{name} five-tick {k} error {v5[k]} > {tol}")
+        check(v1["finite"] and v5["finite"], f"{name}: non-finite state")
+        if hold:
+            check(v1["res_max"] == 0.0 and v5["res_max"] == 0.0
+                  and v1["grf"] == 0.0,
+                  f"{name}: held tick changed the force or has a residual")
+        else:
+            check(v1["z"] <= 2e-3 * v1["z_scale"],
+                  f"{name} z error {v1['z']} > 2e-3*{v1['z_scale']}")
+        summary[name]["max_abs_err"] = v1["xi"]
+
     # ---- 5. the main paths: closed-loop quality on the kernels ----------
     # Each path runs with every launch counter set to 0 just before it and
     # read just after: its kernels must have launched once per tick of
@@ -352,13 +541,13 @@ def main() -> int:
         for k, v in got.items():
             launches[k] += v
 
-    def ticks(est_kf, steps, mpc_every=1):
+    def ticks(est_kf, steps, mpc_every=1, names=VARIANTS):
         """Launches of a batched rollout: one per tick, the solving
         variant on every mpc_every-th tick, the hold variant between."""
         solves = steps // mpc_every
-        out = {VARIANTS[(est_kf, False)]: solves}
+        out = {names[(est_kf, False)]: solves}
         if steps > solves:
-            out[VARIANTS[(est_kf, True)]] = steps - solves
+            out[names[(est_kf, True)]] = steps - solves
         return out
 
     # the four bench.py walking scenarios, truth odometry
@@ -515,11 +704,115 @@ def main() -> int:
     path("soak_dtmpc", lambda: soak("soak_dtmpc", cfg, 5),
          ticks(False, NW * W, 5))
 
+    # ---- standing (BASELINE config 2): N = 20, nu = 6, n = 120 ----------
+    kscfg = dataclasses.replace(scfg, estimator_mode="kf")
+    vy_kick = torch.tensor([0.0] * 10 + [0.05, 0.0, 0.0], device=dev)
+
+    def stand_gate():
+        # bench.py:153-161: a lateral kick, 2000 ticks
+        s = ro.initial_plant_state(scfg, device=dev)
+        _, m = ro.rollout(scfg, s.replace(xi=s.xi + vy_kick), 2000)
+        q["stand_height"] = float(m["height"][-500:].mean())
+        q["stand_height_min"] = float(m["height"].min())
+        q["stand_vy_final"] = float(m["velocity"][-1, 1])
+        q["stand_ok"] = bool(torch.isfinite(m["height"]).all()
+                             and abs(q["stand_height"] - 0.65) < 0.01)
+
+    def kf_stand_gate():
+        # bench.py:237-251: the filter with both feet in contact
+        _, m = ro.rollout(kscfg, ro.initial_plant_state(kscfg, device=dev),
+                          1200)
+        h, cov = m["height"], m["kf_cov_pos"]
+        q["kf_stand_height"] = float(h[-300:].mean())
+        q["kf_stand_height_min"] = float(h.min())
+        q["kf_stand_est_error_max"] = float(m["est_error"].max())
+        q["kf_stand_ok"] = bool(torch.isfinite(h).all()
+                                and abs(q["kf_stand_height"] - 0.65) < 0.04
+                                and q["kf_stand_height_min"] > 0.6
+                                and torch.isfinite(cov).all())
+
+    def stand_dtmpc(name, c):
+        # a solve every 5 ticks, the force pair held as given between
+        Bd_ = 64
+        s = ro.initial_plant_state(c, batch=(Bd_,), device=dev)
+        kick = torch.tensor(np.outer(np.random.default_rng(3)
+                                     .standard_normal(Bd_), np.eye(13)[10]),
+                            dtype=torch.float32, device=dev)
+        f, m = ro.batched_rollout(c, s.replace(xi=s.xi + 0.05 * kick), 1000,
+                                  mpc_every=5)
+        res = m["qp_residual"]
+        q[f"{name}_height"] = float(m["height"][:, -250:].mean())
+        q[f"{name}_height_min"] = float(m["height"].min())
+        q[f"{name}_ok"] = bool(
+            torch.isfinite(f.xi).all()
+            and abs(q[f"{name}_height"] - 0.65) < 0.04
+            and q[f"{name}_height_min"] > 0.6
+            and (res[:, ::5] > 0).all()
+            and float(res.view(Bd_, -1, 5)[:, :, 1:].abs().max()) == 0.0)
+
+    path("stand", stand_gate, ticks(False, 2000, names=STAND_VARIANTS))
+    path("kf_stand", kf_stand_gate, ticks(True, 1200, names=STAND_VARIANTS))
+    path("stand_dtmpc", lambda: stand_dtmpc("stand_dtmpc", scfg),
+         ticks(False, 1000, 5, names=STAND_VARIANTS))
+    path("kf_stand_dtmpc", lambda: stand_dtmpc("kf_stand_dtmpc", kscfg),
+         ticks(True, 1000, 5, names=STAND_VARIANTS))
+
+    # controller.tick in stand mode: stance_mpc -> make_admm_fused ->
+    # fused_qp_nu6, closed through the plain plant step
+    Ts = 300
+
+    def stand_ctrl_tick_loop():
+        sc = ro.initial_plant_state(scfg, batch=(Bc,), device=dev)
+        sc = sc.replace(xi=sc.xi + vy_kick)
+        hs = []
+        for t in range(Ts):
+            sc, mc = ro._plant_step_ref(scfg, sc, torch.full(
+                (Bc,), float(t), device=dev))
+            hs.append(mc["height"])
+        hs = torch.stack(hs, 1)
+        q["stand_ctrl_tick_height"] = float(hs[:, -50:].mean())
+        q["stand_ctrl_tick_ok"] = bool(
+            torch.isfinite(hs).all()
+            and float((hs - 0.65).abs().max()) < 0.01)
+
+    path("stand_ctrl_tick", stand_ctrl_tick_loop, {"fused_qp_nu6": Ts})
+
+    # make_admm_fused with one foot per step (fused_qp_nu3): the walking
+    # QP from plain-torch SRBD matrices, which walking_mpc_prep builds in
+    # the kernel -- the two kernels must agree on the same QP
+    def qp_entry():
+        from mpc_limx_control_tpu_torch.models import srbd
+
+        solve = mfc.make_admm_fused(cfg.srbd)
+        worst = 0.0
+        for seed in range(5):
+            arms, x0, v_des, w_des, z_w, y_w, anc = prep_inputs(
+                cfg, 64, seed=60 + seed, device=dev)
+            Ac, Bc = srbd.linearize_shared(cfg.robot, arms, x0[:, 3:6],
+                                           x0[:, 2])
+            Ad, Bd_t = srbd.discretize_srbd(Ac, Bc, cfg.srbd.ts)
+            anc3 = torch.cat([anc[:, :2], torch.zeros_like(anc[:, :1])], -1)
+            x_ref = srbd.walking_reference(
+                x0, cfg.srbd, cfg.srbd.horizon, v_des, w_des,
+                height_des=cfg.ground_height + cfg.base_height,
+                pos_anchor=anc3, yaw_anchor=anc[:, 2])
+            sol, _ = solve(Ad, Bd_t, x_ref, x0, z_w, y_w)
+            z_prep = mfc.fused_walking_qp_prep(arms, x0, v_des, w_des, z_w,
+                                               y_w, anc, cfg=cfg)[0]
+            worst = max(worst, maxerr(sol.u, z_prep)
+                        / (float(z_prep.abs().max()) + 1.0))
+        q["qp_entry_vs_prep_rel"] = worst
+        q["qp_entry_ok"] = bool(worst <= 2e-3)
+
+    path("qp_entry", qp_entry, {"fused_qp_nu3": 5, "walking_mpc_prep": 5})
+
     q["main_path_s"] = time.perf_counter() - t_main
     say("quality", launches=launches, **q)
     for k in ("walk_ok", "turn_ok", "push_ok", "terrain_ok", "ctrl_tick_ok",
               "kf_ok", "kf_turn_ok", "kf_push_ok", "dtmpc_ok", "kf_dtmpc_ok",
-              "soak_kf_ok", "soak_dtmpc_ok"):
+              "soak_kf_ok", "soak_dtmpc_ok", "stand_ok", "kf_stand_ok",
+              "stand_dtmpc_ok", "kf_stand_dtmpc_ok", "stand_ctrl_tick_ok",
+              "qp_entry_ok"):
         check(q[k], f"quality gate {k} failed: {q}")
     for k in kernels:
         summary[k]["launches"] = launches[k]
@@ -535,6 +828,14 @@ def main() -> int:
                 tau=maxerr(cmd_k.tau, cmd_p.tau))
     say("ctrl_tick_vs_plain", B=B, **e_ct)
     check(e_ct["grf"] <= 5e-2, f"controller.tick grf error {e_ct}")
+    ss = perturbed_states(scfg, B, seed=6, device=dev)
+    stand_ticks = [ctrl.tick(scfg, ro._odom_from_xi(ss.xi), _joints(ss), its,
+                             qp_warm=(ss.qp_z, ss.qp_lam), solve_form=form)
+                   for form in (None, "subst")]
+    e_st = dict(grf=maxerr(stand_ticks[0][1].grf, stand_ticks[1][1].grf),
+                tau=maxerr(stand_ticks[0][0].tau, stand_ticks[1][0].tau))
+    say("stand_ctrl_tick_vs_plain", B=B, **e_st)
+    check(e_st["grf"] <= 5e-2, f"standing controller.tick grf error {e_st}")
 
     # ---- 6. timing ------------------------------------------------------
     # per call, plain version first and last, the kernel twice between
@@ -556,57 +857,96 @@ def main() -> int:
                                               solve_form="subst"), Bt)
         say("timing", kernel="walking_mpc_prep", B=Bt, card=smi,
             **prep_t[Bt])
-    summary["walking_mpc_prep"].update(ms=prep_t[4096]["ms"],
-                                       plain_ms=prep_t[4096]["plain_ms"])
+    N20, it5 = cfg.srbd.horizon, cfg.srbd.solver.admm_warm_iters
+    summary["walking_mpc_prep"].update(
+        ms=prep_t[4096]["ms"], plain_ms=prep_t[4096]["plain_ms"],
+        # in: x0, arms, v_des, yaw rate, z, y, anchor; out: z, y, res, xp
+        **bound(4096, 13 + 3 * N20 + 3 + 1 + 9 * N20 + 3, 9 * N20 + 1 + 13,
+                core_flops(N20, 3, it5, dense_ad=False, nbd=N20)))
+
+    for nu in mfc.FUSED_QP:
+        name = f"fused_qp_nu{nu}"
+        two = nu == 6
+        qt = {}
+        for Bt in reps:
+            args = qp_inputs(cfg, nu, Bt, seed=8, device=dev)
+            kern = mfc.make_admm_fused(cfg.srbd, two_feet=two)
+            plain = mfc.make_admm_fused(cfg.srbd, two_feet=two,
+                                        solve_form="subst")
+            qt[Bt] = turns(lambda: kern(*args), lambda: plain(*args), Bt)
+        say("timing", kernel=name, card=smi,
+            **{f"B{k}": v for k, v in qt.items()})
+        n = nu * N20
+        summary[name].update(
+            ms=qt[4096]["ms"], plain_ms=qt[4096]["plain_ms"],
+            # in: Ad, Bd_t, x_ref, x0, z, y; out: z, y, res
+            **bound(4096, 169 + N20 * 13 * nu + (N20 + 1) * 13 + 13 + 3 * n,
+                    3 * n + 1, core_flops(N20, nu, it5, dense_ad=True)))
 
     # each tick form: the tick through plant_step against the plain tick,
     # and the kernel alone (repeated launches on fixed buffers; the host
     # enqueues a launch in ~0.01 ms, so this is the device time of any
     # launch longer than that)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for (est_kf, hold), name in VARIANTS.items():
-        c = kcfg if est_kf else cfg
-        vt = {}
-        for Bt in reps:
-            st = perturbed_states(c, Bt, seed=3, device=dev)
-            it = torch.full((Bt,), 123.0, device=dev)
-            vd = torch.tensor(c.desired_velocity, device=dev).expand(
-                Bt, 3).contiguous()
-            held = (torch.tensor([0.0, 0.0, 0.0, 2.0, -1.0, 180.0],
-                                 device=dev).expand(Bt, 6).contiguous()
-                    if hold else None)
-            vt[Bt] = turns(
-                lambda: ro.plant_step(c, st, it, grf_override=held,
-                                      v_des=vd),
-                lambda: ro._plant_step_ref(c, st, it, grf_override=held,
-                                           v_des=vd, solve_form="subst"),
-                Bt)
-            kf_args = {} if st.kf is None else dict(
-                kf_x=st.kf.x_hat, kf_p=st.kf.p_cov, prev_v=st.prev_v,
-                prev_q=st.prev_q)
-            plan = tfc.prepare_tick_launch(
-                st.xi, st.q, st.foot_l, st.foot_r, st.qp_z, st.qp_lam,
-                st.ref_anchor, it, vd, torch.zeros(Bt, device=dev),
-                grf_held=held, cfg=c, **kf_args)
-            vt[Bt]["kernel_ms"] = cuda_time_ms(
-                lambda: plan.kernel.launch(plan.params, plan.ptrs,
-                                           plan.batch, stream),
-                reps[Bt][0])
-        say("timing", kernel=name, card=smi,
-            **{f"B{k}": v for k, v in vt.items()})
-        summary[name].update(ms=vt[4096]["ms"], plain_ms=vt[4096]["plain_ms"],
-                             kernel_ms=vt[4096]["kernel_ms"])
+    forms = [(cfg, kcfg, VARIANTS), (scfg, kscfg, STAND_VARIANTS)]
+    for c_truth, c_kf, names in forms:
+        for (est_kf, hold), name in names.items():
+            c = c_kf if est_kf else c_truth
+            vt = {}
+            for Bt in reps:
+                st = perturbed_states(c, Bt, seed=3, device=dev)
+                it = torch.full((Bt,), 123.0, device=dev)
+                vd = torch.tensor(c.desired_velocity, device=dev).expand(
+                    Bt, 3).contiguous()
+                held = (torch.tensor([0.0, 0.0, 0.0, 2.0, -1.0, 180.0],
+                                     device=dev).expand(Bt, 6).contiguous()
+                        if hold else None)
+                vt[Bt] = turns(
+                    lambda: ro.plant_step(c, st, it, grf_override=held,
+                                          v_des=vd),
+                    lambda: ro._plant_step_ref(c, st, it, grf_override=held,
+                                               v_des=vd, solve_form="subst"),
+                    Bt)
+                kf_args = {} if st.kf is None else dict(
+                    kf_x=st.kf.x_hat, kf_p=st.kf.p_cov, prev_v=st.prev_v,
+                    prev_q=st.prev_q)
+                anc = (st.ref_anchor if st.ref_anchor is not None
+                       else torch.cat([st.xi[:, 3:5], st.xi[:, 2:3]],
+                                      -1).contiguous())
+                plan = tfc.prepare_tick_launch(
+                    st.xi, st.q, st.foot_l, st.foot_r, st.qp_z, st.qp_lam,
+                    anc, it, vd, torch.zeros(Bt, device=dev),
+                    grf_held=held, cfg=c, **kf_args)
+                vt[Bt]["kernel_ms"] = cuda_time_ms(
+                    lambda: plan.kernel.launch(plan.params, plan.ptrs,
+                                               plan.batch, stream),
+                    reps[Bt][0])
+            say("timing", kernel=name, card=smi,
+                **{f"B{k}": v for k, v in vt.items()})
+            summary[name].update(
+                ms=vt[4096]["ms"], plain_ms=vt[4096]["plain_ms"],
+                kernel_ms=vt[4096]["kernel_ms"],
+                **tick_bound(c, 4096, est_kf, hold))
 
     # closed-loop rate through batched_rollout at B = 4096
     rates = {}
     for name, c, me in (("truth", cfg, 1), ("kf", kcfg, 1),
-                        ("dtmpc", cfg, 5), ("kf_dtmpc", kcfg, 5)):
-        r1, ms1 = loop_rate(c, 4096, 200, dev, mpc_every=me)
-        r2, ms2 = loop_rate(c, 4096, 200, dev, mpc_every=me)
+                        ("dtmpc", cfg, 5), ("kf_dtmpc", kcfg, 5),
+                        ("stand", scfg, 1), ("kf_stand", kscfg, 1),
+                        ("stand_dtmpc", scfg, 5),
+                        ("kf_stand_dtmpc", kscfg, 5)):
+        steps = 200 if c.mode == "walk" else 100
+        r1, ms1 = loop_rate(c, 4096, steps, dev, mpc_every=me)
+        r2, ms2 = loop_rate(c, 4096, steps, dev, mpc_every=me)
         rates[name] = dict(scenario_ticks_per_s=max(r1, r2),
                            ms_per_tick=min(ms1, ms2), runs=[r1, r2])
-    say("loop_rate", B=4096, ticks=200, card=smi, **rates)
+    say("loop_rate", B=4096, card=smi, **rates)
 
+    for k in kernels:
+        missing = {"name", "route", "source", "replaces", "launches",
+                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms"} - set(summary[k])
+        check(not missing, f"kernel {k}: summary lacks {missing}")
     print(json.dumps({"kernels": [summary[k] for k in kernels]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

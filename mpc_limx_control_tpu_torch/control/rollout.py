@@ -1,21 +1,23 @@
-"""Batched closed-loop walking simulation harness.
+"""Batched closed-loop simulation harness, walking and standing.
 
 Counterpart of ``mpc_limx_control_tpu.control.rollout``: a batched SRBD
 plant driven by the controller tick, with the swing leg tracking its
 command ideally and the stance foot pinned where it touched down (its
-joints from IK). The controller sees the plant truth
+joints from IK); standing, both feet stay pinned. The controller sees the
+plant truth
 (``estimator_mode="truth"``) or the 12-state Kalman filter's estimate fed
 by sensors synthesized from the truth (``"kf"``). Batch-first throughout.
 
 Dispatch of :func:`plant_step`:
 
 * CUDA tensors and a config :func:`ops.tick_fused_cuda.supports_fused_tick`
-  accepts (walk mode; truth or KF odometry): the whole tick is ONE launch
-  of a ``walking_tick`` kernel variant, chosen by the estimator and by
-  whether the tick holds a force (``grf_override``, the dtMPC schedule);
-* CUDA tensors with any other config (standing, the receding attitude
-  reference, ...): NotImplementedError naming the ROADMAP item that ports
-  it;
+  accepts (walk or stand mode; truth or KF odometry): the whole tick is
+  ONE launch of a ``walking_tick`` / ``standing_tick`` kernel variant,
+  chosen by the mode, the estimator and by whether the tick holds a force
+  (``grf_override``, the dtMPC schedule);
+* CUDA tensors with any other config (the receding attitude reference,
+  iterative IK, ...): NotImplementedError naming the ROADMAP item that
+  ports it;
 * CPU tensors: :func:`_plant_step_ref`, the plain composition, as the JAX
   package runs off the TPU.
 
@@ -33,7 +35,8 @@ import torch
 
 from mpc_limx_control_tpu_torch.core.config import ControllerConfig
 from mpc_limx_control_tpu_torch.core.types import (ImuData, JointState,
-                                                   KFState, OdomState)
+                                                   KFState, OdomState,
+                                                   default_device)
 from mpc_limx_control_tpu_torch.control import controller as ctrl
 from mpc_limx_control_tpu_torch.control import estimator as est
 from mpc_limx_control_tpu_torch.control import gait as gaitmod
@@ -82,8 +85,10 @@ def initial_plant_state(cfg: ControllerConfig, batch=(), device=None,
                         dtype=torch.float32) -> PlantState:
     """Standing at the configured base height, feet at their nominal
     offsets on the ground, joints from IK; in KF mode the filter starts at
-    the true pose and feet. ``batch`` is () for one scenario or (B,)."""
+    the true pose and feet. ``batch`` is () for one scenario or (B,). The
+    state is created on the card unless ``device`` says otherwise."""
     batch = tuple(batch)
+    device = default_device(device)
     B = batch[0] if batch else 1
 
     def t(v):
@@ -180,7 +185,11 @@ def _kf_estimate(cfg: ControllerConfig, state: PlantState,
                   gyro=(R_wb.transpose(-1, -2)
                         @ truth.v_ori[..., None])[..., 0])
     ls = gaitmod.gait_clock(cfg.gait, iteration).left_swing
-    contact = torch.stack([~ls, ls], -1)
+    if cfg.mode == "stand":
+        contact = torch.ones((*ls.shape, 2), dtype=torch.bool,
+                             device=ls.device)
+    else:
+        contact = torch.stack([~ls, ls], -1)
     out = est.estimator_tick(cfg, state.kf, joints, imu, contact, dt)
     return out.kf, out.odom, truth
 
@@ -198,8 +207,9 @@ def plant_step(cfg: ControllerConfig, state: PlantState,
     (new_state, metrics) with metrics[k] [B, ...].
 
     With ``grf_override`` [B,6] the MPC solve is skipped and the given
-    force held on the foot now in stance (the intermediate ticks of the
-    reference's mpcStep = 5 re-solve schedule, include/MPCParam.h:46-47).
+    force held: walking, on the foot now in stance; standing, on both feet
+    as given (the intermediate ticks of the reference's mpcStep = 5
+    re-solve schedule, include/MPCParam.h:46-47).
     ``v_des`` overrides the configured velocity command. See the module
     docstring for the dispatch."""
     if state.xi.device.type == "cpu":
@@ -227,7 +237,9 @@ def plant_step(cfg: ControllerConfig, state: PlantState,
         tfc.fused_walking_tick(
             state.xi, state.q, state.foot_l, state.foot_r, state.qp_z,
             state.qp_lam, anc.contiguous(), it.contiguous(),
-            vd.contiguous(), wd, grf_held=grf_override, cfg=cfg, **kf_args)
+            vd.contiguous(), wd, cfg=cfg, **kf_args,
+            grf_held=(None if grf_override is None
+                      else grf_override.contiguous()))
     new_state = PlantState(
         xi=xi, q=q, foot_l=fl, foot_r=fr, qp_z=z, qp_lam=y,
         ref_anchor=anc_n if state.ref_anchor is not None else None)
@@ -276,9 +288,13 @@ def _plant_step_ref(cfg: ControllerConfig, state: PlantState,
                           ref_anchor=state.ref_anchor, solve_form=solve_form)
 
     # ---- SRBD dynamics with the commanded GRF (exact ZOH, vector form) --
+    stand = cfg.mode == "stand"
     ls = gaitmod.gait_clock(cfg.gait, iteration).left_swing
-    on_l = 1.0 - ls.to(dtype)
-    on_r = ls.to(dtype)
+    if stand:
+        on_l = on_r = torch.ones((B,), dtype=dtype, device=device)
+    else:
+        on_l = 1.0 - ls.to(dtype)
+        on_r = ls.to(dtype)
     feet = torch.stack([state.foot_l, state.foot_r], -2)
     forces = torch.stack([diag.grf[:, 0:3] * on_l[:, None],
                           diag.grf[:, 3:6] * on_r[:, None]], -2)
@@ -290,24 +306,36 @@ def _plant_step_ref(cfg: ControllerConfig, state: PlantState,
     R_new = rot.quat_to_rot(rot.rpy_to_quat(xi_new[:, 0:3]))
     gl = kin.leg_geometry(cfg.robot.legs, "left", dtype, device)
     gr = kin.leg_geometry(cfg.robot.legs, "right", dtype, device)
-    # swing leg executes its command; stance leg keeps its foot pinned
-    q_sw = torch.where(ls[:, None], cmd.q[:, :3], cmd.q[:, 3:])
-    p_sw_b = kin.forward_kinematics(kin.select_geometry(ls, gl, gr), q_sw)
-    p_sw_w = base_new + (R_new @ p_sw_b[..., None])[..., 0]
-    # rigid ground: the swing foot cannot penetrate the support surface
-    p_sw_w = torch.cat([p_sw_w[:, :2],
-                        torch.clamp(p_sw_w[:, 2:3], min=cfg.ground_height)],
-                       -1)
-    foot_l = torch.where(ls[:, None], p_sw_w, state.foot_l)
-    foot_r = torch.where(ls[:, None], state.foot_r, p_sw_w)
-    foot_st = torch.where(ls[:, None], foot_r, foot_l)
-    q_prev_st = torch.where(ls[:, None], state.q[:, 3:], state.q[:, :3])
-    q_st = kin.inverse_kinematics_analytic(
-        kin.select_geometry(ls, gr, gl),
-        (R_new.transpose(-1, -2) @ (foot_st - base_new)[..., None])[..., 0],
-        q_prev_st)
-    q_new = torch.where(ls[:, None], torch.cat([q_sw, q_st], -1),
-                        torch.cat([q_st, q_sw], -1))
+
+    def to_base(p_w):
+        return (R_new.transpose(-1, -2) @ (p_w - base_new)[..., None])[..., 0]
+
+    if stand:
+        # both feet stay pinned; both legs re-solved from the new base pose
+        foot_l, foot_r = state.foot_l, state.foot_r
+        q_new = torch.cat([
+            kin.inverse_kinematics_analytic(gl, to_base(foot_l),
+                                            state.q[:, :3]),
+            kin.inverse_kinematics_analytic(gr, to_base(foot_r),
+                                            state.q[:, 3:])], -1)
+    else:
+        # swing leg executes its command; stance leg keeps its foot pinned
+        q_sw = torch.where(ls[:, None], cmd.q[:, :3], cmd.q[:, 3:])
+        p_sw_b = kin.forward_kinematics(kin.select_geometry(ls, gl, gr),
+                                        q_sw)
+        p_sw_w = base_new + (R_new @ p_sw_b[..., None])[..., 0]
+        # rigid ground: the swing foot cannot penetrate the support surface
+        p_sw_w = torch.cat(
+            [p_sw_w[:, :2],
+             torch.clamp(p_sw_w[:, 2:3], min=cfg.ground_height)], -1)
+        foot_l = torch.where(ls[:, None], p_sw_w, state.foot_l)
+        foot_r = torch.where(ls[:, None], state.foot_r, p_sw_w)
+        foot_st = torch.where(ls[:, None], foot_r, foot_l)
+        q_prev_st = torch.where(ls[:, None], state.q[:, 3:], state.q[:, :3])
+        q_st = kin.inverse_kinematics_analytic(
+            kin.select_geometry(ls, gr, gl), to_base(foot_st), q_prev_st)
+        q_new = torch.where(ls[:, None], torch.cat([q_sw, q_st], -1),
+                            torch.cat([q_st, q_sw], -1))
     if cfg.qp_warm_start and diag.qp_state is not None:
         qp_z, qp_lam = diag.qp_state
     else:

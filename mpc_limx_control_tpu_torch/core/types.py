@@ -14,6 +14,13 @@ from typing import NamedTuple
 import torch
 
 
+def default_device(device=None) -> torch.device:
+    """The device of newly created state: the card unless the caller asks
+    for another one (``device="cpu"`` in the CPU tests). With no card,
+    creating the tensors raises torch's own error."""
+    return torch.device("cuda" if device is None else device)
+
+
 @dataclasses.dataclass(frozen=True)
 class OdomState:
     """Base-link odometry: pos/ori(rpy)/quat(x,y,z,w)/v_pos/v_ori."""
@@ -103,8 +110,10 @@ class KFState:
     @classmethod
     def initial(cls, batch=(), initial_covariance: float = 100.0,
                 dtype=torch.float32, device=None) -> "KFState":
-        """Zero estimate with covariance ``initial_covariance * I``."""
+        """Zero estimate with covariance ``initial_covariance * I``, on
+        the card unless ``device`` says otherwise."""
         batch = tuple(batch)
+        device = default_device(device)
         eye = torch.eye(12, dtype=dtype, device=device) * initial_covariance
         return cls(x_hat=torch.zeros((*batch, 12), dtype=dtype,
                                      device=device),

@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels of ``ops/csrc``.
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` (one
+``nvcc -c`` per ``.cu`` file, all started together, then one link) into one
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), loaded with ``ctypes``. The library lives in
 ``<checkout>/build/torch_kernels/`` under a name keyed by a hash of the
@@ -29,8 +30,14 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-lineinfo")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+# C functions of the library that take the horizon N and return bytes of
+# dynamic shared memory per block, and those that return sizeof(params)
+SMEM_SIZERS = ("walking_mpc_prep_smem_bytes", "walking_tick_smem_bytes",
+               "walking_tick_kf_smem_bytes", "standing_tick_smem_bytes",
+               "standing_tick_kf_smem_bytes", "fused_qp_nu3_smem_bytes",
+               "fused_qp_nu6_smem_bytes")
+PARAMS_SIZERS = ("walking_mpc_params_bytes", "walking_tick_params_bytes")
 
 
 def _sources():
@@ -58,6 +65,42 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(out: Path) -> str:
+    """Compile every ``.cu`` of ops/csrc to an object (the compilers run
+    side by side), link them into `out`; returns the compilers' reports."""
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=str(CSRC))))
+    log, failed = "", []
+    for src, obj, proc in jobs:
+        text = proc.communicate()[0]
+        log += f"--- {src.name}\n{text}"
+        if proc.returncode != 0:
+            failed.append(src.name)
+    objs = [str(obj) for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = BUILD_DIR / f"{tag}.tmp"
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", str(tmp), *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            Path(o).unlink(missing_ok=True)
+    return log
+
+
 @functools.lru_cache(maxsize=None)
 def build_library() -> dict:
     """Compile (if needed) and load the kernel library once per process.
@@ -69,26 +112,17 @@ def build_library() -> dict:
     out = BUILD_DIR / f"libmpc_torch_kernels_{source_hash()}.so"
     log, seconds, built = "", 0.0, False
     if not out.is_file():
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              cwd=str(CSRC))
+        log = _compile(out)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, out)
         built = True
     lib = ctypes.CDLL(str(out))
     lib.mpc_cuda_error_string.argtypes = [ctypes.c_int]
     lib.mpc_cuda_error_string.restype = ctypes.c_char_p
-    for name in ("walking_mpc_prep_smem_bytes", "walking_tick_smem_bytes",
-                 "walking_tick_kf_smem_bytes"):
+    for name in SMEM_SIZERS:
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
-    for name in ("walking_mpc_params_bytes", "walking_tick_params_bytes"):
+    for name in PARAMS_SIZERS:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     return {"lib": lib, "path": str(out), "seconds": seconds,

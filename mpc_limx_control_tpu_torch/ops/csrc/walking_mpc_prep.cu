@@ -20,7 +20,10 @@
 
 namespace {
 
-__global__ void __launch_bounds__(mpc::NT)
+constexpr int NU = 3;
+constexpr int NT = mpc::Dim<NU>::NT;
+
+__global__ void __launch_bounds__(NT)
 walking_mpc_prep_kernel(const __grid_constant__ mpc::MpcParams P,
                         const float* __restrict__ x0,
                         const float* __restrict__ arms,
@@ -35,13 +38,13 @@ walking_mpc_prep_kernel(const __grid_constant__ mpc::MpcParams P,
                         float* __restrict__ xp_out) {
   extern __shared__ float sm[];
   const int b = blockIdx.x, tid = threadIdx.x;
-  const int N = P.N, n = mpc::NU * N, m = mpc::MU * N;
-  const mpc::Smem L = mpc::smem_layout(N);
+  const int N = P.N, n = NU * N, m = mpc::Dim<NU>::MU * N;
+  const mpc::Smem L = mpc::smem_layout<NU>(N, N);
   float* aux = sm + L.aux;
 
-  for (int i = tid; i < mpc::NX; i += mpc::NT)
+  for (int i = tid; i < mpc::NX; i += NT)
     sm[L.x0 + i] = x0[b * mpc::NX + i];
-  for (int i = tid; i < 3 * N; i += mpc::NT)
+  for (int i = tid; i < 3 * N; i += NT)
     sm[L.arms + i] = arms[b * 3 * N + i];
   if (tid < 3) {
     aux[mpc::AUX_VDES + tid] = v_des[b * 3 + tid];
@@ -50,11 +53,11 @@ walking_mpc_prep_kernel(const __grid_constant__ mpc::MpcParams P,
   if (tid == 0) aux[mpc::AUX_WDES] = yaw_rate[b];
   __syncthreads();
 
-  mpc::mpc_prep_solve(P, sm, L, z_warm + (size_t)b * n,
-                      y_warm + (size_t)b * m);
+  mpc::mpc_prep_solve<NU>(P, sm, L, N, z_warm + (size_t)b * n,
+                          y_warm + (size_t)b * m);
 
-  for (int c = tid; c < n; c += mpc::NT) z_out[(size_t)b * n + c] = sm[L.z + c];
-  for (int r = tid; r < m; r += mpc::NT) y_out[(size_t)b * m + r] = sm[L.y + r];
+  for (int c = tid; c < n; c += NT) z_out[(size_t)b * n + c] = sm[L.z + c];
+  for (int r = tid; r < m; r += NT) y_out[(size_t)b * m + r] = sm[L.y + r];
   if (tid < mpc::NX) xp_out[b * mpc::NX + tid] = aux[mpc::AUX_XP + tid];
   if (tid == 0) res_out[b] = aux[mpc::AUX_RES];
 }
@@ -62,7 +65,7 @@ walking_mpc_prep_kernel(const __grid_constant__ mpc::MpcParams P,
 }  // namespace
 
 extern "C" int walking_mpc_prep_smem_bytes(int N) {
-  return (int)(mpc::smem_layout(N).total * sizeof(float));
+  return (int)(mpc::smem_layout<NU>(N, N).total * sizeof(float));
 }
 
 extern "C" int walking_mpc_params_bytes() {
@@ -81,7 +84,7 @@ extern "C" int walking_mpc_prep(const mpc::MpcParams* prm, const void* x0,
       walking_mpc_prep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return (int)err;
-  walking_mpc_prep_kernel<<<B, mpc::NT, bytes, (cudaStream_t)stream>>>(
+  walking_mpc_prep_kernel<<<B, NT, bytes, (cudaStream_t)stream>>>(
       *prm, (const float*)x0, (const float*)arms, (const float*)v_des,
       (const float*)yaw_rate, (const float*)z_warm, (const float*)y_warm,
       (const float*)anchor, (float*)z_out, (float*)y_out, (float*)res_out,

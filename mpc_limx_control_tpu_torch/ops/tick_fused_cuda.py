@@ -1,4 +1,4 @@
-"""The whole walking tick as one CUDA kernel: wrapper and plain version.
+"""The whole tick as one CUDA kernel: wrapper and plain version.
 
 Counterpart of ``mpc_limx_control_tpu.ops.tick_fused_pallas``. The TPU
 kernel ``_tick_kernel`` (tick_fused_pallas.py:130, pallas_call at :868
@@ -7,10 +7,15 @@ via ``_fused_tick_core`` :737, ``fused_walking_tick`` :626 and
 gait clock, FK, anchor clip, capture placement, swing + analytic IK,
 contact schedule and moment arms, the shared MPC core of
 ``csrc/mpc_core.cuh``, GRF split, exact-ZOH plant step, rigid-ground
-clamp and next-tick FK / IK, one launch per tick for the whole batch.
+clamp and next-tick FK / IK, one launch per tick for the whole batch; and
+``csrc/standing_tick.cu`` in stand mode (K6): no swing and no schedule,
+the two-foot nu = 6 MPC with both feet's step-invariant moment arms and
+the reference anchored at their midpoint, both forces applied, both feet
+pinned and both legs re-solved by IK.
 
-Four entry points, one per variant of the TPU kernel's ``est_kf`` /
-``hold`` flags, each with its own launch counter:
+Eight entry points, one per mode and variant of the TPU kernel's
+``est_kf`` / ``hold`` flags, each with its own launch counter
+(``standing_*`` likewise):
 
 * ``walking_tick``: truth odometry, MPC solve;
 * ``walking_tick_hold`` (K4): the dtMPC held-force tick, no MPC;
@@ -18,8 +23,7 @@ Four entry points, one per variant of the TPU kernel's ``est_kf`` /
   estimate driving the controller while the plant steps from the truth;
 * ``walking_tick_kf_hold``: both.
 
-The standing variant (K6) is a later slice: :func:`supports_fused_tick`
-accepts only what these kernels run.
+:func:`supports_fused_tick` accepts only what these kernels run.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch
 
 from mpc_limx_control_tpu_torch.ops import _build
 from mpc_limx_control_tpu_torch.ops.mpc_fused_cuda import (
-    NX, MpcParams, mpc_params, supports_fused_walking_qp)
+    MAX_HORIZON, NX, MpcParams, mpc_params)
 
 # The kernels and their launch counters (see ops/_build.py). The hold
 # variants take neither the warm QP state nor return it (it passes
@@ -50,6 +54,16 @@ WALKING_TICK_KF_HOLD = _build.Kernel("walking_tick_kf_hold", n_ptr=23,
 TICK_KERNELS = {(False, False): WALKING_TICK, (False, True): WALKING_TICK_HOLD,
                 (True, False): WALKING_TICK_KF,
                 (True, True): WALKING_TICK_KF_HOLD}
+# the standing forms, same pointer lists; keys (est_kf, hold) as above
+STAND_KERNELS = {
+    key: _build.Kernel(k.name.replace("walking", "standing"), n_ptr=k.n_ptr,
+                       params_sizer=_SIZER)
+    for key, k in TICK_KERNELS.items()}
+
+
+def tick_kernels(cfg) -> dict:
+    """(est_kf, hold) -> kernel for the config's mode."""
+    return STAND_KERNELS if cfg.mode == "stand" else TICK_KERNELS
 
 
 class TickParams(ctypes.Structure):
@@ -126,17 +140,17 @@ def tick_params(cfg) -> TickParams:
 
 
 def supports_fused_tick(cfg) -> bool:
-    """True when the ``walking_tick`` kernels implement the config's tick:
-    walk mode, truth or KF odometry, analytic IK, the warm ``admm_fused``
-    solver, capture or reference placement, and a walking QP the MPC core
-    implements (level attitude, horizon <= 21)."""
+    """True when the ``walking_tick`` / ``standing_tick`` kernels implement
+    the config's tick: walk or stand mode, truth or KF odometry, analytic
+    IK, the warm ``admm_fused`` solver with exact triangular solves,
+    capture or reference placement, and a QP the MPC core implements
+    (level attitude, horizon <= 21)."""
     return _config_reason(cfg) is None
 
 
 def _config_reason(cfg) -> str | None:
-    if cfg.mode != "walk":
-        return ("standing is the two-foot variant of the tick kernel, "
-                "ROADMAP queue 2, K6")
+    if cfg.mode not in ("walk", "stand"):
+        return f"mode={cfg.mode!r} is unknown"
     if cfg.estimator_mode not in ("truth", "kf"):
         return f"estimator_mode={cfg.estimator_mode!r} is unknown"
     if cfg.ik_method != "analytic":
@@ -146,9 +160,14 @@ def _config_reason(cfg) -> str | None:
                 "other solvers are ROADMAP queue 1, item 13 / queue 2, K8")
     if cfg.placement_mode not in ("capture", "reference"):
         return f"placement_mode={cfg.placement_mode!r} is unknown"
-    if not supports_fused_walking_qp(cfg):
+    if cfg.srbd.solver.solve_form != "subst":
+        return ("the tick kernel's MPC runs exact triangular solves; "
+                "solve_form='inv' is ROADMAP queue 2, K1")
+    if (cfg.srbd.attitude_ref != "level"
+            or not 1 <= cfg.srbd.horizon <= MAX_HORIZON):
         return ("the tick kernel's MPC is level-attitude only with horizon "
-                "<= 21 (the receding reference is ROADMAP queue 2, K7)")
+                f"<= {MAX_HORIZON} (the receding reference is ROADMAP queue "
+                "1, item 13)")
     return None
 
 
@@ -171,24 +190,28 @@ def fused_walking_tick(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
                        prev_q=None, grf_held=None, *, cfg):
     """Batched whole-tick dispatch (kernel wrapper).
 
-    xi [B,13]; q [B,6]; foot_l / foot_r [B,3]; z_warm [B,3N];
-    y_warm [B,6N]; anchor [B,3] (x, y, yaw); it [B]; v_des [B,3];
+    xi [B,13]; q [B,6]; foot_l / foot_r [B,3]; z_warm [B,nu N];
+    y_warm [B,2 nu N] (nu = 3 walking, 6 standing); anchor [B,3] (x, y,
+    yaw; standing reads only its clip and advance, which its caller
+    drops); it [B]; v_des [B,3];
     yaw_rate [B]. Returns (xi', q', foot_l', foot_r', z, y, anchor',
     residual [B], grf [B,6], target [B,3]).
 
     With kf_x [B,12] / kf_p [B,12,12] / prev_v [B,3] / prev_q [B,6] (the
     config's estimator_mode must be "kf") the filter runs in the kernel
     and the outputs gain (kf_x', kf_p'). With grf_held [B,6] the tick holds
-    that force on the foot now in stance and runs no MPC: z and y are
-    returned as given (the same tensors) and the residual is 0.
+    that force (walking: on the foot now in stance; standing: on both feet
+    as given) and runs no MPC: z and y are returned as given (the same
+    tensors) and the residual is 0.
 
-    CUDA tensors launch the matching ``walking_tick*`` kernel; CPU
+    CUDA tensors launch the matching ``walking_tick*`` /
+    ``standing_tick*`` kernel; CPU
     tensors run its plain version, ``rollout._plant_step_ref`` with the
     exact-solve ADMM (``solve_form="subst"``).
     """
     reason = _config_reason(cfg)
     if reason is not None:
-        raise ValueError(f"walking_tick does not implement this config: "
+        raise ValueError(f"the tick kernels do not implement this config: "
                          f"{reason}")
     est_kf = cfg.estimator_mode == "kf"
     kf_in = (kf_x, kf_p, prev_v, prev_q)
@@ -220,7 +243,7 @@ def fused_walking_tick(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
 
 
 class TickLaunch(NamedTuple):
-    """One launch of a ``walking_tick*`` kernel, ready to go: the kernel,
+    """One launch of a tick kernel, ready to go: the kernel,
     its constants, its device pointers (inputs then outputs), the batch,
     and what :func:`fused_walking_tick` returns once it has run."""
 
@@ -236,18 +259,20 @@ def prepare_tick_launch(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
                         prev_q=None, grf_held=None, *, cfg) -> TickLaunch:
     """Check the CUDA tensors of :func:`fused_walking_tick` (same
     arguments) and allocate its outputs, without launching: the kernel
-    variant is chosen by the config's estimator and by ``grf_held``."""
+    variant is chosen by the config's mode and estimator and by
+    ``grf_held``."""
     if xi.device.type != "cuda":
-        raise ValueError(f"walking_tick runs on CUDA tensors, got "
+        raise ValueError(f"the tick kernels run on CUDA tensors, got "
                          f"{xi.device}")
     est_kf = cfg.estimator_mode == "kf"
     hold = grf_held is not None
     N = int(cfg.srbd.horizon)
+    n = (6 if cfg.mode == "stand" else 3) * N
     B = xi.shape[0]
     dev = xi.device
     state_in = (("xi", xi, (B, NX)), ("q", q, (B, 6)),
                 ("foot_l", foot_l, (B, 3)), ("foot_r", foot_r, (B, 3)))
-    warm_in = (("z_warm", z_warm, (B, 3 * N)), ("y_warm", y_warm, (B, 6 * N)))
+    warm_in = (("z_warm", z_warm, (B, n)), ("y_warm", y_warm, (B, 2 * n)))
     cmd_in = (("anchor", anchor, (B, 3)), ("it", it, (B,)),
               ("v_des", v_des, (B, 3)), ("yaw_rate", yaw_rate, (B,)))
     ins = state_in + (() if hold else warm_in) + cmd_in
@@ -260,19 +285,19 @@ def prepare_tick_launch(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
         _build.check_tensor(name, t, shape, dev)
     if hold:
         # the warm QP state passes through untouched
-        _build.check_tensor("z_warm", z_warm, (B, 3 * N), dev)
-        _build.check_tensor("y_warm", y_warm, (B, 6 * N), dev)
+        for name, t, shape in warm_in:
+            _build.check_tensor(name, t, shape, dev)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
 
     state_out = (empty(B, NX), empty(B, 6), empty(B, 3), empty(B, 3))
-    warm_out = () if hold else (empty(B, 3 * N), empty(B, 6 * N))
+    warm_out = () if hold else (empty(B, n), empty(B, 2 * n))
     cmd_out = (empty(B, 3), empty(B), empty(B, 6), empty(B, 3))
     kf_out = (empty(B, 12), empty(B, 12, 12)) if est_kf else ()
     outs = state_out + warm_out + cmd_out + kf_out
     results = (state_out + (z_warm, y_warm) + cmd_out + kf_out if hold
                else outs)
-    return TickLaunch(TICK_KERNELS[(est_kf, hold)], tick_params(cfg),
+    return TickLaunch(tick_kernels(cfg)[(est_kf, hold)], tick_params(cfg),
                       [t.data_ptr() for _, t, _ in ins]
                       + [t.data_ptr() for t in outs], B, results)

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from mpc_limx_control_tpu_torch.core import config as pcfg
-from mpc_limx_control_tpu_torch.core.types import KFState
+from mpc_limx_control_tpu_torch.core.types import KFState, default_device
 from mpc_limx_control_tpu_torch.control.rollout import PlantState
 
 PLANT_FIELDS = tuple(f.name for f in dataclasses.fields(PlantState))
@@ -55,7 +55,9 @@ def config_to_dict(cfg: pcfg.ControllerConfig) -> dict:
 def plant_state_from_numpy(data: Mapping[str, Any], device=None,
                            dtype=None) -> PlantState:
     """A PlantState from a mapping of field name -> array-like (missing or
-    None fields stay None; unknown fields are refused)."""
+    None fields stay None; unknown fields are refused), on the card unless
+    ``device`` says otherwise."""
+    device = default_device(device)
     extra = [k for k, v in data.items()
              if k not in PLANT_FIELDS and v is not None]
     if extra:

@@ -74,7 +74,8 @@ def _jax_state_np(s):
 
 
 def _port_state(s_jax, dtype):
-    return convert.plant_state_from_numpy(_jax_state_np(s_jax), dtype=dtype)
+    return convert.plant_state_from_numpy(_jax_state_np(s_jax), dtype=dtype,
+                                          device="cpu")
 
 
 def _perturbed(jcfg, B, seed, np_dtype):
@@ -201,10 +202,11 @@ def test_initial_kf_state_matches_jax():
     sj = jro.initial_plant_state(_kf(JCfg.walking()), batch=(3,),
                                  dtype=jnp.float64)
     st = tro.initial_plant_state(_kf(TCfg.walking()), batch=(3,),
-                                 dtype=torch.float64)
+                                 dtype=torch.float64, device="cpu")
     _assert_kf_state(st, sj, {k: 1e-12 for k in FIELDS + ("x_hat",
                                                          "p_cov")})
-    one = tro.initial_plant_state(_kf(TCfg.walking()), dtype=torch.float64)
+    one = tro.initial_plant_state(_kf(TCfg.walking()), dtype=torch.float64,
+                                  device="cpu")
     assert one.kf.p_cov.shape == (12, 12) and one.prev_q.shape == (6,)
 
 
@@ -320,7 +322,7 @@ def test_kf_dtmpc_rollout_holds_four_in_five():
     residual, the held ticks exactly none; the KF metrics are there and
     the state threads through rollout() unbatched."""
     cfg = _kf(TCfg.walking())
-    s = tro.initial_plant_state(cfg, dtype=torch.float64)
+    s = tro.initial_plant_state(cfg, dtype=torch.float64, device="cpu")
     f, m = tro.rollout(cfg, s, 10, start_iteration=295, mpc_every=5)
     res = m["qp_residual"]
     assert bool((res[[0, 5]] > 0).all())
@@ -337,7 +339,7 @@ def test_soak_matches_batched_rollout(est, mpc_every):
     metrics (tests/test_soak.py:31-59)."""
     cfg = TCfg.walking() if est == "truth" else _kf(TCfg.walking())
     B, W, NW = 3, 40, 2
-    s0 = tro.initial_plant_state(cfg, batch=(B,))
+    s0 = tro.initial_plant_state(cfg, batch=(B,), device="cpu")
     it0 = torch.tensor((np.arange(B) * 600) // B, dtype=torch.float32)
     f_s, stats = tro.soak_rollout(cfg, s0, NW, W, start_iteration=it0,
                                   mpc_every=mpc_every)
@@ -372,7 +374,8 @@ def test_soak_matches_batched_rollout(est, mpc_every):
 def test_convert_round_trips_jax_kf_state():
     sj = _perturbed(_kf(JCfg.walking()), 2, 7, np.float32)
     st = convert.plant_state_from_numpy(
-        {**_jax_state_np(sj), "kf": sj.kf})         # a JAX KFState object
+        {**_jax_state_np(sj), "kf": sj.kf},         # a JAX KFState object
+        device="cpu")
     _assert_kf_state(st, sj, {k: 0.0 for k in FIELDS + ("x_hat", "p_cov")})
     back = convert.plant_state_to_numpy(st)
     assert set(back["kf"]) == {"x_hat", "p_cov"}
@@ -381,14 +384,14 @@ def test_convert_round_trips_jax_kf_state():
     np.testing.assert_array_equal(back["prev_q"], np.asarray(sj.prev_q))
     with pytest.raises(ValueError, match="not in the port"):
         convert.plant_state_from_numpy({"xi": np.zeros((1, 13)),
-                                        "bogus": np.zeros(1)})
+                                        "bogus": np.zeros(1)}, device="cpu")
 
 
 def test_kf_and_hold_wrappers_on_cpu_run_the_plain_tick():
     """The wrapper's CPU branch is the plain tick for every variant,
     counts no launch, and refuses a KF config without the filter state."""
     cfg = _kf(TCfg.walking())
-    s = tro.initial_plant_state(cfg, batch=(2,))
+    s = tro.initial_plant_state(cfg, batch=(2,), device="cpu")
     it = torch.tensor([3.0, 310.0])
     before = {k: v.launches for k, v in ttfc.TICK_KERNELS.items()}
     grf = torch.tensor([[0.0, 0.0, 200.0, 0.0, 0.0, 0.0]] * 2)
@@ -408,7 +411,7 @@ def test_kf_and_hold_wrappers_on_cpu_run_the_plain_tick():
         ttfc.fused_walking_tick(s.xi, s.q, s.foot_l, s.foot_r, s.qp_z,
                                 s.qp_lam, s.ref_anchor, it, vd,
                                 torch.zeros(2), cfg=cfg)
-    truth = tro.initial_plant_state(TCfg.walking(), batch=(2,))
+    truth = tro.initial_plant_state(TCfg.walking(), batch=(2,), device="cpu")
     assert "filter fields" in ttfc.unsupported_reason(cfg, truth)
     assert "filter fields" in ttfc.unsupported_reason(TCfg.walking(), s)
     assert ttfc.unsupported_reason(cfg, s) is None

@@ -449,12 +449,13 @@ def test_convert_plant_state_round_trip():
     from mpc_limx_control_tpu_torch.control import rollout as tro
 
     cfg = tcfg.ControllerConfig.walking()
-    s = tro.initial_plant_state(cfg, batch=(3,), dtype=torch.float64)
+    s = tro.initial_plant_state(cfg, batch=(3,), dtype=torch.float64,
+                                device="cpu")
     d = convert.plant_state_to_numpy(s)
     assert set(d) == {"xi", "q", "foot_l", "foot_r", "qp_z", "qp_lam",
                       "ref_anchor"}
-    s2 = convert.plant_state_from_numpy(d)
+    s2 = convert.plant_state_from_numpy(d, device="cpu")
     for k, v in d.items():
         np.testing.assert_array_equal(getattr(s2, k).numpy(), v)
     with pytest.raises(ValueError, match="kf"):
-        convert.plant_state_from_numpy(dict(d, kf=np.zeros(3)))
+        convert.plant_state_from_numpy(dict(d, kf=np.zeros(3)), device="cpu")

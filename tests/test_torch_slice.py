@@ -62,7 +62,8 @@ def _perturbed(jcfg, B, seed, np_dtype):
 
 
 def _port_state(s_jax, dtype):
-    return convert.plant_state_from_numpy(_jax_state_np(s_jax), dtype=dtype)
+    return convert.plant_state_from_numpy(_jax_state_np(s_jax), dtype=dtype,
+                                          device="cpu")
 
 
 def _assert_states(st, sj, tols):
@@ -75,9 +76,10 @@ def _assert_states(st, sj, tols):
 def test_initial_plant_state_matches_jax():
     jcfg, tcfg = JCfg.walking(), TCfg.walking()
     sj = jro.initial_plant_state(jcfg, batch=(3,), dtype=jnp.float64)
-    st = tro.initial_plant_state(tcfg, batch=(3,), dtype=torch.float64)
+    st = tro.initial_plant_state(tcfg, batch=(3,), dtype=torch.float64,
+                                 device="cpu")
     _assert_states(st, sj, {k: 1e-12 for k in FIELDS})
-    one = tro.initial_plant_state(tcfg, dtype=torch.float64)
+    one = tro.initial_plant_state(tcfg, dtype=torch.float64, device="cpu")
     assert one.xi.shape == (13,) and one.qp_z.shape == (60,)
 
 
@@ -183,9 +185,10 @@ def test_rollout_single_scenario_and_hold_schedule():
     """rollout() on an unbatched state equals batched_rollout on B = 1,
     and mpc_every = 5 runs the held-force ticks on the CPU."""
     cfg = TCfg.walking()
-    s = tro.initial_plant_state(cfg, dtype=torch.float64)
+    s = tro.initial_plant_state(cfg, dtype=torch.float64, device="cpu")
     f1, m1 = tro.rollout(cfg, s, 10, start_iteration=295)
-    sb = tro.initial_plant_state(cfg, batch=(1,), dtype=torch.float64)
+    sb = tro.initial_plant_state(cfg, batch=(1,), dtype=torch.float64,
+                                 device="cpu")
     fb, mb = tro.batched_rollout(cfg, sb, 10, start_iteration=295)
     assert m1["height"].shape == (10,) and mb["height"].shape == (1, 10)
     torch.testing.assert_close(f1.xi, fb.xi[0], rtol=0, atol=0)
@@ -200,7 +203,7 @@ def test_walking_closed_loop_cpu_stays_upright():
     """600 ticks of the plain closed loop from a perturbed start: upright,
     finite, moving forward."""
     cfg = TCfg.walking()
-    s = tro.initial_plant_state(cfg, batch=(2,))
+    s = tro.initial_plant_state(cfg, batch=(2,), device="cpu")
     s = s.replace(xi=s.xi + torch.tensor([[0.0] * 9 + [0.05, 0, 0, 0],
                                           [0.0] * 9 + [-0.05, 0, 0, 0]]))
     _, m = tro.batched_rollout(cfg, s, 600)
@@ -298,20 +301,29 @@ def test_tick_twin_matches_jax_kernel_interpret():
 def test_unsupported_configs_refuse():
     cfg = TCfg.walking()
     kf = dataclasses.replace(cfg, estimator_mode="kf")
-    assert ttfc.supports_fused_tick(cfg) and ttfc.supports_fused_tick(kf)
-    for bad in (TCfg.standing(),
-                dataclasses.replace(kf, mode="stand"),
-                dataclasses.replace(cfg, ik_method="damped_ls"),
+    stand = TCfg.standing()
+    for ok in (cfg, kf, stand, dataclasses.replace(kf, mode="stand")):
+        assert ttfc.supports_fused_tick(ok)
+    for bad in (dataclasses.replace(cfg, ik_method="damped_ls"),
                 dataclasses.replace(cfg, qp_warm_start=False),
+                dataclasses.replace(stand, qp_warm_start=False),
+                dataclasses.replace(cfg, srbd=dataclasses.replace(
+                    cfg.srbd, solver=dataclasses.replace(
+                        cfg.srbd.solver, solve_form="inv"))),
                 dataclasses.replace(cfg, srbd=dataclasses.replace(
                     cfg.srbd, attitude_ref="receding"))):
         assert not ttfc.supports_fused_tick(bad)
-    # the KF state is ported; standing still raises
-    assert tro.initial_plant_state(kf).kf.x_hat.shape == (12,)
-    stand = TCfg.standing()
-    s = tro.initial_plant_state(stand, batch=(1,))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tro.plant_step(stand, s, torch.zeros(1))
+    # the KF state and standing are ported; the cold two-foot solve is not
+    assert tro.initial_plant_state(kf, device="cpu").kf.x_hat.shape == (12,)
+    s = tro.initial_plant_state(stand, batch=(1,), device="cpu")
+    assert s.qp_z.shape == (1, 120) and s.ref_anchor is None
+    s2, m = tro.plant_step(stand, s, torch.zeros(1))
+    assert s2.qp_lam.shape == (1, 240) and bool(m["qp_residual"] > 0)
+    cold = dataclasses.replace(stand, qp_warm_start=False)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tro.plant_step(cold, tro.initial_plant_state(cold, batch=(1,),
+                                                     device="cpu"),
+                       torch.zeros(1))
     rec = dataclasses.replace(cfg, srbd=dataclasses.replace(
         cfg.srbd, attitude_ref="receding"))
     with pytest.raises(ValueError, match="level-attitude"):
@@ -346,7 +358,7 @@ def test_kernel_wrappers_validate_on_cuda_only_paths():
     cfg = TCfg.walking()
     kernels = (tmfc.WALKING_MPC_PREP, *ttfc.TICK_KERNELS.values())
     before = [k.launches for k in kernels]
-    s = tro.initial_plant_state(cfg, batch=(2,))
+    s = tro.initial_plant_state(cfg, batch=(2,), device="cpu")
     tro.plant_step(cfg, s, torch.zeros(2))
     tro.plant_step(cfg, s, torch.zeros(2), grf_override=torch.zeros(2, 6))
     assert [k.launches for k in kernels] == before

@@ -1,17 +1,19 @@
-"""Profile the port's walking tick on a CUDA card.
+"""Profile the port's walking or standing tick on a CUDA card.
 
 For each batch size: the per-tick wall time of ``batched_rollout`` (one
-``walking_tick*`` kernel launch per tick: truth or KF odometry, every tick
-solving or, with ``--mpc-every 5``, the dtMPC schedule of one solving tick
-and four held ones) over a window of ticks, measured twice without the
+``walking_tick*`` or, with ``--mode stand``, ``standing_tick*`` kernel
+launch per tick: truth or KF odometry, every tick solving or, with
+``--mpc-every 5``, the dtMPC schedule of one solving tick and four held
+ones) over a window of ticks, measured twice without the
 profiler; then the device time of every kernel in a third window from
 ``torch.profiler`` (CUPTI), per tick and per launch, and the device share
 of the wall time. Prints one JSON line per batch size (and appends it to
 ``--out`` when given).
 
     python3 tools/profile_torch_tick.py [--batches 1 64 1024 4096]
-                                        [--ticks 200] [--estimator kf]
-                                        [--mpc-every 5] [--out FILE]
+                                        [--ticks 200] [--mode stand]
+                                        [--estimator kf] [--mpc-every 5]
+                                        [--out FILE]
 """
 
 from __future__ import annotations
@@ -68,7 +70,8 @@ def profile_batch(cfg, B: int, ticks: int, dev, mpc_every: int = 1) -> dict:
     wall = min(walls)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {
-        "B": B, "ticks": ticks, "estimator": cfg.estimator_mode,
+        "B": B, "ticks": ticks, "mode": cfg.mode,
+        "estimator": cfg.estimator_mode,
         "mpc_every": mpc_every,
         "wall_ms_per_tick": wall * 1e3,
         "wall_ms_per_tick_runs": [w * 1e3 for w in walls],
@@ -86,6 +89,7 @@ def main() -> int:
     ap.add_argument("--batches", type=int, nargs="+",
                     default=[1, 64, 1024, 4096])
     ap.add_argument("--ticks", type=int, default=200)
+    ap.add_argument("--mode", choices=("walk", "stand"), default="walk")
     ap.add_argument("--estimator", choices=("truth", "kf"), default="truth")
     ap.add_argument("--mpc-every", type=int, default=1)
     ap.add_argument("--out", default=None)
@@ -102,8 +106,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    cfg = dataclasses.replace(ControllerConfig.walking(),
-                              estimator_mode=args.estimator)
+    base = (ControllerConfig.standing() if args.mode == "stand"
+            else ControllerConfig.walking())
+    cfg = dataclasses.replace(base, estimator_mode=args.estimator)
     for B in args.batches:
         line = json.dumps(dict(card=smi, **profile_batch(
             cfg, B, args.ticks, dev, args.mpc_every)))
