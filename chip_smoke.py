@@ -25,7 +25,7 @@ non-zero):
    KF straight, turning and push gates; the dtMPC schedule with truth and
    with KF odometry; the bands of bench.py and
    tests/test_mpc_schedule.py), a ``controller.tick`` closed loop,
-   20-window x 1000-tick ``soak_rollout`` soaks at B = 64 of the KF loop
+   10-window x 1000-tick ``soak_rollout`` soaks at B = 64 of the KF loop
    and of the dtMPC schedule (the 10k-tick bands of tests/test_soak.py);
    then standing: bench.py's ``stand_ok`` (2000 ticks) and ``kf_stand_ok``
    (1200 ticks), the standing dtMPC schedule with truth and KF odometry,
@@ -39,6 +39,28 @@ non-zero):
    odometry, the KF and the dtMPC schedule, walking and standing. Each
    kernel's bound (the card's least time for the same bytes and
    operations) is worked out from the shapes of this run.
+
+7. the general solvers (cold and warm PDIP, dense ADMM, the linear MPC)
+   and ``solve_form="inv"``:
+   the four batched Cholesky / SPD-solve kernels (``cholesky``,
+   ``chol_solve``, ``posdef_solve``, ``posdef_solve_fast``) against their
+   plain versions and f64 numpy.linalg at B = 257, n = 30 / 60 / 120,
+   k = 1 / 2 on seeded SPD batches, and against their plain versions on
+   matrices captured in the last Newton steps of a cold PDIP on the walking
+   QP; the four ``inv`` entry points against their ``"linv"`` twin and the
+   ``"subst"`` kernel; then, counters reset and checked per path: walking
+   with the warm PDIP and with the cold dense ADMM (700 ticks each),
+   ``ControllerConfig()`` as it is (cold 20-step PDIP, the reference's
+   literal weights) standing and walking, the cold PDIP on the walking
+   tuning standing and walking, ``linear_mpc.batched_closed_loop`` at
+   B = 4096 for the reference's 500 steps, ``posdef_solve_fast`` on the
+   walking QP's cold-start system, and walking with ``solve_form="inv"``
+   (truth 3000 ticks at B = 64, KF 1200 ticks, ``controller.tick``, the
+   ``make_admm_fused`` entry point); CUDA-event times of each of the eight
+   new entry points beside its plain version, its library call
+   (``torch.linalg.cholesky``, ``torch.cholesky_solve``,
+   ``torch.linalg.solve``) or its ``"subst"`` form, and the time per tick
+   of the general-solver paths at B = 1, 1024 and 4096.
 
 It prints the kernels' JSON summary on the line before the last and, as
 the last line, {"ok": true, "device": {...}}. Without a CUDA card it exits
@@ -61,6 +83,18 @@ PREP_SRC = CSRC + "walking_mpc_prep.cu"
 TICK_SRC = CSRC + "walking_tick.cu"
 STAND_SRC = CSRC + "standing_tick.cu"
 QP_SRC = CSRC + "fused_qp.cu"
+CHOL_SRC = CSRC + "chol.cu"
+# the four kernels of csrc/chol.cu: the TPU kernel each replaces and the one
+# PyTorch call that computes the same function (the library yardstick)
+CHOL_TPU = {"cholesky": "mpc_limx_control_tpu/ops/chol_pallas.py:144",
+            "chol_solve": "mpc_limx_control_tpu/ops/chol_pallas.py:172",
+            "posdef_solve": "mpc_limx_control_tpu/ops/chol_pallas.py:293",
+            "posdef_solve_fast":
+                "mpc_limx_control_tpu/ops/chol_pallas.py:263"}
+CHOL_LIBRARY = {"cholesky": "torch.linalg.cholesky",
+                "chol_solve": "torch.cholesky_solve",
+                "posdef_solve": "torch.linalg.solve",
+                "posdef_solve_fast": "torch.linalg.solve"}
 PREP_TPU = "mpc_limx_control_tpu/ops/mpc_fused_pallas.py:374"
 QP_TPU = "mpc_limx_control_tpu/ops/mpc_fused_pallas.py:355"
 TICK_TPU = "mpc_limx_control_tpu/ops/tick_fused_pallas.py:130"
@@ -236,9 +270,13 @@ def tick_both(cfg, s_k, s_p, its, held=None):
     """One tick through the kernel (plant_step) and the plain tick."""
     from mpc_limx_control_tpu_torch.control import rollout as ro
 
+    from mpc_limx_control_tpu_torch.ops import mpc_fused_cuda as mfc
+
+    form = mfc.plain_solve_form(cfg.srbd.solver.solve_form,
+                                6 if cfg.mode == "stand" else 3)
     s_k, m_k = ro.plant_step(cfg, s_k, its, grf_override=held)
     s_p, m_p = ro._plant_step_ref(cfg, s_p, its, grf_override=held,
-                                  solve_form="subst")
+                                  solve_form=form)
     return s_k, m_k, s_p, m_p
 
 
@@ -325,6 +363,90 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def with_solver(cfg, warm=None, **kw):
+    """The config with fields of its SolverConfig replaced (and, with
+    `warm`, qp_warm_start)."""
+    cfg = dataclasses.replace(cfg, srbd=dataclasses.replace(
+        cfg.srbd, solver=dataclasses.replace(cfg.srbd.solver, **kw)))
+    return cfg if warm is None else dataclasses.replace(
+        cfg, qp_warm_start=warm)
+
+
+def spd_batch(B: int, n: int, k: int, seed: int, device):
+    """Seeded SPD batch M = A A' / n + 3 I and right-hand sides
+    (tests/test_qp_pallas.py:15-23), as f64 arrays and f32 tensors."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, n, n))
+    M = A @ A.transpose(0, 2, 1) / n + 3.0 * np.eye(n)
+    rhs = rng.standard_normal((B, n, k))
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    return M, rhs, t(M), t(rhs)
+
+
+def walking_qp(cfg, B: int, seed: int, device):
+    """The condensed walking QP (n = 60, m = 120 at N = 20) of perturbed
+    poses: (H, f, G, h)."""
+    from mpc_limx_control_tpu_torch.models import srbd
+    from mpc_limx_control_tpu_torch.ops import condense as cnd
+
+    arms, x0, v_des, w_des, _, _, _ = prep_inputs(cfg, B, seed, device)
+    c = cfg.srbd
+    N = c.horizon
+    Ac, Bc = srbd.linearize_shared(cfg.robot, arms, x0[:, 3:6], x0[:, 2])
+    Ad, Bd_t = srbd.discretize_srbd(Ac, Bc, c.ts)
+    x_ref = srbd.walking_reference(x0, c, N, v_des, w_des, height_des=0.65)
+
+    def t(v):
+        return torch.tensor(v, dtype=torch.float32, device=device)
+
+    G, h = srbd.friction_cone_rows(c, N, torch.float32, device)
+    qp = cnd.condense(Ad, Bd_t, torch.diag(t(c.q_diag)),
+                      torch.diag(t(c.r_diag)),
+                      torch.diag(c.p_scale * t(c.q_diag)), N, x0, x_ref,
+                      extra_G=G, extra_h=h)
+    return qp.H, qp.f, qp.G, qp.h
+
+
+def late_pdip_systems(H, f, G, h, iters: int, keep):
+    """(M + reg I, affine right-hand side [B,n,1]) of the Newton steps in
+    `keep`, recorded from a cold PDIP run on the plain twins."""
+    from mpc_limx_control_tpu_torch.ops import qp as qps
+
+    seen = {"M": [], "r": []}
+    chol0, solve0 = qps._posdef_chol, qps._chol_solve
+
+    def spy_chol(M, reg, plain_twins=False):
+        seen["M"].append(M + reg * torch.eye(M.shape[-1], device=M.device))
+        return chol0(M, reg, plain_twins)
+
+    def spy_solve(L, rhs, plain_twins=False):
+        seen["r"].append(rhs[..., None].contiguous())
+        return solve0(L, rhs, plain_twins)
+
+    qps._posdef_chol, qps._chol_solve = spy_chol, spy_solve
+    try:
+        qps._batched_pdip(H, f, G, h, iters, plain_twins=True)
+    finally:
+        qps._posdef_chol, qps._chol_solve = chol0, solve0
+    # the cold start's factorization and solve come first, then one
+    # factorization and two solves per Newton step
+    return ([seen["M"][1 + i].contiguous() for i in keep],
+            [seen["r"][1 + 2 * i] for i in keep])
+
+
+def chol_bound(name: str, B: int, n: int, k: int) -> dict:
+    """Bound of one launch of a csrc/chol.cu kernel from its shapes: the
+    matrix (and the right-hand sides) read once, the result written once;
+    n^3 / 3 operations for a factorization, 2 n^2 k for both sweeps."""
+    if name == "cholesky":
+        return bound(B, n * n, n * n, n ** 3 / 3)
+    factor = 0.0 if name == "chol_solve" else n ** 3 / 3
+    return bound(B, n * n + n * k, n * k, factor + 2.0 * n * n * k)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -334,8 +456,14 @@ def main() -> int:
     from mpc_limx_control_tpu_torch.control import controller as ctrl
     from mpc_limx_control_tpu_torch.control import rollout as ro
     from mpc_limx_control_tpu_torch.core.config import ControllerConfig
+    from mpc_limx_control_tpu_torch.control import linear_mpc as lmpc
+    from mpc_limx_control_tpu_torch.core.config import (MPCConfig,
+                                                        SolverConfig)
     from mpc_limx_control_tpu_torch.ops import _build
+    from mpc_limx_control_tpu_torch.ops import chol as cholp
+    from mpc_limx_control_tpu_torch.ops import chol_cuda
     from mpc_limx_control_tpu_torch.ops import mpc_fused_cuda as mfc
+    from mpc_limx_control_tpu_torch.ops import qp as qps
     from mpc_limx_control_tpu_torch.ops import tick_fused_cuda as tfc
 
     dev = torch.device("cuda", 0)
@@ -344,6 +472,12 @@ def main() -> int:
     kernels.update({STAND_VARIANTS[v]: k
                     for v, k in tfc.STAND_KERNELS.items()})
     kernels.update({f"fused_qp_nu{nu}": k for nu, k in mfc.FUSED_QP.items()})
+    kernels.update(chol_cuda.KERNELS)
+    INV_TICKS = {False: "walking_tick_inv", True: "walking_tick_kf_inv"}
+    kernels.update({"walking_mpc_prep_inv": mfc.WALKING_MPC_PREP_INV,
+                    "fused_qp_nu3_inv": mfc.FUSED_QP_NU3_INV})
+    kernels.update({INV_TICKS[kf]: tfc.TICK_KERNELS_INV[(kf, False)]
+                    for kf in INV_TICKS})
     for name, kern in kernels.items():
         check(kern.name == name, f"kernel {kern.name} listed as {name}")
 
@@ -374,6 +508,12 @@ def main() -> int:
                          "standing_tick", "standing_tick_kf", "fused_qp_nu3",
                          "fused_qp_nu6")
             for N in (8, 20)}
+    smem.update({f"{name}_n{n}_k1": getattr(lib, f"{name}_smem_bytes")(n, 1)
+                 for name in chol_cuda.KERNELS for n in (30, 60, 120)})
+    for name in chol_cuda.KERNELS:
+        check(smem[f"{name}_n120_k1"] == chol_cuda.smem_bytes(name, 120, 1),
+              f"{name}: the wrapper's shared-memory size is not the "
+              "library's")
     say("build", seconds=round(info["seconds"], 3), built=info["built"],
         library=info["path"], ptxas=ptxas, dynamic_smem_bytes=smem)
 
@@ -385,8 +525,16 @@ def main() -> int:
         summary[name].update(source=STAND_SRC, replaces=TICK_TPU)
     for nu in mfc.FUSED_QP:
         summary[f"fused_qp_nu{nu}"].update(source=QP_SRC, replaces=QP_TPU)
+    for name in chol_cuda.KERNELS:
+        summary[name].update(source=CHOL_SRC, replaces=CHOL_TPU[name],
+                             library=CHOL_LIBRARY[name])
+    summary["walking_mpc_prep_inv"].update(source=PREP_SRC, replaces=PREP_TPU)
+    summary["fused_qp_nu3_inv"].update(source=QP_SRC, replaces=QP_TPU)
+    for name in INV_TICKS.values():
+        summary[name].update(source=TICK_SRC, replaces=TICK_TPU)
     # no single PyTorch call computes a whole tick or a condensed-QP ADMM
-    # solve, so no kernel has a library yardstick
+    # solve: only the four kernels of csrc/chol.cu get a library yardstick
+    # (timed in phase 7)
     for k in kernels:
         summary[k]["library_ms"] = None
 
@@ -519,6 +667,179 @@ def main() -> int:
             check(v1["z"] <= 2e-3 * v1["z_scale"],
                   f"{name} z error {v1['z']} > 2e-3*{v1['z_scale']}")
         summary[name]["max_abs_err"] = v1["xi"]
+
+    # ---- 7a. the batched Cholesky / SPD-solve kernels vs plain ----------
+    # seeded SPD batches at B = 257 (not a multiple of 128): against the
+    # plain versions and f64 numpy.linalg, bands of tests/test_qp_pallas.py
+    # (2e-5 on L, 5e-5 on x)
+    chol_err = {name: 0.0 for name in chol_cuda.KERNELS}
+    for n in (30, 60, 120):
+        for k in (1, 2):
+            M64, r64, M, rhs = spd_batch(257, n, k, 100 + n + k, dev)
+            L = chol_cuda.cholesky(M)
+            xs = {"chol_solve": chol_cuda.chol_solve(L, rhs),
+                  "posdef_solve": chol_cuda.posdef_solve(M, rhs),
+                  "posdef_solve_fast": chol_cuda.posdef_solve_fast(M, rhs)}
+            torch.cuda.synchronize()
+            L_p = cholp.cholesky_plain(M)
+            x_p = cholp.posdef_solve_plain(M, rhs)
+            x64 = np.linalg.solve(M64, r64)
+            e = dict(L=maxerr(L, L_p), L_f64=float(np.abs(
+                L.double().cpu().numpy() - np.linalg.cholesky(M64)).max()),
+                upper=float(torch.triu(L, 1).abs().sum()))
+            check(e["L"] <= 2e-5 and e["L_f64"] <= 2e-5 and e["upper"] == 0.0,
+                  f"cholesky n={n}: {e}")
+            chol_err["cholesky"] = max(chol_err["cholesky"], e["L"])
+            for name, x in xs.items():
+                e[name] = maxerr(x, x_p)
+                e[name + "_f64"] = float(np.abs(
+                    x.double().cpu().numpy() - x64).max())
+                check(e[name] <= 5e-5 and e[name + "_f64"] <= 5e-5,
+                      f"{name} n={n} k={k}: {e}")
+                chol_err[name] = max(chol_err[name], e[name])
+            e["chol_solve_given_L"] = maxerr(
+                xs["chol_solve"], cholp.chol_solve_plain(L, rhs))
+            check(e["chol_solve_given_L"] <= 5e-5, f"chol_solve n={n}: {e}")
+            say("chol_vs_plain", B=257, n=n, k=k, **e)
+    # the last Newton steps of a cold PDIP on the walking QP (d = lam / s
+    # up to 1e7): scenarios whose twin factor keeps every pivot above 1e-6
+    # (a late f32 iterate can leave the positive definite cone; the solver
+    # never returns what follows from it).  At a condition number of ~1e7
+    # two f32 solves of one system agree in no digit of x, so the solves
+    # are held to their backward error |M x - r| / (|M| |x| + |r|) (inf
+    # norms; 1e-5, and within 4x of the twin's) and the factor to 1e-4 of
+    # its scale against the twin and 1e-5 of |M| in |L L' - M|
+    def backward(Mk, x, rk):
+        num = (Mk @ x - rk).abs().amax((-2, -1))
+        den = (Mk.abs().sum(-1).amax(-1) * x.abs().amax((-2, -1))
+               + rk.abs().amax((-2, -1)))
+        return float((num / den).max())
+
+    Hq, fq, Gq, hq = walking_qp(base, 128, 9, dev)
+    late_kept, late = 0, dict(L=0.0, LLt=0.0, x_backward=0.0,
+                              twin_backward=0.0)
+    for Mk, rk in zip(*late_pdip_systems(Hq, fq, Gq, hq, 20, range(15, 20))):
+        L_p = cholp.cholesky_plain(Mk)
+        piv = torch.diagonal(L_p, dim1=-2, dim2=-1)
+        ok = (torch.isfinite(L_p).all(-1).all(-1) & (piv > 1e-6).all(-1)
+              & torch.isfinite(rk).all(-1).all(-1))
+        if int(ok.sum()) == 0:
+            continue
+        late_kept += int(ok.sum())
+        Mk, rk, L_p = Mk[ok].contiguous(), rk[ok].contiguous(), L_p[ok]
+        L = chol_cuda.cholesky(Mk)
+        late["L"] = max(late["L"], maxerr(L, L_p) / float(L_p.abs().max()))
+        late["LLt"] = max(late["LLt"], float(
+            ((L @ L.transpose(-1, -2) - Mk).abs().amax((-2, -1))
+             / Mk.abs().amax((-2, -1))).max()))
+        late["twin_backward"] = max(late["twin_backward"], backward(
+            Mk, cholp.chol_solve_plain(L_p, rk), rk))
+        for x in (chol_cuda.chol_solve(L, rk), chol_cuda.posdef_solve(Mk, rk),
+                  chol_cuda.posdef_solve_fast(Mk, rk)):
+            check(bool(torch.isfinite(x).all()), "late PDIP solve not finite")
+            late["x_backward"] = max(late["x_backward"], backward(Mk, x, rk))
+    say("chol_vs_plain_late_pdip", scenarios=late_kept,
+        spread=float(Mk.abs().max()), **late)
+    check(late_kept >= 64 and late["L"] <= 1e-4 and late["LLt"] <= 1e-5
+          and late["x_backward"] <= max(1e-5, 4.0 * late["twin_backward"]),
+          f"late PDIP matrices: kept {late_kept}, {late}")
+    for name in chol_cuda.KERNELS:
+        summary[name]["max_abs_err"] = chol_err[name]
+
+    # the whole solvers on the kernels against the same solvers on the
+    # plain twins (walking QP, B = 64): 5e-3 of the force scale after a
+    # fixed number of Newton steps, where the best-iterate pick can differ
+    # between two arithmetic orders (the JAX suite holds 5e-2 on z of
+    # O(10), tests/test_qp_pallas.py:66); 2e-3 for the dense ADMM
+    Hs, fs_, Gs, hs = (a[:64] for a in (Hq, fq, Gq, hq))
+    zw = torch.tensor(5.0 * np.random.default_rng(2).standard_normal(
+        (64, 60)), dtype=torch.float32, device=dev)
+    for label, run, band in (
+            ("pdip_cold", lambda tw: qps._batched_pdip(
+                Hs, fs_, Gs, hs, 8, plain_twins=tw), 5e-3),
+            ("pdip_warm", lambda tw: qps._batched_pdip(
+                Hs, fs_, Gs, hs, 8, z_warm=zw, lam_warm=torch.ones_like(hs),
+                plain_twins=tw), 5e-3),
+            ("admm", lambda tw: qps._batched_admm(
+                Hs, fs_, Gs, hs, zw, torch.zeros_like(hs), 20, 0.3, 1.6,
+                plain_twins=tw), 2e-3)):
+        u_k, u_p = run(False)[0].u, run(True)[0].u
+        scale = float(u_p.abs().max()) + 1.0
+        say("solver_vs_twins", solver=label, B=64, scale=scale,
+            u=maxerr(u_k, u_p))
+        check(maxerr(u_k, u_p) <= band * scale,
+              f"{label}: kernels vs twins {maxerr(u_k, u_p)} > {band}*{scale}")
+
+    # ---- 7b. the inv forms vs their "linv" twin and the subst kernels --
+    icfg = with_solver(base, solve_form="inv")
+    for N in (20, 8):
+        c_i = dataclasses.replace(icfg, srbd=dataclasses.replace(
+            icfg.srbd, horizon=N))
+        c_s = with_solver(c_i, solve_form="subst")
+        args = prep_inputs(c_i, 257, seed=21 + N, device=dev)
+        z, y, res, xp = mfc.fused_walking_qp_prep(*args, cfg=c_i)
+        torch.cuda.synchronize()
+        sol, xp_p, (z_p, y_p) = mfc.walking_qp_prep_plain(
+            c_i, *args, solve_form="linv")
+        z_s = mfc.fused_walking_qp_prep(*args, cfg=c_s)[0]
+        scale = float(z_p.abs().max()) + 1.0
+        e = dict(u=maxerr(z, z_p), y=maxerr(y, y_p), xi_pred=maxerr(xp, xp_p),
+                 u_vs_subst=maxerr(z, z_s))
+        say("prep_inv_vs_plain", N=N, B=257, scale=scale, **e)
+        check(bool(torch.isfinite(z).all() and torch.isfinite(y).all()),
+              "walking_mpc_prep_inv output not finite")
+        check(e["u"] <= 2e-3 * scale and e["y"] <= 2e-3 * scale
+              and e["xi_pred"] <= 1e-3 * scale,
+              f"walking_mpc_prep_inv vs linv twin: {e}")
+        # the band tests/test_mpc_fused.py:288 holds the two forms to
+        check(e["u_vs_subst"] <= 1e-4 * scale,
+              f"walking_mpc_prep_inv vs subst kernel: {e}")
+        if N == 20:
+            summary["walking_mpc_prep_inv"]["max_abs_err"] = e["u"]
+    args = qp_inputs(base, 3, 257, seed=43, device=dev)
+    sol, (z, y) = mfc.make_admm_fused(icfg.srbd)(*args)
+    torch.cuda.synchronize()
+    sol_p, (z_p, y_p) = mfc.make_admm_fused(icfg.srbd,
+                                            solve_form="linv")(*args)
+    sol_s, _ = mfc.make_admm_fused(base.srbd)(*args)
+    scale = float(z_p.abs().max()) + 1.0
+    e = dict(u=maxerr(z, z_p), y=maxerr(y, y_p),
+             res=maxerr(sol.residual, sol_p.residual),
+             u_vs_subst=maxerr(z, sol_s.u))
+    say("fused_qp_inv_vs_plain", nu=3, N=20, B=257, scale=scale, **e)
+    check(e["u"] <= 1e-4 * scale and e["res"] <= 1e-4
+          and e["u_vs_subst"] <= 1e-4 * scale,
+          f"fused_qp_nu3_inv: {e}")
+    summary["fused_qp_nu3_inv"]["max_abs_err"] = e["u"]
+    for est_kf, name in INV_TICKS.items():
+        v1, v5 = variant_vs_plain(icfg, est_kf, False, B, dev)
+        say("variant_vs_plain", kernel=name, B=B, one=v1, five=v5)
+        bands1 = [("xi", 3e-4), ("q", 5e-4), ("foot_l", 5e-4),
+                  ("foot_r", 5e-4), ("grf", 5e-2), ("target", 5e-4),
+                  ("anchor", 1e-5)]
+        bands5 = [("xi", 5e-4), ("q", 1e-3), ("grf", 2e-1)]
+        if est_kf:
+            bands1 += [("x_hat", 5e-4), ("p_cov", 1e-5), ("est_error", 5e-4)]
+            bands5 += [("x_hat", 5e-4), ("p_cov", 1e-5)]
+        for k, tol in bands1:
+            check(v1[k] <= tol, f"{name} one-tick {k} error {v1[k]} > {tol}")
+        for k, tol in bands5:
+            check(v5[k] <= tol, f"{name} five-tick {k} error {v5[k]} > {tol}")
+        check(v1["finite"] and v5["finite"], f"{name}: non-finite state")
+        summary[name]["max_abs_err"] = v1["xi"]
+        # against the subst kernel's tick from the same state
+        c_i = dataclasses.replace(icfg, estimator_mode="kf") if est_kf \
+            else icfg
+        s_i = perturbed_states(c_i, B, seed=1, device=dev,
+                               yaw=0.0 if est_kf else 0.1)
+        si2, mi2 = ro.plant_step(c_i, s_i, its)
+        ss2, ms2 = ro.plant_step(with_solver(c_i, solve_form="subst"), s_i,
+                                 its)
+        e = dict(xi=maxerr(si2.xi, ss2.xi), grf=maxerr(mi2["grf"],
+                                                       ms2["grf"]))
+        say("tick_inv_vs_subst", kernel=name, B=B, **e)
+        check(e["xi"] <= 3e-4 and e["grf"] <= 5e-2,
+              f"{name} vs the subst tick: {e}")
 
     # ---- 5. the main paths: closed-loop quality on the kernels ----------
     # Each path runs with every launch counter set to 0 just before it and
@@ -671,9 +992,9 @@ def main() -> int:
     path("dtmpc", lambda: dtmpc("dtmpc", cfg), ticks(False, 1200, 5))
     path("kf_dtmpc", lambda: dtmpc("kf_dtmpc", kcfg), ticks(True, 1200, 5))
 
-    # 20-window x 1000-tick soaks at B = 64, gait phases staggered over a
+    # 10-window x 1000-tick soaks at B = 64, gait phases staggered over a
     # cycle (600 ticks), with the 10k-tick bands of tests/test_soak.py
-    Bs, NW, W = 64, 20, 1000
+    Bs, NW, W = 64, 10, 1000
     it0 = torch.tensor((np.arange(Bs) * 600) // Bs, dtype=torch.float32,
                        device=dev)
     kick = np.random.default_rng(7).standard_normal(Bs)
@@ -806,13 +1127,217 @@ def main() -> int:
 
     path("qp_entry", qp_entry, {"fused_qp_nu3": 5, "walking_mpc_prep": 5})
 
+    # ---- 7c. the general-solver paths (no tick kernel launches) --------
+    def solver_counts(ticks_, iters, cold):
+        """Launches of `ticks_` PDIP solves of `iters` Newton steps: one
+        factorization and two solves per step, one fused solve per cold
+        start."""
+        out = {"cholesky": ticks_ * iters, "chol_solve": 2 * ticks_ * iters}
+        if cold:
+            out["posdef_solve"] = ticks_
+        return out
+
+    Bg = 64
+    vx_kick = torch.tensor(
+        np.outer(0.05 * np.random.default_rng(7).standard_normal(Bg),
+                 np.eye(13)[9]), dtype=torch.float32, device=dev)
+
+    def general_walk(name, c, steps, floor):
+        s = ro.initial_plant_state(c, batch=(Bg,), device=dev)
+        f, m = ro.batched_rollout(c, s.replace(xi=s.xi + vx_kick), steps)
+        q[f"{name}_height_min"] = float(m["height"].min())
+        q[f"{name}_vx_mean"] = float(m["velocity"][:, -200:, 0].mean())
+        q[f"{name}_ok"] = bool(torch.isfinite(f.xi).all()
+                               and torch.isfinite(m["height"]).all()
+                               and q[f"{name}_height_min"] > floor
+                               and (m["qp_residual"] > 0).all())
+
+    # (a) warm PDIP (tests/test_config_variants.py:66-75: height > 0.5)
+    pw = dataclasses.replace(base, srbd=dataclasses.replace(
+        base.srbd, solver=SolverConfig(method="pdip", iters=12)))
+    path("pdip_warm_walk", lambda: general_walk("pdip_warm_walk", pw, 700,
+                                                0.5),
+         solver_counts(700, pw.srbd.solver.warm_iters, cold=False))
+    # (b) cold dense ADMM (tests/test_config_variants.py:43-53: > 0.45)
+    ac = dataclasses.replace(base, qp_warm_start=False,
+                             srbd=dataclasses.replace(
+                                 base.srbd, solver=SolverConfig(
+                                     method="admm", iters=60, admm_rho=0.1)))
+    path("admm_cold_walk", lambda: general_walk("admm_cold_walk", ac, 700,
+                                                0.45), {"cholesky": 700})
+
+    # (c) ControllerConfig() as it is: a cold 20-step PDIP on the
+    # reference's literal weights (ts = 1 ms, R = 0.1), whose cheapest
+    # answer is a few newtons -- the base sinks under gravity, in the JAX
+    # package too (SRBDConfig.walking's note).  Checked: finite, forces
+    # inside their cones, and the sink of a body that is barely held up.
+    def default_cfg(mode):
+        c = dataclasses.replace(ControllerConfig(), mode=mode)
+        s = ro.initial_plant_state(c, batch=(Bg,), device=dev)
+        check(s.qp_z is None, "the default config threads no warm state")
+        f, m = ro.batched_rollout(c, s, 100)
+        g = m["grf"]
+        name = f"default_{mode}"
+        q[f"{name}_height_end"] = float(m["height"][:, -1].mean())
+        q[f"{name}_fz_max"] = float(g[..., [2, 5]].max())
+        cone = bool((g[..., [2, 5]] >= -1e-3).all()
+                    and (g[..., [0, 1]].abs()
+                         <= 0.5 * g[..., 2:3] + 5e-2).all()
+                    and (g[..., [3, 4]].abs()
+                         <= 0.5 * g[..., 5:6] + 5e-2).all())
+        q[f"{name}_ok"] = bool(torch.isfinite(f.xi).all() and cone
+                               and 0.55 < q[f"{name}_height_end"] < 0.65
+                               and (m["qp_residual"] > 0).all())
+
+    for mode in ("stand", "walk"):
+        path(f"default_{mode}", lambda mode=mode: default_cfg(mode),
+             solver_counts(100, 20, cold=True))
+
+    # the same cold PDIP on the walking tuning holds the height
+    def pdip_cold_stand():
+        c = with_solver(scfg, warm=False, method="pdip", iters=20)
+        s = ro.initial_plant_state(c, batch=(Bg,), device=dev)
+        f, m = ro.batched_rollout(c, s.replace(xi=s.xi + vy_kick), 150)
+        q["pdip_cold_stand_height"] = float(m["height"][:, -50:].mean())
+        q["pdip_cold_stand_ok"] = bool(
+            torch.isfinite(f.xi).all()
+            and abs(q["pdip_cold_stand_height"] - 0.65) < 0.01
+            and float((m["height"] - 0.65).abs().max()) < 0.02)
+
+    path("pdip_cold_stand", pdip_cold_stand,
+         solver_counts(150, 20, cold=True))
+    pc = with_solver(base, warm=False, method="pdip", iters=20)
+    path("pdip_cold_walk", lambda: general_walk("pdip_cold_walk", pc, 150,
+                                                0.5),
+         solver_counts(150, 20, cold=True))
+
+    # (d) the linear MPC: B = 4096 initial states around the four of
+    # tests/test_closed_loop.py:61-66, the reference's 500 steps; scenario
+    # 0 reproduces the B = 1 run (its first 100 steps), every scenario
+    # tracks (final error < 0.2) inside the input box (:76-81)
+    lcfg = MPCConfig(solver=SolverConfig(iters=25))
+    Bl, Tl, T1 = 4096, 500, 100
+    x0_four = np.asarray([[2.0, 0.0, 0.0, 0.0], [1.5, 0.2, 0.5, -0.1],
+                          [2.5, -0.3, -0.5, 0.2], [0.0, 0.0, 0.0, 0.0]])
+    x0s = np.tile(x0_four, (Bl // 4, 1)) + 0.05 * np.random.default_rng(
+        12).standard_normal((Bl, 4))
+    x0s[:4] = x0_four
+
+    def linear_mpc_loop():
+        params = lmpc.setup(lcfg)
+        check(params.Ad.device.type == "cuda", "linear MPC not on the card")
+        runs = lmpc.batched_closed_loop(
+            lcfg, params, torch.tensor(x0s, dtype=torch.float32, device=dev),
+            Tl)
+        one = lmpc.closed_loop(lcfg, params, torch.tensor(
+            x0_four[0], dtype=torch.float32, device=dev), T1)
+        err = runs["errors"]
+        q["linear_mpc_u0_vs_single"] = maxerr(runs["controls"][0, :T1],
+                                              one["controls"])
+        q["linear_mpc_final_err_max"] = float(err[:, -20:].mean(1).max())
+        q["linear_mpc_u_abs_max"] = float(runs["controls"].abs().max())
+        q["linear_mpc_ok"] = bool(
+            torch.isfinite(runs["states"]).all()
+            and q["linear_mpc_u0_vs_single"] < 1e-3
+            and q["linear_mpc_final_err_max"] < 0.2
+            and q["linear_mpc_u_abs_max"] <= 8.0 + 1e-4)
+
+    path("linear_mpc", linear_mpc_loop,
+         solver_counts(Tl + T1, 25, cold=True))
+
+    # posdef_solve_fast is an entry point of its own (no solver calls it,
+    # as in the JAX package): the cold-start system (H + reg I) z = -f of
+    # the walking QP at B = 4096, held against posdef_solve
+    def posdef_fast_entry():
+        Hb, fb, _, _ = walking_qp(base, 4096, 13, dev)
+        A = (Hb + 1e-6 * torch.eye(60, device=dev)).contiguous()
+        rhs = (-fb)[..., None].contiguous()
+        z_f = chol_cuda.posdef_solve_fast(A, rhs)
+        z_s = chol_cuda.posdef_solve(A, rhs)
+        scale = float(z_s.abs().max()) + 1.0
+        resid = float(((A @ z_f) - rhs).abs().max()
+                      / (float(rhs.abs().max()) + 1.0))
+        q["posdef_fast_vs_posdef_rel"] = maxerr(z_f, z_s) / scale
+        q["posdef_fast_residual_rel"] = resid
+        q["posdef_fast_ok"] = bool(q["posdef_fast_vs_posdef_rel"] <= 1e-5
+                                   and resid <= 1e-3)
+
+    path("posdef_fast_entry", posdef_fast_entry,
+         {"posdef_solve_fast": 1, "posdef_solve": 1})
+
+    # (e) walking with solve_form="inv": bench.py's walk band at B = 64,
+    # the KF gate, controller.tick and the make_admm_fused entry point
+    kicfg = dataclasses.replace(icfg, estimator_mode="kf")
+
+    def inv_walk():
+        s = ro.initial_plant_state(icfg, batch=(Bg,), device=dev)
+        _, m = ro.batched_rollout(icfg, s.replace(xi=s.xi + vx_kick), 3000)
+        h, vx = m["height"][:, -600:], m["velocity"][:, -600:, 0]
+        q["inv_walk_height_mean"] = float(h.mean())
+        q["inv_walk_vx_mean"] = float(vx.mean())
+        q["inv_walk_ok"] = bool(torch.isfinite(m["height"]).all()
+                                and abs(q["inv_walk_height_mean"] - 0.65)
+                                < 0.02
+                                and abs(q["inv_walk_vx_mean"] - 0.5) < 0.05)
+
+    def inv_kf():
+        _, km = ro.rollout(kicfg, ro.initial_plant_state(kicfg, device=dev),
+                           1200)
+        q["inv_kf_height_min"] = float(km["height"].min())
+        q["inv_kf_ok"] = bool(torch.isfinite(km["height"]).all()
+                              and q["inv_kf_height_min"] > 0.6
+                              and torch.isfinite(km["kf_cov_pos"]).all())
+
+    def inv_ctrl_tick():
+        sc = ro.initial_plant_state(icfg, batch=(Bc,), device=dev)
+        hc = []
+        for t in range(300):
+            sc, mc = ro._plant_step_ref(icfg, sc, torch.full(
+                (Bc,), float(t), device=dev))
+            hc.append(mc["height"])
+        hc = torch.stack(hc, 1)
+        q["inv_ctrl_tick_height_min"] = float(hc.min())
+        q["inv_ctrl_tick_ok"] = bool(torch.isfinite(hc).all()
+                                     and q["inv_ctrl_tick_height_min"] > 0.6)
+
+    def inv_qp_entry():
+        from mpc_limx_control_tpu_torch.models import srbd
+
+        solve = mfc.make_admm_fused(icfg.srbd)
+        arms, x0, v_des, w_des, z_w, y_w, anc = prep_inputs(
+            icfg, 64, seed=70, device=dev)
+        Ac, Bc_ = srbd.linearize_shared(icfg.robot, arms, x0[:, 3:6],
+                                        x0[:, 2])
+        Ad, Bd_t = srbd.discretize_srbd(Ac, Bc_, icfg.srbd.ts)
+        anc3 = torch.cat([anc[:, :2], torch.zeros_like(anc[:, :1])], -1)
+        x_ref = srbd.walking_reference(
+            x0, icfg.srbd, icfg.srbd.horizon, v_des, w_des,
+            height_des=icfg.ground_height + icfg.base_height,
+            pos_anchor=anc3, yaw_anchor=anc[:, 2])
+        sol, _ = solve(Ad, Bd_t, x_ref, x0, z_w, y_w)
+        z_prep = mfc.fused_walking_qp_prep(arms, x0, v_des, w_des, z_w, y_w,
+                                           anc, cfg=icfg)[0]
+        q["inv_qp_entry_vs_prep_rel"] = maxerr(sol.u, z_prep) / (
+            float(z_prep.abs().max()) + 1.0)
+        q["inv_qp_entry_ok"] = bool(q["inv_qp_entry_vs_prep_rel"] <= 2e-3)
+
+    path("inv_walk", inv_walk, {"walking_tick_inv": 3000})
+    path("inv_kf", inv_kf, {"walking_tick_kf_inv": 1200})
+    path("inv_ctrl_tick", inv_ctrl_tick, {"walking_mpc_prep_inv": 300})
+    path("inv_qp_entry", inv_qp_entry,
+         {"fused_qp_nu3_inv": 1, "walking_mpc_prep_inv": 1})
+
     q["main_path_s"] = time.perf_counter() - t_main
     say("quality", launches=launches, **q)
     for k in ("walk_ok", "turn_ok", "push_ok", "terrain_ok", "ctrl_tick_ok",
               "kf_ok", "kf_turn_ok", "kf_push_ok", "dtmpc_ok", "kf_dtmpc_ok",
               "soak_kf_ok", "soak_dtmpc_ok", "stand_ok", "kf_stand_ok",
               "stand_dtmpc_ok", "kf_stand_dtmpc_ok", "stand_ctrl_tick_ok",
-              "qp_entry_ok"):
+              "qp_entry_ok", "pdip_warm_walk_ok", "admm_cold_walk_ok",
+              "default_stand_ok", "default_walk_ok", "pdip_cold_stand_ok",
+              "pdip_cold_walk_ok", "linear_mpc_ok", "posdef_fast_ok",
+              "inv_walk_ok", "inv_kf_ok", "inv_ctrl_tick_ok",
+              "inv_qp_entry_ok"):
         check(q[k], f"quality gate {k} failed: {q}")
     for k in kernels:
         summary[k]["launches"] = launches[k]
@@ -927,6 +1452,162 @@ def main() -> int:
                 ms=vt[4096]["ms"], plain_ms=vt[4096]["plain_ms"],
                 kernel_ms=vt[4096]["kernel_ms"],
                 **tick_bound(c, 4096, est_kf, hold))
+
+    # ---- 7d. the eight new entry points and the general-solver paths ----
+    # the csrc/chol.cu kernels at the walking (n = 60) and standing
+    # (n = 120) widths, k = 1: plain version first and last, then the
+    # kernel and the one PyTorch call of the same function in turns
+    def lib_call(name, M, L, rhs):
+        if name == "cholesky":
+            return lambda: torch.linalg.cholesky(M)
+        if name == "chol_solve":
+            return lambda: torch.cholesky_solve(rhs, L)
+        return lambda: torch.linalg.solve(M, rhs)
+
+    for name in chol_cuda.KERNELS:
+        ct = {}
+        for n in (60, 120):
+            for Bt in reps:
+                _, _, M, rhs = spd_batch(Bt, n, 1, 7, dev)
+                L = chol_cuda.cholesky(M)
+                fn = getattr(chol_cuda, name)
+                kern = (lambda: fn(M)) if name == "cholesky" else (
+                    (lambda: fn(L, rhs)) if name == "chol_solve"
+                    else (lambda: fn(M, rhs)))
+                plain = {"cholesky": lambda: cholp.cholesky_plain(M),
+                         "chol_solve": lambda: cholp.chol_solve_plain(L, rhs)
+                         }.get(name, lambda: cholp.posdef_solve_plain(M, rhs))
+                lib_fn = lib_call(name, M, L, rhs)
+                r_k = reps[Bt][0]
+                t = turns(kern, plain, Bt)
+                lib_runs = [cuda_time_ms(lib_fn, r_k),
+                            cuda_time_ms(kern, r_k),
+                            cuda_time_ms(lib_fn, r_k)]
+                t["ms"] = min(t["ms"], lib_runs[1])
+                t["library_ms"] = min(lib_runs[0], lib_runs[2])
+                t["runs"] += lib_runs
+                t.update(chol_bound(name, Bt, n, 1))
+                ct[f"n{n}_B{Bt}"] = t
+        say("timing", kernel=name, card=smi, library=CHOL_LIBRARY[name], **ct)
+        top = ct["n60_B4096"]
+        summary[name].update(
+            ms=top["ms"], plain_ms=top["plain_ms"],
+            library_ms=top["library_ms"], shape="B=4096 n=60 k=1",
+            ms_n120=ct["n120_B4096"]["ms"],
+            library_ms_n120=ct["n120_B4096"]["library_ms"],
+            plain_ms_n120=ct["n120_B4096"]["plain_ms"],
+            bound_ms_n120=ct["n120_B4096"]["bound_ms"],
+            **{k: top[k] for k in ("bound_ms", "bound_by", "bound_bytes_ms",
+                                   "bound_operations_ms")})
+
+    # each inv form beside its subst form (same inputs) and its twin; the
+    # inversion adds n^3 / 3 operations to the core's count, the two
+    # triangular mat-vecs cost what the two sweeps cost
+    n60 = 3 * N20
+    inv_extra = n60 ** 3 / 3
+    pt = {}
+    for Bt in reps:
+        args = prep_inputs(icfg, Bt, seed=5, device=dev)
+        pt[Bt] = turns(
+            lambda: mfc.fused_walking_qp_prep(*args, cfg=icfg),
+            lambda: mfc.walking_qp_prep_plain(icfg, *args,
+                                              solve_form="linv"), Bt)
+        pt[Bt]["subst_ms"] = cuda_time_ms(
+            lambda: mfc.fused_walking_qp_prep(*args, cfg=cfg), reps[Bt][0])
+    say("timing", kernel="walking_mpc_prep_inv", card=smi,
+        **{f"B{k}": v for k, v in pt.items()})
+    summary["walking_mpc_prep_inv"].update(
+        ms=pt[4096]["ms"], plain_ms=pt[4096]["plain_ms"],
+        subst_ms=pt[4096]["subst_ms"],
+        **bound(4096, 13 + 3 * N20 + 3 + 1 + 9 * N20 + 3, 9 * N20 + 1 + 13,
+                core_flops(N20, 3, it5, dense_ad=False, nbd=N20)
+                + inv_extra))
+    qi = {}
+    for Bt in reps:
+        args = qp_inputs(icfg, 3, Bt, seed=8, device=dev)
+        k_inv = mfc.make_admm_fused(icfg.srbd)
+        k_sub = mfc.make_admm_fused(cfg.srbd)
+        twin = mfc.make_admm_fused(icfg.srbd, solve_form="linv")
+        qi[Bt] = turns(lambda: k_inv(*args), lambda: twin(*args), Bt)
+        qi[Bt]["subst_ms"] = cuda_time_ms(lambda: k_sub(*args), reps[Bt][0])
+    say("timing", kernel="fused_qp_nu3_inv", card=smi,
+        **{f"B{k}": v for k, v in qi.items()})
+    summary["fused_qp_nu3_inv"].update(
+        ms=qi[4096]["ms"], plain_ms=qi[4096]["plain_ms"],
+        subst_ms=qi[4096]["subst_ms"],
+        **bound(4096, 169 + N20 * 13 * 3 + (N20 + 1) * 13 + 13 + 3 * n60,
+                3 * n60 + 1,
+                core_flops(N20, 3, it5, dense_ad=True) + inv_extra))
+    for est_kf, name in INV_TICKS.items():
+        c = kicfg if est_kf else icfg
+        c_sub = with_solver(c, solve_form="subst")
+        vt = {}
+        for Bt in reps:
+            st = perturbed_states(c, Bt, seed=3, device=dev)
+            it = torch.full((Bt,), 123.0, device=dev)
+            vd = torch.tensor(c.desired_velocity, device=dev).expand(
+                Bt, 3).contiguous()
+            vt[Bt] = turns(
+                lambda: ro.plant_step(c, st, it, v_des=vd),
+                lambda: ro._plant_step_ref(c, st, it, v_des=vd,
+                                           solve_form="linv"), Bt)
+            vt[Bt]["subst_ms"] = cuda_time_ms(
+                lambda: ro.plant_step(c_sub, st, it, v_des=vd), reps[Bt][0])
+            kf_args = {} if st.kf is None else dict(
+                kf_x=st.kf.x_hat, kf_p=st.kf.p_cov, prev_v=st.prev_v,
+                prev_q=st.prev_q)
+            plan = tfc.prepare_tick_launch(
+                st.xi, st.q, st.foot_l, st.foot_r, st.qp_z, st.qp_lam,
+                st.ref_anchor, it, vd, torch.zeros(Bt, device=dev), cfg=c,
+                **kf_args)
+            check(plan.kernel.name == name, f"{name}: plan picked "
+                  f"{plan.kernel.name}")
+            vt[Bt]["kernel_ms"] = cuda_time_ms(
+                lambda: plan.kernel.launch(plan.params, plan.ptrs,
+                                           plan.batch, stream), reps[Bt][0])
+        say("timing", kernel=name, card=smi,
+            **{f"B{k}": v for k, v in vt.items()})
+        tb = tick_bound(c, 4096, est_kf, False)
+        t_ops = tb["bound_operations_ms"] + 4096 * inv_extra / F32_FLOPS * 1e3
+        tb.update(bound_operations_ms=t_ops,
+                  bound_ms=max(tb["bound_bytes_ms"], t_ops),
+                  bound_by="bytes" if tb["bound_bytes_ms"] >= t_ops
+                  else "operations")
+        summary[name].update(ms=vt[4096]["ms"], plain_ms=vt[4096]["plain_ms"],
+                             kernel_ms=vt[4096]["kernel_ms"],
+                             subst_ms=vt[4096]["subst_ms"], **tb)
+
+    # the general-solver paths: host clock around a synchronized window
+    # of batched_rollout (the composition on the card) after a warm-up
+    # window, and steps of the linear MPC
+    def tick_ms(c, Bt, n_ticks):
+        st = ro.initial_plant_state(c, batch=(Bt,), device=dev)
+        st, _ = ro.batched_rollout(c, st, 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ro.batched_rollout(c, st, n_ticks, start_iteration=3)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n_ticks
+
+    def lmpc_step_ms(Bt, n_steps):
+        params = lmpc.setup(lcfg)
+        x = torch.tensor(x0s[:Bt], dtype=torch.float32, device=dev)
+        lmpc.batched_closed_loop(lcfg, params, x, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lmpc.batched_closed_loop(lcfg, params, x, n_steps)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n_steps
+
+    general = {}
+    for label, c in (("pdip_warm_walk", pw), ("admm_cold_walk", ac),
+                     ("default_stand", dataclasses.replace(
+                         ControllerConfig(), mode="stand")),
+                     ("default_walk", ControllerConfig())):
+        general[label] = {f"B{Bt}": tick_ms(c, Bt, 10) for Bt in reps}
+    general["linear_mpc_step"] = {f"B{Bt}": lmpc_step_ms(Bt, 10)
+                                  for Bt in reps}
+    say("general_solver_ms_per_tick", card=smi, **general)
 
     # closed-loop rate through batched_rollout at B = 4096
     rates = {}

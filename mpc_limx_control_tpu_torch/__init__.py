@@ -5,11 +5,12 @@ The JAX package stays the reference; this package keeps its module paths
 and function names so every counterpart is easy to find, and it imports
 ``torch`` only (never ``jax``, ``chex`` or the JAX package).
 
-Slice 1 covers the batched walking closed loop of
-``ControllerConfig.walking()``: rotations, leg kinematics, the SRBD model,
-the gait schedule, condensation, the warm ADMM, the controller tick and
-the rollout harness, plus the two hand-written CUDA kernels that carry the
-main path on the card (``ops/csrc``).
+It covers the batched walking and standing closed loops (truth odometry
+or the Kalman filter, every tick solving or the dtMPC hold schedule), the
+general QP solvers (cold and warm interior point, dense ADMM), the
+condensation and the double-integrator linear MPC, with the hand-written
+CUDA kernels that carry those paths on the card (``ops/csrc``): the
+whole-tick and fused MPC kernels and the batched Cholesky / SPD solves.
 
 Every float32 matrix product runs in full float32: this controller has
 failed silently twice under reduced-precision matmuls (walking height 0.56

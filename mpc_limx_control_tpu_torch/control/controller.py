@@ -10,9 +10,12 @@ The walking GRF QP is single-support (one 3-vector GRF per horizon step,
 nz = 3N) with the friction cone per step; its warm ``admm_fused`` solve runs
 the ``walking_mpc_prep`` CUDA kernel for CUDA tensors. The standing QP has
 both feet's GRF per step (nu = 6, nz = 6N, :func:`stance_mpc`); its warm
-solve runs the generic ``fused_qp`` kernel (ops/mpc_fused_cuda.py). The
-iterative IK variants and the cold / PDIP / Riccati solvers are later
-slices (ROADMAP).
+solve runs the generic ``fused_qp`` kernel (ops/mpc_fused_cuda.py). Every
+other solver choice (cold or warm PDIP, cold or warm dense ADMM --
+``ControllerConfig()`` itself is a cold 20-step PDIP) condenses the QP with
+``ops.condense`` and solves it with ``ops.qp``, whose factorizations and
+solves are the ``ops/chol_cuda.py`` kernels on CUDA tensors. The iterative
+IK variants and the Riccati solver are later slices (ROADMAP).
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ from mpc_limx_control_tpu_torch.core.types import (JointState, OdomState,
 from mpc_limx_control_tpu_torch.control import gait as gaitmod
 from mpc_limx_control_tpu_torch.models import kinematics as kin
 from mpc_limx_control_tpu_torch.models import srbd
+from mpc_limx_control_tpu_torch.ops import condense as cnd
 from mpc_limx_control_tpu_torch.ops import mpc_fused_cuda as fqp
+from mpc_limx_control_tpu_torch.ops import qp as qps
 from mpc_limx_control_tpu_torch.utils import rotations as rot
 
 
@@ -37,6 +42,47 @@ def _check_ported(cfg: ControllerConfig) -> None:
         raise NotImplementedError(
             f"ik_method={cfg.ik_method!r}: the iterative IK variants are "
             "ROADMAP queue 1, item 15")
+    if cfg.srbd.solver.method == "riccati":
+        raise NotImplementedError(
+            "solver method='riccati' (ops/riccati.py) is ROADMAP queue 1, "
+            "item 13")
+    if cfg.srbd.solver.method not in ("pdip", "admm", "admm_fused"):
+        raise ValueError(f"unknown solver method "
+                         f"{cfg.srbd.solver.method!r}")
+
+
+def _cone_rows(cfg: ControllerConfig, dtype, device):
+    """Static friction-cone matrix for two feet over the horizon:
+    G [12N, 6N]. The bound vector is schedule-dependent
+    (:func:`_cone_bounds`)."""
+    c = cfg.srbd
+    Gu1 = torch.tensor(fqp.cone_constants(c)["Gu"], dtype=dtype,
+                       device=device)
+    return torch.kron(torch.eye(c.horizon, dtype=dtype, device=device),
+                      torch.block_diag(Gu1, Gu1))
+
+
+def _cone_bounds(cfg: ControllerConfig, on_l: torch.Tensor,
+                 on_r: torch.Tensor):
+    """h [B,12N]: fz in [fz_min, fz_max] for stance feet, fz = 0 for swing
+    feet (which with the cone rows forces the whole GRF to zero).
+    on_l / on_r [B,N] in {0,1}."""
+    c = cfg.srbd
+
+    def foot_h(on):
+        zeros4 = torch.zeros((*on.shape, 4), dtype=on.dtype,
+                             device=on.device)
+        return torch.cat([zeros4, on[..., None] * c.fz_max,
+                          -on[..., None] * c.fz_min], -1)     # [B,N,6]
+
+    h = torch.cat([foot_h(on_l), foot_h(on_r)], -1)           # [B,N,12]
+    return h.reshape(h.shape[0], -1)
+
+
+def _weights(c, feet: int, dtype, device):
+    q = torch.tensor(c.q_diag, dtype=dtype, device=device)
+    r = torch.tensor(tuple(c.r_diag) * feet, dtype=dtype, device=device)
+    return torch.diag(q), torch.diag(r), torch.diag(c.p_scale * q)
 
 
 def _mv(R, v):
@@ -63,19 +109,15 @@ def stance_mpc(cfg: ControllerConfig, odom: OdomState,
     Returns (grf [B,6] world forces (L,R), residual [B], xi_pred [B,13],
     qp_state).
 
-    Solver: the warm ``admm_fused`` two-foot QP of make_admm_fused
-    (``solve_form`` None: the ``fused_qp`` kernel on CUDA tensors). Its
-    cone bounds are the full-stance constants, right for the standing
-    schedule (on_l = on_r = 1), the only one this path is used with.
+    Solver: with warm state and method "admm" / "admm_fused", the warm
+    two-foot QP of make_admm_fused (``solve_form`` None: the ``fused_qp``
+    kernel on CUDA tensors); its cone bounds are the full-stance
+    constants, right for the standing schedule (on_l = on_r = 1), the only
+    one this path is used with. Otherwise the cold fixed-iteration PDIP on
+    the condensed QP with schedule-gated bounds (qp_state None).
     """
     c = cfg.srbd
     N = c.horizon
-    if c.solver.method not in ("admm", "admm_fused") or qp_warm is None:
-        raise NotImplementedError(
-            f"solver method={c.solver.method!r} (warm="
-            f"{qp_warm is not None}): only the warm admm_fused two-foot "
-            "solver is ported; the cold PDIP solve is ROADMAP queue 1, "
-            "item 13")
     xi0 = srbd.initial_state(odom.ori, odom.pos, odom.v_ori, odom.v_pos)
     # per-foot linearization at the operating point (the moment arms are
     # constant over the horizon; the schedule gates which columns act)
@@ -91,11 +133,23 @@ def stance_mpc(cfg: ControllerConfig, odom: OdomState,
         xi0, c, N, v_des, yaw_rate_des,
         height_des=cfg.ground_height + cfg.base_height,
         pos_anchor=pos_anchor)
-    solver = fqp.make_admm_fused(c, two_feet=True, solve_form=solve_form)
-    sol, qp_state = solver(Ad, Bd_t, x_ref, xi0, qp_warm[0], qp_warm[1])
+    if c.solver.method in ("admm", "admm_fused") and qp_warm is not None:
+        solver = fqp.make_admm_fused(c, two_feet=True, solve_form=solve_form)
+        sol, qp_state = solver(Ad, Bd_t, x_ref, xi0, qp_warm[0], qp_warm[1])
+        grf = sol.u[:, :6]
+        xi_pred = _mv(Ad, xi0) + _mv(Bd_t[:, 0], grf)
+        return grf, sol.residual, xi_pred, qp_state
+
+    dtype, device = xi0.dtype, xi0.device
+    Q, R, P = _weights(c, 2, dtype, device)
+    on_l, on_r = on_l.to(dtype), on_r.to(dtype)
+    qp = cnd.condense(Ad, Bd_t, Q, R, P, N, xi0, x_ref,
+                      extra_G=_cone_rows(cfg, dtype, device),
+                      extra_h=_cone_bounds(cfg, on_l, on_r))
+    sol = qps.make_pdip(iters=c.solver.iters)(qp.H, qp.f, qp.G, qp.h)
     grf = sol.u[:, :6]
-    xi_pred = _mv(Ad, xi0) + _mv(Bd_t[:, 0], grf)
-    return grf, sol.residual, xi_pred, qp_state
+    xi_pred = _mv(qp.A_blocks[:, 1], xi0) + _mv(qp.B_blocks[:, 1, 0], grf)
+    return grf, sol.residual, xi_pred, None
 
 
 def stance_mpc_single_support(cfg: ControllerConfig, odom: OdomState,
@@ -113,8 +167,13 @@ def stance_mpc_single_support(cfg: ControllerConfig, odom: OdomState,
     or None (receding reference). Returns (grf [B,6] (L,R) with the swing
     foot's force zero, residual [B], xi_pred [B,13], qp_state).
 
-    Solver: the warm ``admm_fused`` walking QP of make_walking_fused
-    (``solve_form`` None: the kernel on CUDA tensors).
+    Solver, by ``cfg.srbd.solver.method`` and the warm state: warm
+    "admm_fused" is the prep-fused walking QP of make_walking_fused
+    (``solve_form`` None: the kernel on CUDA tensors). Every other choice
+    condenses the QP and solves it with ops.qp: "admm" (and a cold
+    "admm_fused") the dense ADMM -- cold from zeros with max(50, iters)
+    iterations, warm with admm_warm_iters --, "pdip" the cold
+    (solver.iters) or the warm (solver.warm_iters) interior point.
     """
     c = cfg.srbd
     xi0 = srbd.initial_state(odom.ori, odom.pos, odom.v_ori, odom.v_pos)
@@ -126,20 +185,53 @@ def stance_mpc_single_support(cfg: ControllerConfig, odom: OdomState,
     else:
         anchor_xy, yaw_anchor = pos_anchor[:, :2], pos_anchor[:, 2]
 
-    if c.solver.method != "admm_fused" or qp_warm is None:
-        raise NotImplementedError(
-            f"solver method={c.solver.method!r} (warm="
-            f"{qp_warm is not None}): only the warm admm_fused walking "
-            "solver is ported; the cold and non-fused solvers are ROADMAP "
-            "queue 1, item 13 and queue 2, K8")
-    # prep-fused path: linearization, exact ZOH, reference, condensation,
-    # Cholesky and the warm ADMM in one kernel on CUDA tensors
-    solver = fqp.make_walking_fused(cfg, solve_form=solve_form)
-    anchor3 = torch.cat(
-        [anchor_xy, odom.ori[:, 2:3] if yaw_anchor is None
-         else yaw_anchor[:, None]], -1)
-    sol, xi_pred, qp_state = solver(arms, xi0, v_des, yaw_rate_des,
-                                    qp_warm[0], qp_warm[1], anchor3)
+    if c.solver.method == "admm_fused" and qp_warm is not None:
+        # prep-fused path: linearization, exact ZOH, reference,
+        # condensation, Cholesky and the warm ADMM in one kernel on CUDA
+        # tensors
+        solver = fqp.make_walking_fused(cfg, solve_form=solve_form)
+        anchor3 = torch.cat(
+            [anchor_xy, odom.ori[:, 2:3] if yaw_anchor is None
+             else yaw_anchor[:, None]], -1)
+        sol, xi_pred, qp_state = solver(arms, xi0, v_des, yaw_rate_des,
+                                        qp_warm[0], qp_warm[1], anchor3)
+    else:
+        _check_ported(cfg)      # "riccati" and unknown methods stop here
+        # shared-yaw linearization + exact ZOH: Ad is step-invariant, only
+        # Bd varies over the horizon
+        N = c.horizon
+        dtype, device = xi0.dtype, xi0.device
+        Ac, Bc_t = srbd.linearize_shared(cfg.robot, arms, odom.pos,
+                                         odom.ori[:, 2])
+        Ad, Bd_t = srbd.discretize_srbd(Ac, Bc_t, c.ts)
+        anchor3 = torch.cat([anchor_xy, torch.zeros_like(anchor_xy[:, :1])],
+                            -1)
+        x_ref = srbd.walking_reference(
+            xi0, c, N, v_des, yaw_rate_des,
+            height_des=cfg.ground_height + cfg.base_height,
+            pos_anchor=anchor3, yaw_anchor=yaw_anchor)
+        Q, R, P = _weights(c, 1, dtype, device)
+        G, h = srbd.friction_cone_rows(c, N, dtype, device)
+        qp = cnd.condense(Ad, Bd_t, Q, R, P, N, xi0, x_ref, extra_G=G,
+                          extra_h=h)
+        s = c.solver
+        if s.method in ("admm", "admm_fused"):
+            if qp_warm is None:
+                z0, y0 = torch.zeros_like(qp.f), torch.zeros_like(qp.h)
+                iters = max(50, s.iters)
+            else:
+                (z0, y0), iters = qp_warm, s.admm_warm_iters
+            sol, qp_state = qps.make_admm_warm(
+                iters=iters, rho=s.admm_rho, alpha=s.admm_alpha)(
+                    qp.H, qp.f, qp.G, qp.h, z0, y0)
+        elif qp_warm is None:
+            sol = qps.make_pdip(iters=s.iters)(qp.H, qp.f, qp.G, qp.h)
+            qp_state = (sol.u, torch.ones_like(qp.h))
+        else:
+            sol, qp_state = qps.make_pdip_warm(iters=s.warm_iters)(
+                qp.H, qp.f, qp.G, qp.h, qp_warm[0], qp_warm[1])
+        xi_pred = (_mv(qp.A_blocks[:, 1], xi0)
+                   + _mv(qp.B_blocks[:, 1, 0], sol.u[:, :3]))
     u0 = sol.u[:, :3]
     zeros3 = torch.zeros_like(u0)
     left_now = on_l[:, 0:1] > 0.5
@@ -238,6 +330,8 @@ def tick(cfg: ControllerConfig, odom: OdomState, joints: JointState,
                 cfg, odom, p_l_w, p_r_w, ones, ones, v_des, yaw_rate_des,
                 pos_anchor=pos_anchor, qp_warm=qp_warm,
                 solve_form=solve_form)
+            if qp_state is None:       # the cold solve threads no state
+                qp_state = qp_warm
         else:
             grf = grf_override
     else:

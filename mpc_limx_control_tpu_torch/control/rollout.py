@@ -15,9 +15,14 @@ Dispatch of :func:`plant_step`:
   ONE launch of a ``walking_tick`` / ``standing_tick`` kernel variant,
   chosen by the mode, the estimator and by whether the tick holds a force
   (``grf_override``, the dtMPC schedule);
+* CUDA tensors and a config those kernels refuse only because of its QP
+  solver (a cold start, PDIP, the dense ADMM -- ``ControllerConfig()``
+  itself): :func:`_plant_step_ref` on the card, as the JAX package runs
+  the composition for such configs on the TPU; its QP solves launch the
+  batched Cholesky / SPD-solve kernels of ``ops/chol_cuda.py``;
 * CUDA tensors with any other config (the receding attitude reference,
-  iterative IK, ...): NotImplementedError naming the ROADMAP item that
-  ports it;
+  iterative IK, the Riccati solver): NotImplementedError naming the
+  ROADMAP item that ports it;
 * CPU tensors: :func:`_plant_step_ref`, the plain composition, as the JAX
   package runs off the TPU.
 
@@ -215,6 +220,9 @@ def plant_step(cfg: ControllerConfig, state: PlantState,
     if state.xi.device.type == "cpu":
         return _plant_step_ref(cfg, state, iteration,
                                grf_override=grf_override, v_des=v_des)
+    if tfc.runs_as_composition(cfg):
+        return _plant_step_ref(cfg, state, iteration,
+                               grf_override=grf_override, v_des=v_des)
     reason = tfc.unsupported_reason(cfg, state)
     if reason is not None:
         raise NotImplementedError(f"plant_step on {state.xi.device}: "
@@ -264,9 +272,10 @@ def _plant_step_ref(cfg: ControllerConfig, state: PlantState,
                     yaw_rate_des=None, solve_form: str | None = None):
     """The plain composition of one tick.
 
-    ``solve_form`` ("kinv" / "subst") runs the walking QP as the plain
-    composition with that solve form on any device; None lets the
-    controller dispatch it (the kernel on CUDA, "kinv" on the CPU).
+    ``solve_form`` ("kinv" / "subst" / "linv") runs the warm admm_fused
+    QP as the plain composition with that solve form on any device; None
+    lets the controller dispatch it (the kernel on CUDA, "kinv" on the
+    CPU).
     ``yaw_rate_des`` overrides cfg.desired_yaw_rate.
     """
     dtype, device = state.xi.dtype, state.xi.device

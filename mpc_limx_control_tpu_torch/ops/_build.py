@@ -37,7 +37,12 @@ SMEM_SIZERS = ("walking_mpc_prep_smem_bytes", "walking_tick_smem_bytes",
                "walking_tick_kf_smem_bytes", "standing_tick_smem_bytes",
                "standing_tick_kf_smem_bytes", "fused_qp_nu3_smem_bytes",
                "fused_qp_nu6_smem_bytes")
-PARAMS_SIZERS = ("walking_mpc_params_bytes", "walking_tick_params_bytes")
+PARAMS_SIZERS = ("walking_mpc_params_bytes", "walking_tick_params_bytes",
+                 "chol_params_bytes")
+# those of csrc/chol.cu, which take the matrix order n and the number of
+# right-hand sides k
+CHOL_SMEM_SIZERS = ("cholesky_smem_bytes", "chol_solve_smem_bytes",
+                    "posdef_solve_smem_bytes", "posdef_solve_fast_smem_bytes")
 
 
 def _sources():
@@ -52,7 +57,7 @@ def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError(
-            "nvcc not found (CUDA_HOME or PATH): the walking kernels are "
+            "nvcc not found (CUDA_HOME or PATH): the kernels are "
             "built from ops/csrc at first use on a CUDA machine")
     return found
 
@@ -121,6 +126,9 @@ def build_library() -> dict:
     lib.mpc_cuda_error_string.restype = ctypes.c_char_p
     for name in SMEM_SIZERS:
         getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
+    for name in CHOL_SMEM_SIZERS:
+        getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
     for name in PARAMS_SIZERS:
         getattr(lib, name).argtypes = []

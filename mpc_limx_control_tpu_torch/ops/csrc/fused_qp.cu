@@ -18,7 +18,9 @@
 // Gramian recursion (N x 169 elements) and the band emission's Ad' t
 // (169 per row and step): at nu = 6, ~0.5 M of the block's ~1.6 M flops.
 // Shared memory at N = 20: ~36 KB (nu = 3), ~55 KB (nu = 6, packed K, all
-// N Bd blocks).
+// N Bd blocks).  `fused_qp_nu3_inv` is the solve_form = "inv" instantiation
+// of the core (the factor inverted once, mat-vecs per z-update), same
+// shared memory.
 //
 // Plain C interface for ctypes: pointers and the stream arrive as void*,
 // the call returns cudaGetLastError() after the launch.
@@ -36,7 +38,7 @@ __host__ __device__ inline int qp_smem_floats(int N) {
   return mpc::smem_layout<NU>(N, N).total + AD_SIZE + (N + 1) * mpc::NX;
 }
 
-template <int NU>
+template <int NU, bool INV>
 __global__ void __launch_bounds__(mpc::Dim<NU>::NT)
 fused_qp_kernel(const __grid_constant__ mpc::MpcParams P,
                 const float* __restrict__ Ad, const float* __restrict__ Bd_t,
@@ -63,15 +65,16 @@ fused_qp_kernel(const __grid_constant__ mpc::MpcParams P,
 
   const mpc::AdDense ad{ad_s};
   const mpc::RefGiven ref{xr_s};
-  mpc::mpc_condense_solve<NU>(P, sm, L, ad, ref, NX * NU,
-                              z_warm + (size_t)b * n, y_warm + (size_t)b * m);
+  mpc::mpc_condense_solve<NU, INV>(P, sm, L, ad, ref, NX * NU,
+                                   z_warm + (size_t)b * n,
+                                   y_warm + (size_t)b * m);
 
   for (int c = tid; c < n; c += NT) z_out[(size_t)b * n + c] = sm[L.z + c];
   for (int r = tid; r < m; r += NT) y_out[(size_t)b * m + r] = sm[L.y + r];
   if (tid == 0) res_out[b] = sm[L.aux + mpc::AUX_RES];
 }
 
-template <int NU>
+template <int NU, bool INV = false>
 int launch(const mpc::MpcParams* prm, const void* Ad, const void* Bd_t,
            const void* x_ref, const void* x0, const void* z_warm,
            const void* y_warm, void* z_out, void* y_out, void* res_out,
@@ -79,10 +82,11 @@ int launch(const mpc::MpcParams* prm, const void* Ad, const void* Bd_t,
   if (B <= 0) return 0;
   const int bytes = (int)(qp_smem_floats<NU>(prm->N) * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      fused_qp_kernel<NU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_qp_kernel<NU, INV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return (int)err;
-  fused_qp_kernel<NU><<<B, mpc::Dim<NU>::NT, bytes, (cudaStream_t)stream>>>(
+  fused_qp_kernel<NU, INV>
+      <<<B, mpc::Dim<NU>::NT, bytes, (cudaStream_t)stream>>>(
       *prm, (const float*)Ad, (const float*)Bd_t, (const float*)x_ref,
       (const float*)x0, (const float*)z_warm, (const float*)y_warm,
       (float*)z_out, (float*)y_out, (float*)res_out);
@@ -115,4 +119,14 @@ extern "C" int fused_qp_nu6(const mpc::MpcParams* prm, const void* Ad,
                             void* res_out, int B, void* stream) {
   return launch<6>(prm, Ad, Bd_t, x_ref, x0, z_warm, y_warm, z_out, y_out,
                    res_out, B, stream);
+}
+
+// solve_form = "inv": the factor inverse instead of the sweeps (nu = 3)
+extern "C" int fused_qp_nu3_inv(const mpc::MpcParams* prm, const void* Ad,
+                                const void* Bd_t, const void* x_ref,
+                                const void* x0, const void* z_warm,
+                                const void* y_warm, void* z_out, void* y_out,
+                                void* res_out, int B, void* stream) {
+  return launch<3, true>(prm, Ad, Bd_t, x_ref, x0, z_warm, y_warm, z_out,
+                         y_out, res_out, B, stream);
 }

@@ -20,6 +20,20 @@
 //      a final solve for z, the residual |Gz - v|inf / (1 + |f|inf) and
 //      the one-step prediction xi_pred = Ad x0 + Bd_0 u0.
 //
+// solve_form = "inv" (mpc_fused_pallas.py:230-263, :273-280) is the
+// compile-time flag INV of the core, at NU = 3 only (the TPU kernel guards
+// it to n <= 64 and runs the sweeps beyond; so does this core at NU = 6):
+// after step 5 the factor is inverted once, T = L^-1, and each z-update of
+// step 6 is the two dense triangular mat-vecs x = T'(T b) instead of two
+// substitution sweeps.  T is written as a packed lower triangle into the
+// Gramians' storage, which nothing reads after the band emission, one
+// thread per column (a forward substitution against e_j, no barrier); the
+// mat-vecs run in warp 0, a row (then a column) of T per lane.  Row i of the
+// packed triangle starts at i (i + 1) / 2, and the triangular numbers are a
+// complete residue system modulo 32, so 32 consecutive rows start in 32
+// different banks.  The INV = false instantiations are the code of the
+// substitution form, unchanged.
+//
 // The core is a template over NU and two policies: how Ad is applied (the
 // closed forms of the SRBD Ad, AdSrbd, or a dense 13 x 13 in shared memory,
 // AdDense) and where a reference row comes from (synthesized level-attitude
@@ -331,11 +345,18 @@ __device__ __forceinline__ void chol_solve_warp(
   }
 }
 
-// z = K^-1 (-f + rho G'(v - y)) into sm z; warp 0 only.
-template <int NU>
+// Start of row i of a packed lower triangle.
+__host__ __device__ __forceinline__ int tri(int i) {
+  return (i * (i + 1)) / 2;
+}
+
+// z = K^-1 (-f + rho G'(v - y)) into sm z; warp 0 only.  INV: K^-1 b as
+// T'(T b) with the packed factor inverse Tinv; z and tmp [n] are scratch.
+template <int NU, bool INV>
 __device__ __forceinline__ void admm_z_update(const MpcParams& P,
                                               const float* K,
                                               const float* dginv,
+                                              const float* Tinv, float* tmp,
                                               const float* f,
                                               const float* v,
                                               const float* y, float* z,
@@ -359,7 +380,40 @@ __device__ __forceinline__ void admm_z_update(const MpcParams& P,
     }
     b[s] = val;
   }
-  chol_solve_warp<NU>(K, dginv, n, lane, b);
+  if constexpr (INV) {
+    // y = T b: lane i takes row i of T against b staged in z
+#pragma unroll
+    for (int s = 0; s < RPL; ++s)
+      if (lane + 32 * s < n) z[lane + 32 * s] = b[s];
+    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < RPL; ++s) {
+      const int i = lane + 32 * s;
+      float acc = 0.0f;
+      if (i < n) {
+        const float* Ti = Tinv + tri(i);
+        for (int j = 0; j <= i; ++j) acc += Ti[j] * z[j];
+      }
+      b[s] = acc;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < RPL; ++s)
+      if (lane + 32 * s < n) tmp[lane + 32 * s] = b[s];
+    __syncwarp();
+    // x = T' y: lane j takes column j of T
+#pragma unroll
+    for (int s = 0; s < RPL; ++s) {
+      const int j = lane + 32 * s;
+      float acc = 0.0f;
+      if (j < n)
+        for (int i = j; i < n; ++i) acc += Tinv[tri(i) + j] * tmp[i];
+      b[s] = acc;
+    }
+    __syncwarp();
+  } else {
+    chol_solve_warp<NU>(K, dginv, n, lane, b);
+  }
 #pragma unroll
   for (int s = 0; s < RPL; ++s)
     if (lane + 32 * s < n) z[lane + 32 * s] = b[s];
@@ -374,13 +428,15 @@ __device__ __forceinline__ void admm_z_update(const MpcParams& P,
 // warm state in global memory.  On return (after a block barrier): z [n]
 // at L.z, y [m] at L.y, the residual at aux[AUX_RES], xi_pred at
 // aux[AUX_XP].
-template <int NU, class AdP, class RefP>
+template <int NU, bool INV, class AdP, class RefP>
 __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
                                           const Smem& L, const AdP& ad,
                                           const RefP& ref, int bd_stride,
                                           const float* __restrict__ zw,
                                           const float* __restrict__ yw) {
   constexpr int MU = Dim<NU>::MU, NT = Dim<NU>::NT;
+  // the factor inverse only where the TPU kernel forms it (n <= 64)
+  constexpr bool USE_INV = INV && NU == 3;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int N = P.N, n = NU * N, m = MU * N;
   float* K = sm + L.K;
@@ -502,6 +558,23 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
     __syncthreads();
   }
 
+  // ---- 5b. T = L^-1 into the Gramians' storage (packed lower triangle):
+  // thread j solves L t = e_j down its column, T_ij = -(sum_{l=j}^{i-1}
+  // L_il T_lj) / L_ii
+  if constexpr (USE_INV) {
+    if (tid < n) {
+      const int j = tid;
+      W[tri(j) + j] = dginv[j];
+      for (int i = j + 1; i < n; ++i) {
+        const float* Li = K + krow<NU>(i, n);
+        float acc = 0.0f;
+        for (int l = j; l < i; ++l) acc += Li[l] * W[tri(l) + j];
+        W[tri(i) + j] = -acc * dginv[i];
+      }
+    }
+    __syncthreads();
+  }
+
   // ---- 6. warm ADMM in factor form (warp 0) ---------------------------
   if (warp == 0) {
     for (int c = lane; c < n; c += 32) z[c] = zw[c];
@@ -513,7 +586,7 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
     __syncwarp();
     const float alpha = P.alpha, beta = 1.0f - P.alpha;
     for (int it = 0; it < P.iters; ++it) {
-      admm_z_update<NU>(P, K, dginv, f, v, y, z, n, lane);
+      admm_z_update<NU, USE_INV>(P, K, dginv, W, qe, f, v, y, z, n, lane);
       __syncwarp();
       for (int r = lane; r < m; r += 32) {
         const float gzr = alpha * g_row<NU>(P, z, r) + beta * v[r];
@@ -523,7 +596,7 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
       }
       __syncwarp();
     }
-    admm_z_update<NU>(P, K, dginv, f, v, y, z, n, lane);
+    admm_z_update<NU, USE_INV>(P, K, dginv, W, qe, f, v, y, z, n, lane);
     __syncwarp();
 
     float rp = 0.0f, fm = 0.0f;
@@ -555,7 +628,7 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
 // from at L.arms, [nbd][NF][3] (nbd = N, or 1 when the arms do not change
 // over the horizon); v_des / yaw rate / anchor in the aux area.  Results as
 // mpc_condense_solve.
-template <int NU>
+template <int NU, bool INV = false>
 __device__ inline void mpc_prep_solve(const MpcParams& P, float* sm,
                                       const Smem& L, int nbd,
                                       const float* __restrict__ zw,
@@ -615,7 +688,8 @@ __device__ inline void mpc_prep_solve(const MpcParams& P, float* sm,
 
   const AdSrbd ad{ts, h2, cy, sy};
   const RefLevel ref{aux, x0, P.height_des, ts};
-  mpc_condense_solve<NU>(P, sm, L, ad, ref, nbd > 1 ? NX * NU : 0, zw, yw);
+  mpc_condense_solve<NU, INV>(P, sm, L, ad, ref, nbd > 1 ? NX * NU : 0, zw,
+                              yw);
 }
 
 }  // namespace mpc

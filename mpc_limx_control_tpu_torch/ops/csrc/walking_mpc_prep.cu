@@ -23,6 +23,7 @@ namespace {
 constexpr int NU = 3;
 constexpr int NT = mpc::Dim<NU>::NT;
 
+template <bool INV>
 __global__ void __launch_bounds__(NT)
 walking_mpc_prep_kernel(const __grid_constant__ mpc::MpcParams P,
                         const float* __restrict__ x0,
@@ -53,13 +54,33 @@ walking_mpc_prep_kernel(const __grid_constant__ mpc::MpcParams P,
   if (tid == 0) aux[mpc::AUX_WDES] = yaw_rate[b];
   __syncthreads();
 
-  mpc::mpc_prep_solve<NU>(P, sm, L, N, z_warm + (size_t)b * n,
-                          y_warm + (size_t)b * m);
+  mpc::mpc_prep_solve<NU, INV>(P, sm, L, N, z_warm + (size_t)b * n,
+                               y_warm + (size_t)b * m);
 
   for (int c = tid; c < n; c += NT) z_out[(size_t)b * n + c] = sm[L.z + c];
   for (int r = tid; r < m; r += NT) y_out[(size_t)b * m + r] = sm[L.y + r];
   if (tid < mpc::NX) xp_out[b * mpc::NX + tid] = aux[mpc::AUX_XP + tid];
   if (tid == 0) res_out[b] = aux[mpc::AUX_RES];
+}
+
+template <bool INV>
+int launch(const mpc::MpcParams* prm, const void* x0, const void* arms,
+           const void* v_des, const void* yaw_rate, const void* z_warm,
+           const void* y_warm, const void* anchor, void* z_out, void* y_out,
+           void* res_out, void* xp_out, int B, void* stream) {
+  if (B <= 0) return 0;
+  const int bytes =
+      (int)(mpc::smem_layout<NU>(prm->N, prm->N).total * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      walking_mpc_prep_kernel<INV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  walking_mpc_prep_kernel<INV><<<B, NT, bytes, (cudaStream_t)stream>>>(
+      *prm, (const float*)x0, (const float*)arms, (const float*)v_des,
+      (const float*)yaw_rate, (const float*)z_warm, (const float*)y_warm,
+      (const float*)anchor, (float*)z_out, (float*)y_out, (float*)res_out,
+      (float*)xp_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -78,18 +99,19 @@ extern "C" int walking_mpc_prep(const mpc::MpcParams* prm, const void* x0,
                                 const void* y_warm, const void* anchor,
                                 void* z_out, void* y_out, void* res_out,
                                 void* xp_out, int B, void* stream) {
-  if (B <= 0) return 0;
-  const int bytes = walking_mpc_prep_smem_bytes(prm->N);
-  cudaError_t err = cudaFuncSetAttribute(
-      walking_mpc_prep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return (int)err;
-  walking_mpc_prep_kernel<<<B, NT, bytes, (cudaStream_t)stream>>>(
-      *prm, (const float*)x0, (const float*)arms, (const float*)v_des,
-      (const float*)yaw_rate, (const float*)z_warm, (const float*)y_warm,
-      (const float*)anchor, (float*)z_out, (float*)y_out, (float*)res_out,
-      (float*)xp_out);
-  return (int)cudaGetLastError();
+  return launch<false>(prm, x0, arms, v_des, yaw_rate, z_warm, y_warm, anchor,
+                       z_out, y_out, res_out, xp_out, B, stream);
+}
+
+// solve_form = "inv": the factor inverse instead of the sweeps
+extern "C" int walking_mpc_prep_inv(const mpc::MpcParams* prm, const void* x0,
+                                    const void* arms, const void* v_des,
+                                    const void* yaw_rate, const void* z_warm,
+                                    const void* y_warm, const void* anchor,
+                                    void* z_out, void* y_out, void* res_out,
+                                    void* xp_out, int B, void* stream) {
+  return launch<true>(prm, x0, arms, v_des, yaw_rate, z_warm, y_warm, anchor,
+                      z_out, y_out, res_out, xp_out, B, stream);
 }
 
 extern "C" const char* mpc_cuda_error_string(int code) {

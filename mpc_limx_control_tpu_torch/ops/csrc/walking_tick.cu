@@ -9,6 +9,8 @@
 //   walking_tick_kf       the 12-state Kalman filter in the kernel (K5)
 //   walking_tick_hold     the dtMPC held-force tick, no MPC (K4)
 //   walking_tick_kf_hold  both
+//   walking_tick_inv, walking_tick_kf_inv
+//                         the two solving forms with solve_form = "inv"
 //
 // A tick is: gait clock, both-leg FK, reference-anchor clip, capture-point
 // placement, sinusoidal swing + analytic IK (tick_prologue); contact
@@ -60,7 +62,8 @@ constexpr int TK_SWQ = 8;      // swing_q [3]
 constexpr int TK_SIZE = 16;
 
 // ---- the solving forms: one block of NT threads per scenario ------------
-template <bool KF>
+// INV: the MPC core's solve_form = "inv" (mpc_core.cuh)
+template <bool KF, bool INV>
 __global__ void __launch_bounds__(NT)
 walking_tick_kernel(const __grid_constant__ TickParams T,
                     const __grid_constant__ TickIO io) {
@@ -132,8 +135,8 @@ walking_tick_kernel(const __grid_constant__ TickParams T,
   __syncthreads();
 
   // ---- the prep-fused MPC solve ---------------------------------------
-  mpc::mpc_prep_solve<NU>(P, sm, L, N, io.zw + (size_t)b * n,
-                          io.yw + (size_t)b * m);
+  mpc::mpc_prep_solve<NU, INV>(P, sm, L, N, io.zw + (size_t)b * n,
+                               io.yw + (size_t)b * m);
 
   for (int c = tid; c < n; c += NT) io.z_o[(size_t)b * n + c] = sm[L.z + c];
   for (int r = tid; r < m; r += NT) io.y_o[(size_t)b * m + r] = sm[L.y + r];
@@ -216,16 +219,17 @@ __host__ __device__ inline int solve_smem_floats(int N, bool kf) {
   return (kf && L.K + KW_SIZE > need) ? L.K + KW_SIZE : need;
 }
 
-template <bool KF>
+template <bool KF, bool INV = false>
 int launch_solve(const TickParams* prm, const TickIO& io, int B,
                  void* stream) {
   if (B <= 0) return 0;
   const int bytes = (int)(solve_smem_floats(prm->mpc.N, KF) * sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      walking_tick_kernel<KF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      walking_tick_kernel<KF, INV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  walking_tick_kernel<KF><<<B, NT, bytes, (cudaStream_t)stream>>>(*prm, io);
+  walking_tick_kernel<KF, INV>
+      <<<B, NT, bytes, (cudaStream_t)stream>>>(*prm, io);
   return (int)cudaGetLastError();
 }
 
@@ -259,3 +263,6 @@ TICK_ENTRY_SOLVE(walking_tick, launch_solve<false>)
 TICK_ENTRY_KF(walking_tick_kf, launch_solve<true>)
 TICK_ENTRY_HOLD(walking_tick_hold, launch_hold<false>)
 TICK_ENTRY_KF_HOLD(walking_tick_kf_hold, launch_hold<true>)
+// the solving forms with solve_form = "inv" (the hold forms run no solve)
+TICK_ENTRY_SOLVE(walking_tick_inv, (launch_solve<false, true>))
+TICK_ENTRY_KF(walking_tick_kf_inv, (launch_solve<true, true>))

@@ -17,8 +17,16 @@ condensation, Cholesky, warm ADMM with exact triangular solves):
   :func:`fused_walking_qp` is its wrapper, :func:`make_admm_fused` the
   controller's entry point (``controller.stance_mpc``, standing).
 
+Each kernel has a second entry point for ``SolverConfig.solve_form="inv"``
+at nu = 3 (``walking_mpc_prep_inv``, ``fused_qp_nu3_inv``): the Cholesky
+factor inverted once per solve, mat-vecs per ADMM step
+(mpc_fused_pallas.py:230-263). At nu = 6 (n = 120 > 64) the TPU kernel
+keeps the substitution sweeps whatever the form (:249), and so does the
+port.
+
 A wrapper launches its kernel for CUDA tensors and runs the kernel's plain
-version (exact triangular solves, ``solve_form="subst"``) for CPU tensors.
+version (exact triangular solves, ``solve_form="subst"``; the explicit
+factor inverse, ``"linv"``, for the ``inv`` kernels) for CPU tensors.
 The ``make_*`` entry points run the kernel for CUDA tensors and, for CPU
 tensors, the plain composition with the JAX CPU path's explicit f32 K^-1
 (``"kinv"``).
@@ -45,9 +53,25 @@ REG = 1e-6                # added to K's diagonal (f32)
 # The kernels and their launch counters (see ops/_build.py).
 WALKING_MPC_PREP = _build.Kernel("walking_mpc_prep", n_ptr=11,
                                  params_sizer="walking_mpc_params_bytes")
+WALKING_MPC_PREP_INV = _build.Kernel(
+    "walking_mpc_prep_inv", n_ptr=11, params_sizer="walking_mpc_params_bytes")
 FUSED_QP = {nu: _build.Kernel(f"fused_qp_nu{nu}", n_ptr=9,
                               params_sizer="walking_mpc_params_bytes")
             for nu in (3, 6)}
+FUSED_QP_NU3_INV = _build.Kernel("fused_qp_nu3_inv", n_ptr=9,
+                                 params_sizer="walking_mpc_params_bytes")
+# SolverConfig.solve_form values the kernels run
+KERNEL_SOLVE_FORMS = ("subst", "inv")
+
+
+def plain_solve_form(solve_form: str, nu: int) -> str:
+    """The ``_batched_admm`` form that repeats what the kernels do for a
+    config's solve_form: the explicit factor inverse at nu = 3, the sweeps
+    at nu = 6 whatever the form."""
+    if solve_form not in KERNEL_SOLVE_FORMS:
+        raise ValueError(f"solve_form must be one of {KERNEL_SOLVE_FORMS}, "
+                         f"got {solve_form!r}")
+    return "linv" if solve_form == "inv" and nu == 3 else "subst"
 
 
 class MpcParams(ctypes.Structure):
@@ -129,12 +153,12 @@ def mpc_params(cfg) -> MpcParams:
 def supports_fused_walking_qp(cfg) -> bool:
     """True when the in-kernel prep implements the config's QP: the
     level-attitude reference (the in-kernel reference rows are level only,
-    mpc_fused_pallas.py:913-916), a horizon of at most 21 steps and exact
-    triangular solves (``solve_form="subst"``)."""
+    mpc_fused_pallas.py:913-916), a horizon of at most 21 steps and a
+    solve form the core runs ("subst" or "inv")."""
     return (cfg.srbd.attitude_ref == "level"
             and 1 <= cfg.srbd.horizon <= MAX_HORIZON
             and cfg.srbd.nu == 3
-            and cfg.srbd.solver.solve_form == "subst")
+            and cfg.srbd.solver.solve_form in KERNEL_SOLVE_FORMS)
 
 
 def walking_qp_prep_plain(cfg, arms, x0, v_des, yaw_rate, z_warm, y_warm,
@@ -179,20 +203,23 @@ def fused_walking_qp_prep(arms, x0, v_des, yaw_rate, z_warm, y_warm,
 
     Shapes as :func:`walking_qp_prep_plain`. Returns
     (z [B,3N], y [B,6N], residual [B], xi_pred [B,13]). CUDA tensors
-    launch ``walking_mpc_prep``; CPU tensors run its plain version
-    (exact triangular solves, ``solve_form="subst"``).
+    launch ``walking_mpc_prep`` (``walking_mpc_prep_inv`` when the config's
+    solve_form is "inv"); CPU tensors run the plain version (exact
+    triangular solves, ``"subst"``, or the explicit factor inverse,
+    ``"linv"``).
     """
     if not supports_fused_walking_qp(cfg):
         raise ValueError(
             "walking_mpc_prep implements the level-attitude walking QP with "
-            f"horizon <= {MAX_HORIZON} and solve_form 'subst' (got "
+            f"horizon <= {MAX_HORIZON} and solve_form 'subst' or 'inv' (got "
             f"attitude_ref={cfg.srbd.attitude_ref!r}, horizon="
             f"{cfg.srbd.horizon}, solve_form="
             f"{cfg.srbd.solver.solve_form!r})")
+    inv = cfg.srbd.solver.solve_form == "inv"
     if x0.device.type == "cpu":
         sol, xp, (z, y) = walking_qp_prep_plain(
             cfg, arms, x0, v_des, yaw_rate, z_warm, y_warm, anchor,
-            solve_form="subst")
+            solve_form=plain_solve_form(cfg.srbd.solver.solve_form, 3))
         return z, y, sol.residual, xp
     if x0.device.type != "cuda":
         raise ValueError(f"walking_mpc_prep runs on CUDA tensors, got "
@@ -212,7 +239,7 @@ def fused_walking_qp_prep(arms, x0, v_des, yaw_rate, z_warm, y_warm,
     xp = torch.empty((B, NX), dtype=torch.float32, device=dev)
     ins = (x0, arms, v_des, yaw_rate, z_warm, y_warm, anchor)
     outs = (z, y, res, xp)
-    WALKING_MPC_PREP.launch(
+    (WALKING_MPC_PREP_INV if inv else WALKING_MPC_PREP).launch(
         mpc_params(cfg), [t.data_ptr() for t in ins + outs], B,
         torch.cuda.current_stream(dev).cuda_stream)
     return z, y, res, xp
@@ -223,11 +250,11 @@ def make_walking_fused(cfg, solve_form: str | None = None):
     fn(arms, x0, v_des, yaw_rate, z_warm, y_warm, anchor) ->
     (QPSolution, xi_pred, (z, y)), batch-first.
 
-    solve_form=None: the ``walking_mpc_prep`` kernel for CUDA tensors
-    (a config the kernel does not implement raises), the plain composition
-    with the explicit f32 K^-1 (``"kinv"``, the JAX CPU path) for CPU
-    tensors. solve_form="kinv" / "subst": the plain composition with that
-    solve form on any device.
+    solve_form=None: the ``walking_mpc_prep`` / ``walking_mpc_prep_inv``
+    kernel for CUDA tensors (a config the kernel does not implement
+    raises), the plain composition with the explicit f32 K^-1 (``"kinv"``,
+    the JAX CPU path) for CPU tensors. solve_form="kinv" / "subst" /
+    "linv": the plain composition with that solve form on any device.
     """
     if solve_form is not None and solve_form not in qps.SOLVE_FORMS:
         raise ValueError(f"solve_form must be None or one of "
@@ -239,10 +266,8 @@ def make_walking_fused(cfg, solve_form: str | None = None):
             if not supports_fused_walking_qp(cfg):
                 raise NotImplementedError(
                     "walking MPC on CUDA: the walking_mpc_prep kernel is "
-                    "level-attitude only with horizon <= 21 and exact "
-                    "triangular solves; the receding reference and "
-                    "solve_form='inv' are ROADMAP queue 1, item 13 and "
-                    "queue 2, K1")
+                    "level-attitude only with horizon <= 21; the receding "
+                    "reference is ROADMAP queue 1, item 13")
             args = [t.contiguous() for t in
                     (arms, x0, v_des, yaw_rate, z_warm, y_warm, anchor)]
             z, y, res, xp = fused_walking_qp_prep(*args, cfg=cfg)
@@ -310,7 +335,8 @@ def fused_qp_plain(Ad, Bd_t, x_ref, x0, z_warm, y_warm, *, N, iters, rho,
 
 def fused_walking_qp(Ad, Bd_t, x_ref, x0, z_warm, y_warm, *, N: int,
                      iters: int, rho: float, alpha: float, reg: float,
-                     q_diag, r_diag, p_diag, Gu, h):
+                     q_diag, r_diag, p_diag, Gu, h,
+                     solve_form: str = "subst"):
     """Batched fused condensation + warm-ADMM GRF solve (kernel wrapper).
 
     Ad [B,13,13] (any matrix); Bd_t [B,N,13,nu], nu = 3 or 6; x_ref
@@ -319,8 +345,9 @@ def fused_walking_qp(Ad, Bd_t, x_ref, x0, z_warm, y_warm, *, N: int,
     nested tuples. Returns (z [B,n], y [B,m], residual [B]).
 
     CUDA tensors launch ``fused_qp_nu3`` / ``fused_qp_nu6``; CPU tensors
-    run the plain version with exact triangular solves
-    (``solve_form="subst"``).
+    run the plain version with exact triangular solves (``"subst"``).
+    solve_form="inv" (the SolverConfig value) launches ``fused_qp_nu3_inv``
+    at nu = 3 (plain: ``"linv"``) and changes nothing at nu = 6.
     """
     nu = Bd_t.shape[-1]
     if nu not in FUSED_QP or not 1 <= N <= MAX_HORIZON:
@@ -331,9 +358,10 @@ def fused_walking_qp(Ad, Bd_t, x_ref, x0, z_warm, y_warm, *, N: int,
     prm = _qp_params(nu, N, iters, float(rho), float(alpha), float(reg),
                      tuple(q_diag), tuple(r_diag), tuple(p_diag),
                      tuple(map(tuple, Gu)), tuple(h))
+    form = plain_solve_form(solve_form, nu)
     if x0.device.type == "cpu":
         sol, (z, y) = fused_qp_plain(Ad, Bd_t, x_ref, x0, z_warm, y_warm,
-                                     solve_form="subst", **consts)
+                                     solve_form=form, **consts)
         return z, y, sol.residual
     if x0.device.type != "cuda":
         raise ValueError(f"fused_qp runs on CUDA tensors, got {x0.device}")
@@ -348,7 +376,7 @@ def fused_walking_qp(Ad, Bd_t, x_ref, x0, z_warm, y_warm, *, N: int,
     z = torch.empty((B, N * nu), dtype=torch.float32, device=dev)
     y = torch.empty((B, 2 * N * nu), dtype=torch.float32, device=dev)
     res = torch.empty((B,), dtype=torch.float32, device=dev)
-    FUSED_QP[nu].launch(
+    (FUSED_QP_NU3_INV if form == "linv" else FUSED_QP[nu]).launch(
         prm, [t.data_ptr() for _, t, _ in ins]
         + [t.data_ptr() for t in (z, y, res)], B,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -365,10 +393,11 @@ def make_admm_fused(cfg_srbd, two_feet: bool = False,
     two_feet=True: the double-support standing form (nu = 6, one cone per
     foot, the input weights duplicated) -- controller.stance_mpc's QP.
 
-    solve_form=None: the ``fused_qp`` kernel for CUDA tensors, the plain
-    composition with the explicit f32 K^-1 (``"kinv"``, the JAX CPU path)
-    for CPU tensors. solve_form="kinv" / "subst": the plain composition
-    with that solve form on any device.
+    solve_form=None: the ``fused_qp`` kernel for CUDA tensors (the
+    ``inv`` entry point when the config's solve_form is "inv" and nu = 3),
+    the plain composition with the explicit f32 K^-1 (``"kinv"``, the JAX
+    CPU path) for CPU tensors. solve_form="kinv" / "subst" / "linv": the
+    plain composition with that solve form on any device.
     """
     if solve_form is not None and solve_form not in qps.SOLVE_FORMS:
         raise ValueError(f"solve_form must be None or one of "
@@ -382,14 +411,11 @@ def make_admm_fused(cfg_srbd, two_feet: bool = False,
 
     def solve(Ad, Bd_t, x_ref, x0, z_warm, y_warm):
         if solve_form is None and x0.device.type == "cuda":
-            if cfg_srbd.solver.solve_form != "subst":
-                raise NotImplementedError(
-                    f"solve_form={cfg_srbd.solver.solve_form!r}: the fused "
-                    "QP kernel runs exact triangular solves; the explicit "
-                    "factor inverse is ROADMAP queue 2, K1")
             args = [t.contiguous() for t in
                     (Ad, Bd_t, x_ref, x0, z_warm, y_warm)]
-            z, y, res = fused_walking_qp(*args, reg=k["reg"], **consts)
+            z, y, res = fused_walking_qp(
+                *args, reg=k["reg"], solve_form=cfg_srbd.solver.solve_form,
+                **consts)
             return (QPSolution(u=z, iterations=k["iters"], residual=res),
                     (z, y))
         return fused_qp_plain(Ad, Bd_t, x_ref, x0, z_warm, y_warm,

@@ -23,6 +23,13 @@ Eight entry points, one per mode and variant of the TPU kernel's
   estimate driving the controller while the plant steps from the truth;
 * ``walking_tick_kf_hold``: both.
 
+The two solving walking forms have a second entry point each for
+``SolverConfig.solve_form="inv"`` (``walking_tick_inv``,
+``walking_tick_kf_inv``: the MPC core with the explicit factor inverse,
+csrc/mpc_core.cuh). The standing forms (n = 120 > 64) run the substitution
+sweeps whatever the form, as the TPU kernel does
+(mpc_fused_pallas.py:249); hold ticks run no solve.
+
 :func:`supports_fused_tick` accepts only what these kernels run.
 """
 
@@ -37,7 +44,8 @@ import torch
 
 from mpc_limx_control_tpu_torch.ops import _build
 from mpc_limx_control_tpu_torch.ops.mpc_fused_cuda import (
-    MAX_HORIZON, NX, MpcParams, mpc_params)
+    KERNEL_SOLVE_FORMS, MAX_HORIZON, NX, MpcParams, mpc_params,
+    plain_solve_form)
 
 # The kernels and their launch counters (see ops/_build.py). The hold
 # variants take neither the warm QP state nor return it (it passes
@@ -54,6 +62,13 @@ WALKING_TICK_KF_HOLD = _build.Kernel("walking_tick_kf_hold", n_ptr=23,
 TICK_KERNELS = {(False, False): WALKING_TICK, (False, True): WALKING_TICK_HOLD,
                 (True, False): WALKING_TICK_KF,
                 (True, True): WALKING_TICK_KF_HOLD}
+# walking with solve_form = "inv": the solving forms change, the hold forms
+# (no solve) are shared
+TICK_KERNELS_INV = dict(TICK_KERNELS)
+TICK_KERNELS_INV.update({
+    key: _build.Kernel(TICK_KERNELS[key].name + "_inv",
+                       n_ptr=TICK_KERNELS[key].n_ptr, params_sizer=_SIZER)
+    for key in ((False, False), (True, False))})
 # the standing forms, same pointer lists; keys (est_kf, hold) as above
 STAND_KERNELS = {
     key: _build.Kernel(k.name.replace("walking", "standing"), n_ptr=k.n_ptr,
@@ -62,8 +77,11 @@ STAND_KERNELS = {
 
 
 def tick_kernels(cfg) -> dict:
-    """(est_kf, hold) -> kernel for the config's mode."""
-    return STAND_KERNELS if cfg.mode == "stand" else TICK_KERNELS
+    """(est_kf, hold) -> kernel for the config's mode and solve form."""
+    if cfg.mode == "stand":
+        return STAND_KERNELS
+    inv = cfg.srbd.solver.solve_form == "inv"
+    return TICK_KERNELS_INV if inv else TICK_KERNELS
 
 
 class TickParams(ctypes.Structure):
@@ -142,27 +160,50 @@ def tick_params(cfg) -> TickParams:
 def supports_fused_tick(cfg) -> bool:
     """True when the ``walking_tick`` / ``standing_tick`` kernels implement
     the config's tick: walk or stand mode, truth or KF odometry, analytic
-    IK, the warm ``admm_fused`` solver with exact triangular solves,
+    IK, the warm ``admm_fused`` solver (solve_form "subst" or "inv"),
     capture or reference placement, and a QP the MPC core implements
     (level attitude, horizon <= 21)."""
     return _config_reason(cfg) is None
 
 
+def _solver_reason(cfg) -> str | None:
+    """Why the config's QP solver is not the tick kernel's (None: it is)."""
+    if not cfg.qp_warm_start or cfg.srbd.solver.method != "admm_fused":
+        return ("only the warm admm_fused solver runs in the tick kernel "
+                f"(got method={cfg.srbd.solver.method!r}, qp_warm_start="
+                f"{cfg.qp_warm_start})")
+    return None
+
+
+def runs_as_composition(cfg) -> bool:
+    """True when the tick kernels refuse the config only because of its
+    solver (cold start, PDIP, dense ADMM) and the port has that solver:
+    ``rollout.plant_step`` then runs the plain composition of the tick on
+    the card, its QP solves through the ``ops/chol_cuda.py`` kernels."""
+    return (_solver_reason(cfg) is not None
+            and _other_reason(cfg) is None
+            and cfg.srbd.solver.method in ("pdip", "admm", "admm_fused"))
+
+
 def _config_reason(cfg) -> str | None:
+    return _other_reason(cfg) or _solver_reason(cfg)
+
+
+def _other_reason(cfg) -> str | None:
     if cfg.mode not in ("walk", "stand"):
         return f"mode={cfg.mode!r} is unknown"
     if cfg.estimator_mode not in ("truth", "kf"):
         return f"estimator_mode={cfg.estimator_mode!r} is unknown"
     if cfg.ik_method != "analytic":
         return "iterative IK is ROADMAP queue 1, item 15"
-    if not cfg.qp_warm_start or cfg.srbd.solver.method != "admm_fused":
-        return ("only the warm admm_fused solver runs in the tick kernel; "
-                "other solvers are ROADMAP queue 1, item 13 / queue 2, K8")
+    if cfg.srbd.solver.method == "riccati":
+        return ("solver method='riccati' (ops/riccati.py) is ROADMAP queue "
+                "1, item 13")
     if cfg.placement_mode not in ("capture", "reference"):
         return f"placement_mode={cfg.placement_mode!r} is unknown"
-    if cfg.srbd.solver.solve_form != "subst":
-        return ("the tick kernel's MPC runs exact triangular solves; "
-                "solve_form='inv' is ROADMAP queue 2, K1")
+    if cfg.srbd.solver.solve_form not in KERNEL_SOLVE_FORMS:
+        return (f"solve_form={cfg.srbd.solver.solve_form!r} is unknown "
+                f"(the kernels run {KERNEL_SOLVE_FORMS})")
     if (cfg.srbd.attitude_ref != "level"
             or not 1 <= cfg.srbd.horizon <= MAX_HORIZON):
         return ("the tick kernel's MPC is level-attitude only with horizon "
@@ -207,7 +248,8 @@ def fused_walking_tick(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
     CUDA tensors launch the matching ``walking_tick*`` /
     ``standing_tick*`` kernel; CPU
     tensors run its plain version, ``rollout._plant_step_ref`` with the
-    exact-solve ADMM (``solve_form="subst"``).
+    exact-solve ADMM (``solve_form="subst"``; ``"linv"`` for the walking
+    ``inv`` forms).
     """
     reason = _config_reason(cfg)
     if reason is not None:
@@ -229,7 +271,9 @@ def fused_walking_tick(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
                            else None, prev_v=prev_v, prev_q=prev_q)
         st2, m = ro._plant_step_ref(cfg, st, it, grf_override=grf_held,
                                     v_des=v_des, yaw_rate_des=yaw_rate,
-                                    solve_form="subst")
+                                    solve_form=plain_solve_form(
+                                        cfg.srbd.solver.solve_form,
+                                        6 if cfg.mode == "stand" else 3))
         outs = (st2.xi, st2.q, st2.foot_l, st2.foot_r, st2.qp_z,
                 st2.qp_lam, st2.ref_anchor, m["qp_residual"], m["grf"],
                 m["foot_target"])

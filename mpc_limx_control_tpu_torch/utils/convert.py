@@ -16,6 +16,7 @@ import torch
 
 from mpc_limx_control_tpu_torch.core import config as pcfg
 from mpc_limx_control_tpu_torch.core.types import KFState, default_device
+from mpc_limx_control_tpu_torch.control import linear_mpc
 from mpc_limx_control_tpu_torch.control.rollout import PlantState
 
 PLANT_FIELDS = tuple(f.name for f in dataclasses.fields(PlantState))
@@ -99,3 +100,17 @@ def plant_state_to_numpy(state: PlantState) -> dict:
         out[name] = ({"x_hat": arr(v.x_hat), "p_cov": arr(v.p_cov)}
                      if name == "kf" else arr(v))
     return out
+
+
+def linear_mpc_params_from_numpy(cfg: pcfg.MPCConfig, Ad, Bd, device=None,
+                                 dtype=None) -> linear_mpc.LinearMPCParams:
+    """LinearMPCParams from discrete matrices Ad [nx,nx], Bd [nx,nu] given
+    as arrays, so that both packages start the linear example from the
+    same matrices (the condensation is rebuilt from them); on the card
+    unless ``device`` says otherwise."""
+    device = default_device(device)
+    Ad_t = torch.tensor(np.asarray(Ad), device=device)
+    Bd_t = torch.tensor(np.asarray(Bd), device=device)
+    if dtype is not None:
+        Ad_t, Bd_t = Ad_t.to(dtype), Bd_t.to(dtype)
+    return linear_mpc.params_from_matrices(cfg, Ad_t, Bd_t)

@@ -21,7 +21,10 @@ from mpc_limx_control_tpu_torch.control import rollout as ro
 from mpc_limx_control_tpu_torch.core.config import ControllerConfig
 from mpc_limx_control_tpu_torch.core.types import JointState
 from mpc_limx_control_tpu_torch.models import srbd
+from mpc_limx_control_tpu_torch.ops import chol as cholp
+from mpc_limx_control_tpu_torch.ops import chol_cuda
 from mpc_limx_control_tpu_torch.ops import mpc_fused_cuda as mfc
+from mpc_limx_control_tpu_torch.ops import qp as qps
 from mpc_limx_control_tpu_torch.ops import tick_fused_cuda as tfc
 
 pytestmark = pytest.mark.cuda
@@ -236,8 +239,16 @@ def test_unsupported_configs_raise_on_cuda(cuda_device):
     inv = dataclasses.replace(cfg, srbd=dataclasses.replace(
         cfg.srbd, solver=dataclasses.replace(cfg.srbd.solver,
                                              solve_form="inv")))
-    with pytest.raises(NotImplementedError, match="K1"):
-        ro.plant_step(inv, s, it)
+    # solve_form="inv" (K1) is ported: walking launches the inv entry
+    # point, standing (n = 120 > 64) keeps the substitution kernel
+    before = tfc.TICK_KERNELS_INV[(False, False)].launches
+    ro.plant_step(inv, s, it)
+    assert tfc.TICK_KERNELS_INV[(False, False)].launches == before + 1
+    sinv = dataclasses.replace(stand, srbd=inv.srbd)
+    before = tfc.STAND_KERNELS[(False, False)].launches
+    ro.plant_step(sinv, ro.initial_plant_state(
+        sinv, batch=(2,), device=cuda_device), it)
+    assert tfc.STAND_KERNELS[(False, False)].launches == before + 1
 
 
 def _stand_states(cfg, B, seed, device):
@@ -416,3 +427,283 @@ def test_wrappers_check_dtype_and_layout(cuda_device):
     bad[0] = args[0][:, :5].contiguous()
     with pytest.raises(ValueError, match="shape"):
         mfc.fused_walking_qp_prep(*bad, cfg=cfg)
+
+
+# ---- the batched Cholesky / SPD-solve kernels (csrc/chol.cu) ------------
+
+def _spd(B, n, k, seed, device):
+    """Seeded SPD batch and right-hand sides (tests/test_qp_pallas.py:15-23
+    recipe): M = A A' / n + 3 I."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((B, n, n))
+    M = A @ A.transpose(0, 2, 1) / n + 3.0 * np.eye(n)
+    rhs = rng.standard_normal((B, n, k))
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return M, rhs, t(M), t(rhs)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("n", [1, 30, 33, 60, 120, 128])
+def test_chol_kernels_match_plain_and_numpy(cuda_device, n, k):
+    """cholesky / chol_solve / posdef_solve / posdef_solve_fast at B = 257
+    (not a multiple of 128) against their plain versions and against f64
+    numpy.linalg with the bands of tests/test_qp_pallas.py (2e-5 on L,
+    5e-5 on x), each launch counted once."""
+    M64, r64, M, rhs = _spd(257, n, k, 100 + n + k, cuda_device)
+    counts = {name: kern.launches for name, kern in chol_cuda.KERNELS.items()}
+    L = chol_cuda.cholesky(M)
+    x_cs = chol_cuda.chol_solve(L, rhs)
+    x_ps = chol_cuda.posdef_solve(M, rhs)
+    x_pf = chol_cuda.posdef_solve_fast(M, rhs)
+    torch.cuda.synchronize()
+    for name, kern in chol_cuda.KERNELS.items():
+        assert kern.launches == counts[name] + 1, name
+    for name in chol_cuda.KERNELS:
+        lib = chol_cuda._build.build_library()["lib"]
+        assert getattr(lib, name + "_smem_bytes")(n, k) == \
+            chol_cuda.smem_bytes(name, n, k)
+    L_p = cholp.cholesky_plain(M)
+    assert float(torch.triu(L, 1).abs().sum()) == 0.0
+    torch.testing.assert_close(L, L_p, atol=2e-5, rtol=0)
+    torch.testing.assert_close(L.double().cpu().numpy(),
+                               np.linalg.cholesky(M64), atol=2e-5, rtol=0)
+    x_ref = np.linalg.solve(M64, r64)
+    x_p = cholp.posdef_solve_plain(M, rhs)
+    for x in (x_cs, x_ps, x_pf):
+        torch.testing.assert_close(x, x_p, atol=5e-5, rtol=0)
+        np.testing.assert_allclose(x.double().cpu().numpy(), x_ref,
+                                   atol=5e-5, rtol=0)
+    torch.testing.assert_close(x_cs, cholp.chol_solve_plain(L, rhs),
+                               atol=5e-5, rtol=0)
+
+
+def test_chol_kernels_on_late_pdip_matrices(cuda_device):
+    """The kernels against their twins on M = H + G'DG + reg I captured in
+    Newton steps 15-20 of a cold PDIP on the walking QP (d = lam / s up to
+    1e7: M spans ~1e7, and two f32 solves of one such system share no digit
+    of x): the factor within 1e-4 of its scale and 1e-5 of |M| in
+    |L L' - M|, the solves by their backward error (1e-5, within 4x of the
+    twin's)."""
+    cfg = ControllerConfig.walking()
+    H, f, G, h = _walking_qp(cfg, 128, 9, cuda_device)
+    Ms, rs = _late_pdip_matrices(H, f, G, h, 20, range(15, 20))
+    assert len(Ms) == 5
+    kept = 0
+    for M, r in zip(Ms, rs):
+        # a late f32 iterate can leave the cone of positive definite
+        # matrices or be non-finite (the solver keeps its best iterate and
+        # never returns what follows): the comparison takes the scenarios
+        # whose twin factor has every pivot above the clamp
+        L_p = cholp.cholesky_plain(M)
+        d = torch.diagonal(L_p, dim1=-2, dim2=-1)
+        ok = (torch.isfinite(L_p).all(-1).all(-1) & (d > 1e-6).all(-1)
+              & torch.isfinite(r).all(-1).all(-1))
+        if int(ok.sum()) == 0:
+            continue
+        kept += int(ok.sum())
+        M, r, L_p = M[ok].contiguous(), r[ok].contiguous(), L_p[ok]
+        L = chol_cuda.cholesky(M)
+        lscale = float(L_p.abs().max())
+        torch.testing.assert_close(L, L_p, atol=1e-4 * lscale, rtol=0)
+        llt = (L @ L.transpose(-1, -2) - M).abs().amax((-2, -1))
+        assert float((llt / M.abs().amax((-2, -1))).max()) <= 1e-5
+        twin = _backward(M, cholp.chol_solve_plain(L_p, r), r)
+        for x in (chol_cuda.chol_solve(L, r), chol_cuda.posdef_solve(M, r),
+                  chol_cuda.posdef_solve_fast(M, r)):
+            assert bool(torch.isfinite(x).all())
+            assert _backward(M, x, r) <= max(1e-5, 4.0 * twin)
+    assert kept >= 64, kept
+
+
+def _backward(M, x, r):
+    """Backward error |M x - r| / (|M| |x| + |r|) in inf norms, the worst
+    of the batch."""
+    num = (M @ x - r).abs().amax((-2, -1))
+    den = (M.abs().sum(-1).amax(-1) * x.abs().amax((-2, -1))
+           + r.abs().amax((-2, -1)))
+    return float((num / den).max())
+
+
+def _walking_qp(cfg, B, seed, device):
+    """The condensed walking QP (n = 60, m = 120) of perturbed poses."""
+    from mpc_limx_control_tpu_torch.ops import condense as cnd
+
+    arms, x0, v_des, w_des, _, _, anc = _prep_inputs(cfg, B, seed, device)
+    c = cfg.srbd
+    N = c.horizon
+    Ac, Bc = srbd.linearize_shared(cfg.robot, arms, x0[:, 3:6], x0[:, 2])
+    Ad, Bd_t = srbd.discretize_srbd(Ac, Bc, c.ts)
+    x_ref = srbd.walking_reference(x0, c, N, v_des, w_des, height_des=0.65)
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    G, h = srbd.friction_cone_rows(c, N, torch.float32, device)
+    qp = cnd.condense(Ad, Bd_t, torch.diag(t(c.q_diag)),
+                      torch.diag(t(c.r_diag)),
+                      torch.diag(c.p_scale * t(c.q_diag)), N, x0, x_ref,
+                      extra_G=G, extra_h=h)
+    return qp.H, qp.f, qp.G, qp.h
+
+
+def _late_pdip_matrices(H, f, G, h, iters, keep):
+    """(M + reg I, affine right-hand side [B,n,1]) of the Newton steps in
+    `keep`, from a cold PDIP run with the plain twins."""
+    seen = {"M": [], "r": []}
+    chol0, solve0 = qps._posdef_chol, qps._chol_solve
+
+    def spy_chol(M, reg, plain_twins=False):
+        seen["M"].append(M + reg * torch.eye(M.shape[-1], device=M.device))
+        return chol0(M, reg, plain_twins)
+
+    def spy_solve(L, rhs, plain_twins=False):
+        seen["r"].append(rhs[..., None].contiguous())
+        return solve0(L, rhs, plain_twins)
+
+    qps._posdef_chol, qps._chol_solve = spy_chol, spy_solve
+    try:
+        qps._batched_pdip(H, f, G, h, iters, plain_twins=True)
+    finally:
+        qps._posdef_chol, qps._chol_solve = chol0, solve0
+    # one cold-start factorization and solve come first, then per Newton
+    # step one factorization and two solves
+    Ms = [seen["M"][1 + i].contiguous() for i in keep]
+    rs = [seen["r"][1 + 2 * i] for i in keep]
+    return Ms, rs
+
+
+def test_chol_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    M = torch.eye(4, device=cuda_device).expand(3, 4, 4).contiguous()
+    rhs = torch.ones(3, 4, 1, device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        chol_cuda.cholesky(M.double())
+    with pytest.raises(TypeError, match="float32"):
+        chol_cuda.posdef_solve(M, rhs.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        chol_cuda.chol_solve(M.transpose(1, 2), rhs)
+    big = torch.zeros(1, 300, 300, device=cuda_device)
+    with pytest.raises(ValueError, match="232448"):
+        chol_cuda.cholesky(big)
+    torch.testing.assert_close(chol_cuda.posdef_solve_fast(M, rhs), rhs)
+
+
+@pytest.mark.parametrize("method", ["pdip_cold", "pdip_warm", "admm"])
+def test_general_solvers_launch_the_chol_kernels(cuda_device, method):
+    """_batched_pdip / _batched_admm on CUDA tensors: the launch arithmetic
+    (one cholesky and two chol_solve per Newton step, one posdef_solve for
+    a cold start; one cholesky per ADMM solve) and agreement with the same
+    solver on the plain twins."""
+    cfg = ControllerConfig.walking()
+    H, f, G, h = _walking_qp(cfg, 33, 4, cuda_device)
+    rng = np.random.default_rng(2)
+    zw = torch.tensor(5.0 * rng.standard_normal((33, 60)),
+                      dtype=torch.float32, device=cuda_device)
+    counts = {n_: k.launches for n_, k in chol_cuda.KERNELS.items()}
+    if method == "admm":
+        yw = torch.zeros(33, 120, device=cuda_device)
+        run = lambda tw: qps._batched_admm(H, f, G, h, zw, yw, 20, 0.3, 1.6,
+                                           plain_twins=tw)
+        want = dict(cholesky=1, chol_solve=0, posdef_solve=0)
+    else:
+        warm = method == "pdip_warm"
+        run = lambda tw: qps._batched_pdip(
+            H, f, G, h, 8, z_warm=zw if warm else None,
+            lam_warm=torch.ones_like(h) if warm else None, plain_twins=tw)
+        want = dict(cholesky=8, chol_solve=16, posdef_solve=0 if warm else 1)
+    sol, _ = run(False)
+    got = {n_: k.launches - counts[n_]
+           for n_, k in chol_cuda.KERNELS.items()}
+    assert got == dict(want, posdef_solve_fast=0)
+    sol_p, _ = run(True)
+    scale = float(sol_p.u.abs().max()) + 1.0
+    # forces of ~250 N after 8 Newton steps (a cold solve is not converged
+    # there, and the best-iterate pick can differ between two arithmetic
+    # orders): the JAX suite's band for that is 5e-2 on z of O(10)
+    # (tests/test_qp_pallas.py:66), 5e-3 of the scale
+    torch.testing.assert_close(sol.u, sol_p.u, atol=5e-3 * scale, rtol=0)
+
+
+# ---- solve_form="inv" (K1) ------------------------------------------------
+
+def _inv(cfg):
+    return dataclasses.replace(cfg, srbd=dataclasses.replace(
+        cfg.srbd, solver=dataclasses.replace(cfg.srbd.solver,
+                                             solve_form="inv")))
+
+
+@pytest.mark.parametrize("N", [20, 8])
+def test_prep_inv_kernel_matches_twin_and_subst(cuda_device, N):
+    """walking_mpc_prep_inv against its "linv" twin (bands of the subst
+    kernel) and against the "subst" kernel on the same inputs (1e-4 of
+    the solution scale, the band tests/test_mpc_fused.py:288 holds the two
+    forms to)."""
+    cfg = _inv(_cfg(N))
+    args = _prep_inputs(cfg, 257, 21 + N, cuda_device)
+    before = mfc.WALKING_MPC_PREP_INV.launches
+    z, y, res, xp = mfc.fused_walking_qp_prep(*args, cfg=cfg)
+    assert mfc.WALKING_MPC_PREP_INV.launches == before + 1
+    sol, xp_p, (z_p, y_p) = mfc.walking_qp_prep_plain(cfg, *args,
+                                                      solve_form="linv")
+    scale = float(z_p.abs().max()) + 1.0
+    torch.testing.assert_close(z, z_p, atol=2e-3 * scale, rtol=0)
+    torch.testing.assert_close(y, y_p, atol=2e-3 * scale, rtol=0)
+    torch.testing.assert_close(xp, xp_p, atol=1e-3 * scale, rtol=0)
+    z_s = mfc.fused_walking_qp_prep(*args, cfg=_cfg(N))[0]
+    torch.testing.assert_close(z, z_s, atol=1e-4 * scale, rtol=0)
+
+
+def test_fused_qp_inv_kernel_matches_twin_and_subst(cuda_device):
+    cfg = _inv(_cfg(20))
+    args = _qp_inputs(cfg, 3, 257, 63, cuda_device)
+    before = mfc.FUSED_QP_NU3_INV.launches
+    sol, (z, y) = mfc.make_admm_fused(cfg.srbd)(*args)
+    assert mfc.FUSED_QP_NU3_INV.launches == before + 1
+    sol_p, (z_p, y_p) = mfc.make_admm_fused(cfg.srbd,
+                                            solve_form="linv")(*args)
+    scale = float(z_p.abs().max()) + 1.0
+    torch.testing.assert_close(z, z_p, atol=1e-4 * scale, rtol=0)
+    sol_s, _ = mfc.make_admm_fused(_cfg(20).srbd)(*args)
+    torch.testing.assert_close(z, sol_s.u, atol=1e-4 * scale, rtol=0)
+    # two feet (n = 120 > 64): the form changes nothing, no inv launch
+    args6 = _qp_inputs(cfg, 6, 33, 66, cuda_device)
+    before6 = mfc.FUSED_QP[6].launches
+    sol6, _ = mfc.make_admm_fused(cfg.srbd, two_feet=True)(*args6)
+    sol6s, _ = mfc.make_admm_fused(_cfg(20).srbd, two_feet=True)(*args6)
+    assert mfc.FUSED_QP[6].launches == before6 + 2
+    assert mfc.FUSED_QP_NU3_INV.launches == before + 1
+    assert torch.equal(sol6.u, sol6s.u)
+
+
+@pytest.mark.parametrize("est_kf", [False, True])
+def test_tick_inv_kernels_match_twin_and_subst(cuda_device, est_kf):
+    """walking_tick_inv / walking_tick_kf_inv against the plain tick with
+    the "linv" twin (bands of the subst forms) and against the subst
+    kernel's tick."""
+    base = ControllerConfig.walking()
+    if est_kf:
+        base = dataclasses.replace(base, estimator_mode="kf")
+    cfg = _inv(base)
+    B = 257
+    s0 = _states(cfg, B, 0, cuda_device, yaw=0.0 if est_kf else 0.1)
+    its = _staggered(B, cuda_device)
+    for j in range(3):
+        s0, _ = ro._plant_step_ref(cfg, s0, its + j, solve_form="subst")
+    its = its + 3.0
+    kern = tfc.TICK_KERNELS_INV[(est_kf, False)]
+    assert kern.name == ("walking_tick_kf_inv" if est_kf
+                         else "walking_tick_inv")
+    before = kern.launches
+    s_k, m_k = ro.plant_step(cfg, s0, its)
+    assert kern.launches == before + 1
+    s_p, m_p = ro._plant_step_ref(cfg, s0, its, solve_form="linv")
+    s_s, m_s = ro.plant_step(base, s0, its)
+    for k, a in (("xi", 3e-4), ("q", 5e-4), ("foot_l", 5e-4),
+                 ("foot_r", 5e-4), ("ref_anchor", 1e-5)):
+        torch.testing.assert_close(getattr(s_k, k), getattr(s_p, k),
+                                   atol=a, rtol=0)
+        torch.testing.assert_close(getattr(s_k, k), getattr(s_s, k),
+                                   atol=a, rtol=0)
+    torch.testing.assert_close(m_k["grf"], m_p["grf"], atol=5e-2, rtol=0)
+    torch.testing.assert_close(m_k["grf"], m_s["grf"], atol=5e-2, rtol=0)
+    # a held tick of an inv config runs the shared hold kernel
+    hold = tfc.TICK_KERNELS[(est_kf, True)]
+    before = hold.launches
+    ro.plant_step(cfg, s0, its, grf_override=m_k["grf"])
+    assert hold.launches == before + 1

@@ -46,6 +46,19 @@ FIELDS = ("xi", "q", "foot_l", "foot_r", "qp_z", "qp_lam", "ref_anchor",
 ITS = [0.0, 40.0, 180.0, 299.0, 300.0, 455.0]   # both swing sides + switch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU ticks are host loops over hundreds of small torch
+    calls: with several test workers on one machine a multi-threaded BLAS
+    oversubscribes the cores and each call spins (a 600-tick walking loop
+    takes 11 s on one thread and a minute on the default). One thread per
+    worker while this module runs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _kf(cfg):
     return dataclasses.replace(cfg, estimator_mode="kf")
 

@@ -39,6 +39,19 @@ FIELDS = ("xi", "q", "foot_l", "foot_r", "qp_z", "qp_lam", "ref_anchor")
 ITS = [0.0, 40.0, 180.0, 299.0, 300.0, 455.0]   # both swing sides + switch
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU ticks are host loops over hundreds of small torch
+    calls: with several test workers on one machine a multi-threaded BLAS
+    oversubscribes the cores and each call spins (a 600-tick walking loop
+    takes 11 s on one thread and a minute on the default). One thread per
+    worker while this module runs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _small(cfg):
     return dataclasses.replace(
         cfg, srbd=dataclasses.replace(cfg.srbd, horizon=8))
@@ -302,27 +315,46 @@ def test_unsupported_configs_refuse():
     cfg = TCfg.walking()
     kf = dataclasses.replace(cfg, estimator_mode="kf")
     stand = TCfg.standing()
-    for ok in (cfg, kf, stand, dataclasses.replace(kf, mode="stand")):
+    def solver(c, **kw):
+        return dataclasses.replace(c, srbd=dataclasses.replace(
+            c.srbd, solver=dataclasses.replace(c.srbd.solver, **kw)))
+
+    inv = solver(cfg, solve_form="inv")
+    for ok in (cfg, kf, stand, dataclasses.replace(kf, mode="stand"), inv,
+               solver(stand, solve_form="inv")):
         assert ttfc.supports_fused_tick(ok)
+        assert not ttfc.runs_as_composition(ok)
+    # refused by the tick kernels because of the solver only: the
+    # composition runs them, on the card too
+    for other in (dataclasses.replace(cfg, qp_warm_start=False),
+                  dataclasses.replace(stand, qp_warm_start=False),
+                  solver(cfg, method="pdip"), solver(stand, method="admm"),
+                  TCfg()):
+        assert not ttfc.supports_fused_tick(other)
+        assert ttfc.runs_as_composition(other)
+    # refused by both
     for bad in (dataclasses.replace(cfg, ik_method="damped_ls"),
-                dataclasses.replace(cfg, qp_warm_start=False),
-                dataclasses.replace(stand, qp_warm_start=False),
-                dataclasses.replace(cfg, srbd=dataclasses.replace(
-                    cfg.srbd, solver=dataclasses.replace(
-                        cfg.srbd.solver, solve_form="inv"))),
+                solver(cfg, method="riccati"), solver(cfg, solve_form="x"),
                 dataclasses.replace(cfg, srbd=dataclasses.replace(
                     cfg.srbd, attitude_ref="receding"))):
         assert not ttfc.supports_fused_tick(bad)
-    # the KF state and standing are ported; the cold two-foot solve is not
+        assert not ttfc.runs_as_composition(bad)
+    # the KF state, standing and the cold two-foot solve are ported
     assert tro.initial_plant_state(kf, device="cpu").kf.x_hat.shape == (12,)
     s = tro.initial_plant_state(stand, batch=(1,), device="cpu")
     assert s.qp_z.shape == (1, 120) and s.ref_anchor is None
     s2, m = tro.plant_step(stand, s, torch.zeros(1))
     assert s2.qp_lam.shape == (1, 240) and bool(m["qp_residual"] > 0)
     cold = dataclasses.replace(stand, qp_warm_start=False)
+    s3, m3 = tro.plant_step(cold, tro.initial_plant_state(
+        cold, batch=(1,), device="cpu"), torch.zeros(1))
+    assert s3.qp_z is None and bool(m3["qp_residual"] > 0)
+    assert abs(float(m3["grf"][0, 2] + m3["grf"][0, 5]) - 9.81
+               * cold.robot.mass) < 0.1 * 9.81 * cold.robot.mass
+    ric = solver(cfg, method="riccati")
     with pytest.raises(NotImplementedError, match="item 13"):
-        tro.plant_step(cold, tro.initial_plant_state(cold, batch=(1,),
-                                                     device="cpu"),
+        tro.plant_step(ric, tro.initial_plant_state(ric, batch=(1,),
+                                                    device="cpu"),
                        torch.zeros(1))
     rec = dataclasses.replace(cfg, srbd=dataclasses.replace(
         cfg.srbd, attitude_ref="receding"))

@@ -50,6 +50,19 @@ FIELDS = ("xi", "q", "foot_l", "foot_r", "qp_z", "qp_lam", "prev_v",
           "prev_q")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU ticks are host loops over hundreds of small torch
+    calls: with several test workers on one machine a multi-threaded BLAS
+    oversubscribes the cores and each call spins (a 600-tick walking loop
+    takes 11 s on one thread and a minute on the default). One thread per
+    worker while this module runs."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _kf(cfg):
     return dataclasses.replace(cfg, estimator_mode="kf")
 
@@ -167,9 +180,17 @@ def test_stance_mpc_matches_jax_f64():
                        ("xi_pred", xp_t, xp_j), ("z", z_t, z_j),
                        ("y", y_t, y_j)):
         _close(t, j, 1e-9, name)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tctrl.stance_mpc(tcfg, odom, T(arm_l), T(arm_r), tones, tones,
-                         T(v_des), T(w_des), qp_warm=None)
+    # without a warm state the same call is the cold PDIP on the condensed
+    # QP (parity with JAX: tests/test_torch_linear_mpc.py): no state to
+    # thread, both feet pushing up inside their cones
+    grf_c, res_c, _, state_c = tctrl.stance_mpc(
+        tcfg, odom, T(arm_l), T(arm_r), tones, tones, T(v_des), T(w_des),
+        pos_anchor=T(anchor), qp_warm=None)
+    assert state_c is None and bool((res_c > 0).all())
+    assert bool(torch.isfinite(grf_c).all())
+    assert bool((grf_c[:, [2, 5]] > 0).all())
+    assert bool((grf_c[:, [0, 1, 3, 4]].abs()
+                 <= 0.5 * grf_c[:, [2, 2, 5, 5]] + 1e-6).all())
 
 
 def test_controller_tick_stand_matches_jax_f64():
@@ -512,16 +533,28 @@ def test_stand_wrapper_dispatch_and_refusals():
     assert [k.launches for k in kernels] == before
     assert ttfc.tick_params(cfg).mpc.N == 20
     assert list(ttfc.tick_params(cfg).mpc.hu)[4::6] == [400.0, 400.0]
+    ric = dataclasses.replace(cfg, srbd=dataclasses.replace(
+        cfg.srbd, solver=dataclasses.replace(cfg.srbd.solver,
+                                             method="riccati")))
     for bad, match in (
             (dataclasses.replace(cfg, ik_method="log6"), "item 15"),
-            (dataclasses.replace(cfg, qp_warm_start=False), "item 13")):
+            (ric, "item 13")):
         with pytest.raises(NotImplementedError, match=match):
             tro.plant_step(bad, tro.initial_plant_state(
                 bad, batch=(1,), device="cpu"), torch.zeros(1))
+        assert match in ttfc.unsupported_reason(bad, s)
+    # a cold standing config is the cold PDIP, not a refusal
+    cold = dataclasses.replace(cfg, qp_warm_start=False)
+    assert ttfc.runs_as_composition(cold)
+    _, mc = tro.plant_step(cold, tro.initial_plant_state(
+        cold, batch=(1,), device="cpu"), torch.zeros(1))
+    assert bool(torch.isfinite(mc["grf"]).all())
+    # solve_form="inv" at n = 120 > 64 keeps the substitution kernels
     inv = dataclasses.replace(cfg, srbd=dataclasses.replace(
         cfg.srbd, solver=dataclasses.replace(cfg.srbd.solver,
                                              solve_form="inv")))
-    assert "K1" in ttfc.unsupported_reason(inv, s)
+    assert ttfc.unsupported_reason(inv, s) is None
+    assert ttfc.tick_kernels(inv) is ttfc.STAND_KERNELS
     with pytest.raises(ValueError, match="estimator_mode"):
         ttfc.fused_walking_tick(
             s.xi, s.q, s.foot_l, s.foot_r, s.qp_z, s.qp_lam,

@@ -10,9 +10,18 @@ profiler; then the device time of every kernel in a third window from
 of the wall time. Prints one JSON line per batch size (and appends it to
 ``--out`` when given).
 
+``--solver`` swaps the config's QP solver for one of the general ones,
+whose tick is the plain composition on the card with its factorizations
+and solves in the ``ops/chol_cuda.py`` kernels: ``pdip`` (warm, 6 Newton
+steps), ``pdip-cold`` (20 steps from the cold start, no warm state),
+``admm`` (warm dense ADMM) or ``admm-cold`` (60 iterations from zeros).
+The line then also counts the kernel launches per tick.
+
     python3 tools/profile_torch_tick.py [--batches 1 64 1024 4096]
                                         [--ticks 200] [--mode stand]
                                         [--estimator kf] [--mpc-every 5]
+                                        [--solver pdip|pdip-cold|admm|
+                                                  admm-cold]
                                         [--out FILE]
 """
 
@@ -32,6 +41,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 
 def _device_us(evt) -> float:
+    """Device time of a kernel event; 0 for a host-side operator, whose
+    entry repeats the time of the kernels it launched."""
+    from torch.autograd import DeviceType
+
+    if getattr(evt, "device_type", DeviceType.CUDA) != DeviceType.CUDA:
+        return 0.0
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
             return float(getattr(evt, name))
@@ -69,6 +84,7 @@ def profile_batch(cfg, B: int, ticks: int, dev, mpc_every: int = 1) -> dict:
     dev_ms = sum(by_name.values()) / ticks / 1e3
     wall = min(walls)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    launches = sum(counts.values()) / ticks
     return {
         "B": B, "ticks": ticks, "mode": cfg.mode,
         "estimator": cfg.estimator_mode,
@@ -78,6 +94,9 @@ def profile_batch(cfg, B: int, ticks: int, dev, mpc_every: int = 1) -> dict:
         "wall_ms_per_tick_profiled": wall_prof * 1e3,
         "device_ms_per_tick": dev_ms,
         "device_over_wall": dev_ms / (wall * 1e3),
+        "device_launches_per_tick": launches,
+        "solver": cfg.srbd.solver.method,
+        "qp_warm_start": cfg.qp_warm_start,
         "ticks_per_s": B / wall,
         "top_kernels_ms_per_tick": {k[:60]: v / ticks / 1e3 for k, v in top},
         "top_kernels_us_per_launch": {k[:60]: v / counts[k] for k, v in top},
@@ -92,6 +111,8 @@ def main() -> int:
     ap.add_argument("--mode", choices=("walk", "stand"), default="walk")
     ap.add_argument("--estimator", choices=("truth", "kf"), default="truth")
     ap.add_argument("--mpc-every", type=int, default=1)
+    ap.add_argument("--solver", default=None,
+                    choices=("pdip", "pdip-cold", "admm", "admm-cold"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -109,6 +130,15 @@ def main() -> int:
     base = (ControllerConfig.standing() if args.mode == "stand"
             else ControllerConfig.walking())
     cfg = dataclasses.replace(base, estimator_mode=args.estimator)
+    if args.solver is not None:
+        from mpc_limx_control_tpu_torch.core.config import SolverConfig
+
+        method, _, cold = args.solver.partition("-")
+        solver = (SolverConfig(method="pdip", iters=20) if method == "pdip"
+                  else SolverConfig(method="admm", iters=60, admm_rho=0.1))
+        cfg = dataclasses.replace(
+            cfg, qp_warm_start=not cold,
+            srbd=dataclasses.replace(cfg.srbd, solver=solver))
     for B in args.batches:
         line = json.dumps(dict(card=smi, **profile_batch(
             cfg, B, args.ticks, dev, args.mpc_every)))
