@@ -62,6 +62,23 @@ non-zero):
    ``torch.linalg.solve``) or its ``"subst"`` form, and the time per tick
    of the general-solver paths at B = 1, 1024 and 4096.
 
+8. the fused interior-point kernel (K9, ``pdip_fused``) against its plain
+   version on the QP of tests/test_qp_pallas.py (n = 30, m = 64), the cold
+   walking QP (60 / 120) and the ``ControllerConfig()`` standing QP
+   (120 / 240) at B = 257 and 1, every scenario (``pdip_check``): the
+   merit after 0 and 1 steps within 1e-3 of itself, the best-iterate pick
+   bit for bit from the kernel's own launches, all four outputs after 6
+   Newton steps, after 20 the best merit within its f32 floor and the
+   objective and the feasibility of z_best;
+   the entry point held against ``ops.qp._batched_pdip`` (the K8 kernels)
+   on the walking QP at B = 4096; the controller variants on the card,
+   counters reset and checked per path: the Riccati ADMM walking (400
+   ticks, B = 4) and against ``make_admm_fused`` on the same QPs, the
+   damped-LS and log6 swing IKs and the receding attitude reference (700
+   ticks each); CUDA-event times of K9 at B = 1 / 1024 / 4096 beside its
+   plain version and ``_batched_pdip``'s wall time on the same inputs, and
+   the time per tick of the variant paths.
+
 It prints the kernels' JSON summary on the line before the last and, as
 the last line, {"ok": true, "device": {...}}. Without a CUDA card it exits
 with code 1 and prints no result.
@@ -95,6 +112,8 @@ CHOL_LIBRARY = {"cholesky": "torch.linalg.cholesky",
                 "chol_solve": "torch.cholesky_solve",
                 "posdef_solve": "torch.linalg.solve",
                 "posdef_solve_fast": "torch.linalg.solve"}
+PDIP_SRC = CSRC + "pdip_fused.cu"
+PDIP_TPU = "mpc_limx_control_tpu/ops/qp_pallas.py:206"
 PREP_TPU = "mpc_limx_control_tpu/ops/mpc_fused_pallas.py:374"
 QP_TPU = "mpc_limx_control_tpu/ops/mpc_fused_pallas.py:355"
 TICK_TPU = "mpc_limx_control_tpu/ops/tick_fused_pallas.py:130"
@@ -108,6 +127,9 @@ STAND_VARIANTS = {k: v.replace("walking", "standing")
 # the tensor cores
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+# K9's shapes (n, m): the QP of tests/test_qp_pallas.py, the cold walking
+# QP, the ControllerConfig() standing QP
+PDIP_SHAPES = ((30, 64), (60, 120), (120, 240))
 # the bench.py push: +0.3 m/s lateral velocity at tick 600
 PUSH = torch.tensor([0.0] * 10 + [0.3, 0.0, 0.0])
 
@@ -447,6 +469,195 @@ def chol_bound(name: str, B: int, n: int, k: int) -> dict:
     return bound(B, n * n + n * k, n * k, factor + 2.0 * n * n * k)
 
 
+def recipe_qp(B: int, seed: int, device):
+    """tests/test_qp_pallas.py:46-58 (n = 30, m = 64), drawn with numpy:
+    H = A A' / n + 3 I, f, G normal, h = |normal| + 1."""
+    n, m = 30, 64
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, n, n))
+    H = np.einsum("bij,bkj->bik", A, A) / n + 3 * np.eye(n)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    return (t(H), t(rng.normal(size=(B, n))), t(rng.normal(size=(B, m, n))),
+            t(np.abs(rng.normal(size=(B, m))) + 1.0))
+
+
+def standing_qp(B: int, seed: int, device):
+    """The condensed two-foot QP of ``ControllerConfig()`` standing (N = 20,
+    n = 120, m = 240; controller.stance_mpc's cold branch) at perturbed
+    standing states: (H, f, G, h)."""
+    from mpc_limx_control_tpu_torch.control import controller as ctrl
+    from mpc_limx_control_tpu_torch.control import rollout as ro
+    from mpc_limx_control_tpu_torch.core.config import ControllerConfig
+    from mpc_limx_control_tpu_torch.models import srbd
+    from mpc_limx_control_tpu_torch.ops import condense as cnd
+
+    c = dataclasses.replace(ControllerConfig(), mode="stand")
+    s = perturbed_states(c, B, seed, device)
+    od = ro._odom_from_xi(s.xi)
+    xi0 = srbd.initial_state(od.ori, od.pos, od.v_ori, od.v_pos)
+    Ac, Bc2 = srbd.linearize_shared(
+        c.robot, torch.stack([s.foot_l, s.foot_r], -2), od.pos, od.ori[:, 2])
+    Ad, Bd = srbd.discretize_srbd(Ac, torch.cat([Bc2[:, 0], Bc2[:, 1]], -1),
+                                  c.srbd.ts)
+    N = c.srbd.horizon
+    mid = 0.5 * (s.foot_l + s.foot_r)
+    height = c.ground_height + c.base_height
+    x_ref = srbd.walking_reference(
+        xi0, c.srbd, N, torch.zeros(B, 3, device=device),
+        torch.zeros(B, device=device), height_des=height,
+        pos_anchor=torch.cat([mid[:, :2], torch.full_like(mid[:, 2:],
+                                                          height)], -1))
+    Q, R, P = ctrl._weights(c.srbd, 2, torch.float32, device)
+    ones = torch.ones(B, N, device=device)
+    qp = cnd.condense(Ad, Bd[:, None].expand(B, N, 13, 6), Q, R, P, N, xi0,
+                      x_ref, extra_G=ctrl._cone_rows(c, torch.float32,
+                                                     device),
+                      extra_h=ctrl._cone_bounds(c, ones, ones))
+    return qp.H, qp.f, qp.G.expand(B, -1, -1), qp.h
+
+
+def pdip_start(H, f, G, h):
+    """The QP with the cold start of ops/qp.py's PDIP, as the seven inputs
+    of pdip_fused: z0 = -(H + 1e-6 I)^-1 f (plain solve), the slacks
+    h - G z0 pushed interior by 1, lam0 = 1."""
+    from mpc_limx_control_tpu_torch.ops import chol as cholp
+
+    n = f.shape[-1]
+    z0 = -cholp.posdef_solve_plain(
+        H + 1e-6 * torch.eye(n, device=H.device), f[..., None])[..., 0]
+    s_raw = h - (G @ z0[..., None])[..., 0]
+    s0 = s_raw + torch.clamp(-s_raw.amin(-1, keepdim=True), min=0.0) + 1.0
+    return [a.contiguous() for a in (H, f, G, h, z0, s0, torch.ones_like(h))]
+
+
+def pdip_flops(n: int, m: int) -> float:
+    """Operations of one Newton step of csrc/pdip_fused.cu for one QP:
+    G' diag(d) G (lower triangle, a multiply-add per term, d applied per
+    row), M = H + . + reg I, the factorization n^3 / 3, four sweeps of n^2,
+    the mat-vecs H z, G z, G' lam and per direction G' w and G dz, ~40
+    operations per inequality row."""
+    return (m * n * (n + 1) + m * n + n * (n + 1) / 2 + n ** 3 / 3
+            + 4 * n * n + 2 * n * n + 12 * m * n + 40 * m)
+
+
+def pdip_bound(B: int, n: int, m: int, iters: int) -> dict:
+    """Bound of one pdip_fused launch: H, f, G, h, z0, s0, lam0 read once,
+    z_best, merit, z_final, lam_final written once; `iters` Newton
+    steps."""
+    return bound(B, n * n + 2 * n + m * n + 3 * m, 2 * n + 1 + m,
+                 iters * pdip_flops(n, m))
+
+
+def qp_objective(H, f, z):
+    return 0.5 * (z[:, None, :] @ H @ z[..., None])[:, 0, 0] + (f * z).sum(-1)
+
+
+PDIP_FLOOR_X = 8.0   # the merit's band past the f32 floor, in floors
+
+
+def pdip_floor(args, iters: int) -> float:
+    """The float32 floor of pdip_fused's best merit after `iters` Newton
+    steps: the largest change of the plain version's, over the batch, when
+    the constraint rows are taken in reverse order (the same QPs in
+    another arithmetic order)."""
+    from mpc_limx_control_tpu_torch.ops import qp_cuda
+
+    rev = [a.flip(1) if i in (2, 3, 5, 6) else a for i, a in enumerate(args)]
+    return maxerr(qp_cuda.pdip_fused_plain(*rev, iters=iters)[1],
+                  qp_cuda.pdip_fused_plain(*args, iters=iters)[1])
+
+
+def pdip_check(args, iters: int, floor: float) -> dict:
+    """pdip_fused (K9) against its plain version on one batch of QPs over
+    `iters` Newton steps, every scenario held:
+
+    * merit_best after 0 and 1 steps, where the merit stands far above the
+      f32 floor and every term of it counts (the walking QP starts
+      infeasible), within 1e-3 of itself;
+    * the pick, bit for bit from the kernel's own launches at 0..iters
+      steps: merit_best never rises; where it falls z_best is that launch's
+      z_final, elsewhere the previous launch's z_best;
+    * merit_best after `iters` steps within 1e-3 of itself + PDIP_FLOOR_X
+      floors (pdip_floor): after 4-6 steps the merit is at the f32 floor,
+      where two arithmetic orders of the plain version part by up to 1.5x
+      the merit, so no band relative to it alone can hold there;
+    * up to 6 steps (M well conditioned): z_final and lam_final of every
+      launch within 5e-4 of their scale from the plain iterate of that
+      step, so z_best is the plain iterate of the step the kernel picked,
+      and the plain merit of that step within the merit band of the plain
+      best (where the picks differ, a tie at the floor);
+    * the objective of z_best within 1e-3 of 1 + |J| and its violation
+      within 4x the plain version's or 1e-5 of 1 + |h| (after 20 steps the
+      iterates part: late f32 iterates go NaN in either, by design).
+
+    Returns the measured errors; "ok" says whether every band holds.
+    """
+    from mpc_limx_control_tpu_torch.ops import qp_cuda
+
+    H, f, G, h, z0 = args[:5]
+    B = f.shape[0]
+    runs = [qp_cuda.pdip_fused(*args, iters=k) for k in range(iters + 1)]
+    its = list(qp_cuda.pdip_iterates(*args, iters=iters))
+    best = [its[0][3]]                 # the plain best merit after k steps
+    pick_p = torch.zeros(B, dtype=torch.long, device=f.device)
+    for k, it in enumerate(its[1:], 1):
+        better = it[3] < best[-1]
+        best.append(torch.where(better, it[3], best[-1]))
+        pick_p = torch.where(better, k, pick_p)
+    z_p = torch.stack([it[0] for it in its], 1)
+    rows = torch.arange(B, device=f.device)
+
+    pick = torch.zeros_like(pick_p)
+    exact = torch.equal(runs[0][0], z0)
+    for k in range(1, iters + 1):
+        prev, cur = runs[k - 1], runs[k]
+        fell = cur[1] < prev[1]
+        exact = (exact and bool((cur[1] <= prev[1]).all())
+                 and torch.equal(cur[0], torch.where(fell[:, None], cur[2],
+                                                     prev[0])))
+        pick = torch.where(fell, k, pick)
+
+    band = 1e-3 * best[-1].abs() + PDIP_FLOOR_X * floor
+    zs = (runs[-1][0], z_p[rows, pick_p])
+    J_k, J_p = (qp_objective(H, f, z) for z in zs)
+    viol = [float(torch.clamp((G @ z[..., None])[..., 0] - h, min=0.0)
+                  .amax()) for z in zs]
+    e = dict(merit_first=max(float(((runs[k][1] - best[k]).abs()
+                                    / best[k].abs()).max()) for k in (0, 1)),
+             pick_exact=exact,
+             merit=maxerr(runs[-1][1], best[-1]), floor=floor,
+             merit_in_band=float(((runs[-1][1] - best[-1]).abs()
+                                  / band).max()),
+             objective=float(((J_k - J_p).abs() / (1.0 + J_p.abs())).max()),
+             viol=viol[0], viol_plain=viol[1],
+             finite=bool(torch.isfinite(runs[-1][0]).all()
+                         and torch.isfinite(runs[-1][1]).all()),
+             nan_final=int((~torch.isfinite(runs[-1][2])).any(-1).sum()))
+    ok = (e["finite"] and exact and e["merit_first"] <= 1e-3
+          and e["merit_in_band"] <= 1.0 and e["objective"] <= 1e-3
+          and viol[0] <= max(4.0 * viol[1],
+                             1e-5 * (1.0 + float(h.abs().max()))))
+    if iters <= 6:
+        def rel(a, b):
+            return maxerr(a, b) / (float(b.abs().max()) + 1.0)
+
+        m_pick = torch.stack([it[3] for it in its], 1)[rows, pick]
+        e.update(z_final_abs=maxerr(runs[-1][2], its[-1][0]),
+                 z_final=max(rel(runs[k][2], its[k][0])
+                             for k in range(iters + 1)),
+                 lam_final=max(rel(runs[k][3], its[k][2])
+                               for k in range(iters + 1)),
+                 tie=float(((m_pick - best[-1]) / band).max()),
+                 picks_apart=float((pick != pick_p).float().mean()))
+        ok = (ok and e["z_final"] <= 5e-4 and e["lam_final"] <= 5e-4
+              and e["tie"] <= 1.0)
+    e["ok"] = bool(ok)
+    return e
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -464,6 +675,8 @@ def main() -> int:
     from mpc_limx_control_tpu_torch.ops import chol_cuda
     from mpc_limx_control_tpu_torch.ops import mpc_fused_cuda as mfc
     from mpc_limx_control_tpu_torch.ops import qp as qps
+    from mpc_limx_control_tpu_torch.ops import qp_cuda
+    from mpc_limx_control_tpu_torch.ops import riccati as ricmod
     from mpc_limx_control_tpu_torch.ops import tick_fused_cuda as tfc
 
     dev = torch.device("cuda", 0)
@@ -478,6 +691,7 @@ def main() -> int:
                     "fused_qp_nu3_inv": mfc.FUSED_QP_NU3_INV})
     kernels.update({INV_TICKS[kf]: tfc.TICK_KERNELS_INV[(kf, False)]
                     for kf in INV_TICKS})
+    kernels["pdip_fused"] = qp_cuda.PDIP_FUSED
     for name, kern in kernels.items():
         check(kern.name == name, f"kernel {kern.name} listed as {name}")
 
@@ -514,6 +728,12 @@ def main() -> int:
         check(smem[f"{name}_n120_k1"] == chol_cuda.smem_bytes(name, 120, 1),
               f"{name}: the wrapper's shared-memory size is not the "
               "library's")
+    # K9 at its three shapes: H stays in device memory (PERF.md)
+    for n, m in PDIP_SHAPES:
+        smem[f"pdip_fused_n{n}_m{m}"] = lib.pdip_fused_smem_bytes(n, m)
+        check(smem[f"pdip_fused_n{n}_m{m}"] == qp_cuda.smem_bytes(n, m)
+              <= qp_cuda.SMEM_LIMIT_BYTES,
+              f"pdip_fused n={n} m={m}: shared memory {smem}")
     say("build", seconds=round(info["seconds"], 3), built=info["built"],
         library=info["path"], ptxas=ptxas, dynamic_smem_bytes=smem)
 
@@ -532,6 +752,8 @@ def main() -> int:
     summary["fused_qp_nu3_inv"].update(source=QP_SRC, replaces=QP_TPU)
     for name in INV_TICKS.values():
         summary[name].update(source=TICK_SRC, replaces=TICK_TPU)
+    summary["pdip_fused"].update(source=PDIP_SRC, replaces=PDIP_TPU,
+                                 library="none")
     # no single PyTorch call computes a whole tick or a condensed-QP ADMM
     # solve: only the four kernels of csrc/chol.cu get a library yardstick
     # (timed in phase 7)
@@ -840,6 +1062,35 @@ def main() -> int:
         say("tick_inv_vs_subst", kernel=name, B=B, **e)
         check(e["xi"] <= 3e-4 and e["grf"] <= 5e-2,
               f"{name} vs the subst tick: {e}")
+
+    # ---- 8a. pdip_fused (K9) vs its plain version ------------------------
+    # pdip_check at 6 Newton steps (M well conditioned: all four outputs)
+    # and at 20 (d at its 1e7 cap), on B = 257 QPs and on the first of them
+    # alone; the merit's floor is measured on the 257.
+    def pdip_inputs(n, B, seed):
+        if n == 30:
+            H, f, G, h = recipe_qp(B, seed, dev)
+            return [a.contiguous() for a in (
+                H, f, G, h, torch.zeros_like(f), torch.ones_like(h),
+                torch.ones_like(h))]
+        if n == 60:
+            return pdip_start(*walking_qp(base, B, seed, dev))
+        return pdip_start(*standing_qp(B, seed, dev))
+
+    pdip_err = 0.0
+    for n, m in PDIP_SHAPES:
+        args = pdip_inputs(n, 257, 30 + n)
+        for iters in (6, 20):
+            floor = pdip_floor(args, iters)
+            for a in (args, [t[:1].contiguous() for t in args]):
+                e = pdip_check(a, iters, floor)
+                say("pdip_fused_vs_plain", n=n, m=m, B=a[1].shape[0],
+                    steps=iters, **e)
+                check(e["ok"], f"pdip_fused n={n} m={m} B={a[1].shape[0]}, "
+                      f"{iters} steps: {e}")
+                if iters == 6:
+                    pdip_err = max(pdip_err, e["z_final_abs"])
+    summary["pdip_fused"]["max_abs_err"] = pdip_err
 
     # ---- 5. the main paths: closed-loop quality on the kernels ----------
     # Each path runs with every launch counter set to 0 just before it and
@@ -1327,6 +1578,87 @@ def main() -> int:
     path("inv_qp_entry", inv_qp_entry,
          {"fused_qp_nu3_inv": 1, "walking_mpc_prep_inv": 1})
 
+    # (f) K9 as the entry point it is (no controller path calls it, as in
+    # the JAX package): the cold walking QP at B = 4096, 20 Newton steps,
+    # held against ops.qp's PDIP on the K8 kernels from the same start
+    def pdip_fused_entry():
+        H, f, G, h = walking_qp(base, 4096, 14, dev)
+        args = pdip_start(H, f, G, h)
+        zb, merit, _, _ = qp_cuda.pdip_fused(*args, iters=20)
+        sol, _ = qps._batched_pdip(H, f, G, h, 20)
+        J_k, J_b = qp_objective(H, f, zb), qp_objective(H, f, sol.u)
+        viol = float(torch.clamp((G @ zb[..., None])[..., 0] - h,
+                                 min=0.0).amax())
+        q["pdip_fused_vs_batched_objective"] = float(
+            ((J_k - J_b).abs() / (1.0 + J_b.abs())).max())
+        q["pdip_fused_viol"] = viol
+        q["pdip_fused_merit_max"] = float(merit.max())
+        q["pdip_fused_ok"] = bool(
+            torch.isfinite(zb).all()
+            and q["pdip_fused_vs_batched_objective"] <= 1e-3
+            and viol <= 1e-3 * (1.0 + float(h.abs().max())))
+
+    path("pdip_fused_entry", pdip_fused_entry,
+         dict(solver_counts(1, 20, cold=True), pdip_fused=1))
+
+    # (g) the controller variants the tick kernels refuse, on the card
+    # through plant_step (the composition): the Riccati ADMM walking
+    # (tests/test_riccati.py:78-94), Riccati against make_admm_fused on the
+    # same QPs (:54-75, 3e-3 of the force scale), the damped-LS and log6
+    # swing IKs (tests/test_config_variants.py:20-41) and the receding
+    # attitude reference (no closed-loop band in the JAX suite; the
+    # damped-LS band, height min > 0.5, is used)
+    rcfg = with_solver(base, method="riccati")
+    dls = dataclasses.replace(base, ik_method="damped_ls")
+    l6 = dataclasses.replace(base, ik_method="log6")
+    rec = dataclasses.replace(base, srbd=dataclasses.replace(
+        base.srbd, attitude_ref="receding"))
+    for c in (rcfg, dls, l6, rec):
+        check(tfc.runs_as_composition(c), f"{c} is not a composition")
+
+    def variant_loop(name, c, steps, floor, batch=None):
+        if batch is None:
+            f, m = ro.rollout(c, ro.initial_plant_state(c, device=dev), steps)
+        else:
+            f, m = ro.batched_rollout(c, ro.initial_plant_state(
+                c, batch=(batch,), device=dev), steps)
+        q[f"{name}_height_min"] = float(m["height"].min())
+        q[f"{name}_ok"] = bool(torch.isfinite(f.xi).all()
+                               and torch.isfinite(m["height"]).all()
+                               and q[f"{name}_height_min"] > floor)
+
+    def riccati_vs_fused():
+        from mpc_limx_control_tpu_torch.models import srbd
+
+        arms, x0, v_des, w_des, z_w, y_w, anc = prep_inputs(
+            rcfg, 16, seed=80, device=dev)
+        Ac, Bc_ = srbd.linearize_shared(rcfg.robot, arms, x0[:, 3:6],
+                                        x0[:, 2])
+        Ad, Bd_t = srbd.discretize_srbd(Ac, Bc_, rcfg.srbd.ts)
+        x_ref = srbd.walking_reference(x0, rcfg.srbd, rcfg.srbd.horizon,
+                                       v_des, w_des, height_des=0.65)
+        _, (z_r, y_r) = ricmod.make_admm_riccati(rcfg.srbd)(
+            Ad, Bd_t, x_ref, x0, z_w, y_w)
+        _, (z_c, y_c) = mfc.make_admm_fused(rcfg.srbd)(
+            Ad, Bd_t, x_ref, x0, z_w, y_w)
+        scale = float(z_c.abs().max()) + 1.0
+        q["riccati_vs_fused_z_rel"] = maxerr(z_r, z_c) / scale
+        q["riccati_vs_fused_y_rel"] = maxerr(y_r, y_c) / scale
+        q["riccati_vs_fused_ok"] = bool(q["riccati_vs_fused_z_rel"] <= 3e-3
+                                        and q["riccati_vs_fused_y_rel"]
+                                        <= 3e-3)
+
+    path("riccati_walk", lambda: variant_loop("riccati_walk", rcfg, 400,
+                                              0.55, batch=4), {})
+    path("riccati_vs_fused", riccati_vs_fused, {"fused_qp_nu3": 1})
+    path("damped_ls_walk", lambda: variant_loop("damped_ls_walk", dls, 700,
+                                                0.5),
+         {"walking_mpc_prep": 700})
+    path("log6_walk", lambda: variant_loop("log6_walk", l6, 700, 0.45),
+         {"walking_mpc_prep": 700})
+    path("receding_walk", lambda: variant_loop("receding_walk", rec, 700,
+                                               0.5), {"cholesky": 700})
+
     q["main_path_s"] = time.perf_counter() - t_main
     say("quality", launches=launches, **q)
     for k in ("walk_ok", "turn_ok", "push_ok", "terrain_ok", "ctrl_tick_ok",
@@ -1337,7 +1669,9 @@ def main() -> int:
               "default_stand_ok", "default_walk_ok", "pdip_cold_stand_ok",
               "pdip_cold_walk_ok", "linear_mpc_ok", "posdef_fast_ok",
               "inv_walk_ok", "inv_kf_ok", "inv_ctrl_tick_ok",
-              "inv_qp_entry_ok"):
+              "inv_qp_entry_ok", "pdip_fused_ok", "riccati_walk_ok",
+              "riccati_vs_fused_ok", "damped_ls_walk_ok", "log6_walk_ok",
+              "receding_walk_ok"):
         check(q[k], f"quality gate {k} failed: {q}")
     for k in kernels:
         summary[k]["launches"] = launches[k]
@@ -1603,11 +1937,55 @@ def main() -> int:
     for label, c in (("pdip_warm_walk", pw), ("admm_cold_walk", ac),
                      ("default_stand", dataclasses.replace(
                          ControllerConfig(), mode="stand")),
-                     ("default_walk", ControllerConfig())):
+                     ("default_walk", ControllerConfig()),
+                     ("riccati_walk", rcfg), ("damped_ls_walk", dls),
+                     ("log6_walk", l6), ("receding_walk", rec)):
         general[label] = {f"B{Bt}": tick_ms(c, Bt, 10) for Bt in reps}
     general["linear_mpc_step"] = {f"B{Bt}": lmpc_step_ms(Bt, 10)
                                   for Bt in reps}
     say("general_solver_ms_per_tick", card=smi, **general)
+
+    # ---- 8b. pdip_fused (K9) timing --------------------------------------
+    # the walking and standing QPs from their cold start, 20 Newton steps:
+    # the kernel against its plain version in turns (CUDA events), and the
+    # same solve by ops.qp's PDIP on the K8 kernels (host clock around a
+    # synchronized call: it is host-bound at small B, PERF.md §5)
+    pdip_reps = {1: (10, 2), 1024: (3, 1), 4096: (2, 1)}
+    pt9 = {}
+    for label, n, m in (("walk", 60, 120), ("stand", 120, 240)):
+        for Bt, (r_k, r_p) in pdip_reps.items():
+            args = pdip_inputs(n, Bt, 5)
+            Hb, fb, Gb, hb = args[:4]
+
+            def kern():
+                return qp_cuda.pdip_fused(*args, iters=20)
+
+            def plain():
+                return qp_cuda.pdip_fused_plain(*args, iters=20)
+
+            runs = [cuda_time_ms(plain, r_p), cuda_time_ms(kern, r_k),
+                    cuda_time_ms(kern, r_k), cuda_time_ms(plain, r_p)]
+            walls = []
+            for _ in range(r_p + 2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                qps._batched_pdip(Hb, fb, Gb, hb, 20)
+                torch.cuda.synchronize()
+                walls.append(1e3 * (time.perf_counter() - t0))
+            pt9[f"{label}_B{Bt}"] = dict(
+                ms=min(runs[1:3]), plain_ms=min(runs[0], runs[3]),
+                batched_pdip_wall_ms=min(walls[1:]), runs=runs,
+                batched_pdip_runs=walls, **pdip_bound(Bt, n, m, 20))
+    say("timing", kernel="pdip_fused", card=smi, iters=20, **pt9)
+    top, st9 = pt9["walk_B4096"], pt9["stand_B4096"]
+    summary["pdip_fused"].update(
+        ms=top["ms"], plain_ms=top["plain_ms"], library_ms=None,
+        batched_pdip_wall_ms=top["batched_pdip_wall_ms"],
+        shape="B=4096 n=60 m=120 iters=20", ms_n120=st9["ms"],
+        plain_ms_n120=st9["plain_ms"], bound_ms_n120=st9["bound_ms"],
+        batched_pdip_wall_ms_n120=st9["batched_pdip_wall_ms"],
+        **{k: top[k] for k in ("bound_ms", "bound_by", "bound_bytes_ms",
+                               "bound_operations_ms")})
 
     # closed-loop rate through batched_rollout at B = 4096
     rates = {}

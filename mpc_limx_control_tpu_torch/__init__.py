@@ -6,11 +6,14 @@ and function names so every counterpart is easy to find, and it imports
 ``torch`` only (never ``jax``, ``chex`` or the JAX package).
 
 It covers the batched walking and standing closed loops (truth odometry
-or the Kalman filter, every tick solving or the dtMPC hold schedule), the
-general QP solvers (cold and warm interior point, dense ADMM), the
-condensation and the double-integrator linear MPC, with the hand-written
-CUDA kernels that carry those paths on the card (``ops/csrc``): the
-whole-tick and fused MPC kernels and the batched Cholesky / SPD solves.
+or the Kalman filter, every tick solving or the dtMPC hold schedule) with
+every controller configuration of the JAX package (the general QP
+solvers -- cold and warm interior point, dense and Riccati-form ADMM --,
+the iterative swing IKs, the receding attitude reference), the
+condensation, the double-integrator linear MPC and the leg inverse
+dynamics, with the hand-written CUDA kernels of every TPU kernel of the
+JAX package (``ops/csrc``): the whole-tick and fused MPC kernels, the
+batched Cholesky / SPD solves and the fused interior-point solve.
 
 Every float32 matrix product runs in full float32: this controller has
 failed silently twice under reduced-precision matmuls (walking height 0.56

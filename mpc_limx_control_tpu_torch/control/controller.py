@@ -14,8 +14,10 @@ solve runs the generic ``fused_qp`` kernel (ops/mpc_fused_cuda.py). Every
 other solver choice (cold or warm PDIP, cold or warm dense ADMM --
 ``ControllerConfig()`` itself is a cold 20-step PDIP) condenses the QP with
 ``ops.condense`` and solves it with ``ops.qp``, whose factorizations and
-solves are the ``ops/chol_cuda.py`` kernels on CUDA tensors. The iterative
-IK variants and the Riccati solver are later slices (ROADMAP).
+solves are the ``ops/chol_cuda.py`` kernels on CUDA tensors; the warm
+``"riccati"`` walking solve is the sparse-form ADMM of ``ops.riccati``
+(plain torch). The swing IK is ``cfg.ik_method``: the closed form, or the
+reference's iterative damped-LS or log6 loops (``models.kinematics``).
 """
 
 from __future__ import annotations
@@ -31,24 +33,25 @@ from mpc_limx_control_tpu_torch.models import srbd
 from mpc_limx_control_tpu_torch.ops import condense as cnd
 from mpc_limx_control_tpu_torch.ops import mpc_fused_cuda as fqp
 from mpc_limx_control_tpu_torch.ops import qp as qps
+from mpc_limx_control_tpu_torch.ops import riccati as ricmod
 from mpc_limx_control_tpu_torch.utils import rotations as rot
 
 
-def _check_ported(cfg: ControllerConfig) -> None:
-    """Refuse what is not ported yet, instead of running it wrong."""
+IK_METHODS = ("analytic", "damped_ls", "log6")
+SOLVER_METHODS = ("pdip", "admm", "admm_fused", "riccati")
+
+
+def _check_config(cfg: ControllerConfig) -> None:
+    """Refuse an unknown mode, IK or solver method instead of running
+    something else."""
     if cfg.mode not in ("walk", "stand"):
         raise ValueError(f"mode must be 'walk' or 'stand', got {cfg.mode!r}")
-    if cfg.ik_method != "analytic":
-        raise NotImplementedError(
-            f"ik_method={cfg.ik_method!r}: the iterative IK variants are "
-            "ROADMAP queue 1, item 15")
-    if cfg.srbd.solver.method == "riccati":
-        raise NotImplementedError(
-            "solver method='riccati' (ops/riccati.py) is ROADMAP queue 1, "
-            "item 13")
-    if cfg.srbd.solver.method not in ("pdip", "admm", "admm_fused"):
-        raise ValueError(f"unknown solver method "
-                         f"{cfg.srbd.solver.method!r}")
+    if cfg.ik_method not in IK_METHODS:
+        raise ValueError(f"ik_method must be one of {IK_METHODS}, got "
+                         f"{cfg.ik_method!r}")
+    if cfg.srbd.solver.method not in SOLVER_METHODS:
+        raise ValueError(f"solver method must be one of {SOLVER_METHODS}, "
+                         f"got {cfg.srbd.solver.method!r}")
 
 
 def _cone_rows(cfg: ControllerConfig, dtype, device):
@@ -169,11 +172,13 @@ def stance_mpc_single_support(cfg: ControllerConfig, odom: OdomState,
 
     Solver, by ``cfg.srbd.solver.method`` and the warm state: warm
     "admm_fused" is the prep-fused walking QP of make_walking_fused
-    (``solve_form`` None: the kernel on CUDA tensors). Every other choice
-    condenses the QP and solves it with ops.qp: "admm" (and a cold
+    (``solve_form`` None: the kernel on CUDA tensors); warm "riccati" the
+    sparse-form ADMM of ops.riccati on the same linearization. Every other
+    choice condenses the QP and solves it with ops.qp: "admm" (and a cold
     "admm_fused") the dense ADMM -- cold from zeros with max(50, iters)
-    iterations, warm with admm_warm_iters --, "pdip" the cold
-    (solver.iters) or the warm (solver.warm_iters) interior point.
+    iterations, warm with admm_warm_iters --, "pdip" (and a cold
+    "riccati") the cold (solver.iters) or the warm (solver.warm_iters)
+    interior point.
     """
     c = cfg.srbd
     xi0 = srbd.initial_state(odom.ori, odom.pos, odom.v_ori, odom.v_pos)
@@ -196,7 +201,7 @@ def stance_mpc_single_support(cfg: ControllerConfig, odom: OdomState,
         sol, xi_pred, qp_state = solver(arms, xi0, v_des, yaw_rate_des,
                                         qp_warm[0], qp_warm[1], anchor3)
     else:
-        _check_ported(cfg)      # "riccati" and unknown methods stop here
+        _check_config(cfg)
         # shared-yaw linearization + exact ZOH: Ad is step-invariant, only
         # Bd varies over the horizon
         N = c.horizon
@@ -210,28 +215,36 @@ def stance_mpc_single_support(cfg: ControllerConfig, odom: OdomState,
             xi0, c, N, v_des, yaw_rate_des,
             height_des=cfg.ground_height + cfg.base_height,
             pos_anchor=anchor3, yaw_anchor=yaw_anchor)
-        Q, R, P = _weights(c, 1, dtype, device)
-        G, h = srbd.friction_cone_rows(c, N, dtype, device)
-        qp = cnd.condense(Ad, Bd_t, Q, R, P, N, xi0, x_ref, extra_G=G,
-                          extra_h=h)
         s = c.solver
-        if s.method in ("admm", "admm_fused"):
-            if qp_warm is None:
-                z0, y0 = torch.zeros_like(qp.f), torch.zeros_like(qp.h)
-                iters = max(50, s.iters)
-            else:
-                (z0, y0), iters = qp_warm, s.admm_warm_iters
-            sol, qp_state = qps.make_admm_warm(
-                iters=iters, rho=s.admm_rho, alpha=s.admm_alpha)(
-                    qp.H, qp.f, qp.G, qp.h, z0, y0)
-        elif qp_warm is None:
-            sol = qps.make_pdip(iters=s.iters)(qp.H, qp.f, qp.G, qp.h)
-            qp_state = (sol.u, torch.ones_like(qp.h))
+        if s.method == "riccati" and qp_warm is not None:
+            # the warm ADMM with Riccati-factorized x-updates on the sparse
+            # form; a cold start falls through to the cold PDIP below, as
+            # the JAX code does (controller.py:251-303)
+            sol, qp_state = ricmod.make_admm_riccati(c)(
+                Ad, Bd_t, x_ref, xi0, qp_warm[0], qp_warm[1])
+            xi_pred = _mv(Ad, xi0) + _mv(Bd_t[:, 0], sol.u[:, :3])
         else:
-            sol, qp_state = qps.make_pdip_warm(iters=s.warm_iters)(
-                qp.H, qp.f, qp.G, qp.h, qp_warm[0], qp_warm[1])
-        xi_pred = (_mv(qp.A_blocks[:, 1], xi0)
-                   + _mv(qp.B_blocks[:, 1, 0], sol.u[:, :3]))
+            Q, R, P = _weights(c, 1, dtype, device)
+            G, h = srbd.friction_cone_rows(c, N, dtype, device)
+            qp = cnd.condense(Ad, Bd_t, Q, R, P, N, xi0, x_ref, extra_G=G,
+                              extra_h=h)
+            if s.method in ("admm", "admm_fused"):
+                if qp_warm is None:
+                    z0, y0 = torch.zeros_like(qp.f), torch.zeros_like(qp.h)
+                    iters = max(50, s.iters)
+                else:
+                    (z0, y0), iters = qp_warm, s.admm_warm_iters
+                sol, qp_state = qps.make_admm_warm(
+                    iters=iters, rho=s.admm_rho, alpha=s.admm_alpha)(
+                        qp.H, qp.f, qp.G, qp.h, z0, y0)
+            elif qp_warm is None:
+                sol = qps.make_pdip(iters=s.iters)(qp.H, qp.f, qp.G, qp.h)
+                qp_state = (sol.u, torch.ones_like(qp.h))
+            else:
+                sol, qp_state = qps.make_pdip_warm(iters=s.warm_iters)(
+                    qp.H, qp.f, qp.G, qp.h, qp_warm[0], qp_warm[1])
+            xi_pred = (_mv(qp.A_blocks[:, 1], xi0)
+                       + _mv(qp.B_blocks[:, 1, 0], sol.u[:, :3]))
     u0 = sol.u[:, :3]
     zeros3 = torch.zeros_like(u0)
     left_now = on_l[:, 0:1] > 0.5
@@ -255,7 +268,7 @@ def tick(cfg: ControllerConfig, odom: OdomState, joints: JointState,
     standing, the force pair as given. Returns (RobotCmd,
     TickDiagnostics).
     """
-    _check_ported(cfg)
+    _check_config(cfg)
     stand = cfg.mode == "stand"
     dtype, device = odom.pos.dtype, odom.pos.device
     B = odom.pos.shape[0]
@@ -306,7 +319,7 @@ def tick(cfg: ControllerConfig, odom: OdomState, joints: JointState,
     p_l_w = odom.pos + _mv(R_wb, kin.forward_kinematics(gl, joints.q[:, :3]))
     p_r_w = odom.pos + _mv(R_wb, kin.forward_kinematics(gr, joints.q[:, 3:]))
 
-    # ---- swing leg: trajectory + analytic IK --------------------------
+    # ---- swing leg: trajectory + IK (cfg.ik_method) -------------------
     ls = gait.left_swing
     foot_now_w = torch.where(ls[:, None], p_l_w, p_r_w)
     next_w = gaitmod.swing_trajectory(cfg.gait, gait, foot_now_w, target_w,
@@ -314,7 +327,17 @@ def tick(cfg: ControllerConfig, odom: OdomState, joints: JointState,
     next_b = _mtv(R_wb, next_w - odom.pos)
     g_sw = kin.select_geometry(ls, gl, gr)
     q_guess = torch.where(ls[:, None], joints.q[:, :3], joints.q[:, 3:])
-    swing_q = kin.inverse_kinematics_analytic(g_sw, next_b, q_guess)
+    if cfg.ik_method == "analytic":
+        swing_q = kin.inverse_kinematics_analytic(g_sw, next_b, q_guess)
+    elif cfg.ik_method == "log6":
+        # the reference's literal pinocchio loop: 6-DoF log6 error with an
+        # identity target orientation (pinocchio_kinematics.h:61-149)
+        swing_q = kin.inverse_kinematics_log6(
+            g_sw, next_b, q_guess, iters=cfg.ik_iters, damp=cfg.ik_damp,
+            dt=cfg.ik_dt)
+    else:
+        swing_q = kin.inverse_kinematics_damped_ls(
+            g_sw, next_b, q_guess, iters=cfg.ik_iters, damp=cfg.ik_damp)
 
     # ---- stance leg(s): SRBD GRF MPC ----------------------------------
     if stand:

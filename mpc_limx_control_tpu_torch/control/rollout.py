@@ -15,14 +15,16 @@ Dispatch of :func:`plant_step`:
   ONE launch of a ``walking_tick`` / ``standing_tick`` kernel variant,
   chosen by the mode, the estimator and by whether the tick holds a force
   (``grf_override``, the dtMPC schedule);
-* CUDA tensors and a config those kernels refuse only because of its QP
-  solver (a cold start, PDIP, the dense ADMM -- ``ControllerConfig()``
-  itself): :func:`_plant_step_ref` on the card, as the JAX package runs
-  the composition for such configs on the TPU; its QP solves launch the
-  batched Cholesky / SPD-solve kernels of ``ops/chol_cuda.py``;
-* CUDA tensors with any other config (the receding attitude reference,
-  iterative IK, the Riccati solver): NotImplementedError naming the
-  ROADMAP item that ports it;
+* CUDA tensors and any other config the port has
+  (``tick_fused_cuda.runs_as_composition``: a cold start, PDIP, the dense
+  ADMM -- ``ControllerConfig()`` itself --, the Riccati solver, the
+  iterative IKs, the receding attitude reference):
+  :func:`_plant_step_ref` on the card, as the JAX package runs the
+  composition for such configs on the TPU; its dense QP solves launch the
+  batched Cholesky / SPD-solve kernels of ``ops/chol_cuda.py``, its warm
+  fused solves the MPC kernels where they apply;
+* CUDA tensors with an unknown value or a horizon past the MPC kernels'
+  21 steps: NotImplementedError naming it;
 * CPU tensors: :func:`_plant_step_ref`, the plain composition, as the JAX
   package runs off the TPU.
 

@@ -1,7 +1,13 @@
-"""TRON1 point-foot leg kinematics: analytic FK / IK / contact Jacobian.
+"""TRON1 point-foot leg kinematics: FK, the contact Jacobian and three IKs.
 
-Counterpart of the main-path part of ``mpc_limx_control_tpu.models.
-kinematics``. The 3-DoF chain per leg is
+Counterpart of ``mpc_limx_control_tpu.models.kinematics``: the closed-form
+position IK of the production configs (``ik_method="analytic"``) and the
+two iterative parity paths of the reference's pinocchio loop
+(include/pinocchio_kinematics.h:61-149), the position-only damped
+least squares (``"damped_ls"``) and the SE(3) log6 6-DoF loop
+(``"log6"``), whose Jacobian JAX takes by forward-mode autodiff through
+:func:`log6` and the port by that derivative written out. The 3-DoF chain
+per leg is
 
     base --abad--> Rx(q0) --hip--> Ry(q1) --knee--> Ry(q2) --foot+contact
 
@@ -162,6 +168,198 @@ def inverse_kinematics_analytic(geom: LegGeometry, target: torch.Tensor,
     wz = az - torch.sin(q2) * bx + torch.cos(q2) * bz
     q1 = _wrap_angle(torch.atan2(wz, wx) - torch.atan2(uz, ux))
     return torch.stack([q0, q1, q2], -1)
+
+
+def inverse_kinematics_damped_ls(geom: LegGeometry, target: torch.Tensor,
+                                 q_init: torch.Tensor, iters: int = 10,
+                                 damp: float = 1e-6,
+                                 step: float = 1.0) -> torch.Tensor:
+    """Fixed-iteration damped least-squares IK (Gauss-Newton), position
+    error only (point foot): q <- q - step J' (J J' + damp I)^-1 (FK(q) -
+    target), ``iters`` times with no early exit (the budget of
+    include/pinocchio_kinematics.h:61-149: 10 iterations, damp 1e-6)."""
+    eye = torch.eye(3, dtype=q_init.dtype, device=q_init.device)
+    q = q_init
+    for _ in range(iters):
+        err = forward_kinematics(geom, q) - target
+        J = contact_jacobian(geom, q)
+        JJt = J @ J.transpose(-1, -2) + damp * eye
+        y = torch.linalg.solve(JJt, err[..., None])[..., 0]
+        q = q + step * -_mv(J.transpose(-1, -2), y)
+    return q
+
+
+def _skew(w):
+    """[..., 3] -> [..., 3, 3] cross-product matrix."""
+    z = torch.zeros_like(w[..., 0])
+    return torch.stack([
+        torch.stack([z, -w[..., 2], w[..., 1]], -1),
+        torch.stack([w[..., 2], z, -w[..., 0]], -1),
+        torch.stack([-w[..., 1], w[..., 0], z], -1),
+    ], -2)
+
+
+def log3(R: torch.Tensor) -> torch.Tensor:
+    """SO(3) log: rotation [..., 3, 3] -> axis-angle [..., 3]
+    (pinocchio::log3), for theta in [0, pi).
+
+    atan2(sin, cos) with double-where guards instead of arccos, so that
+    the forward-mode derivative stays finite at the identity (the log6
+    IK's Jacobian passes through here): theta -> 0 takes the smooth
+    theta / sin(theta) = 1 + (1 - c) / 3 branch."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    c = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
+    w_raw = 0.5 * torch.stack([R[..., 2, 1] - R[..., 1, 2],
+                               R[..., 0, 2] - R[..., 2, 0],
+                               R[..., 1, 0] - R[..., 0, 1]], -1)
+    s2 = (w_raw * w_raw).sum(-1)                 # sin^2(theta)
+    small = s2 < 1e-12
+    s_safe = torch.sqrt(torch.where(small, torch.ones_like(s2), s2))
+    theta = torch.atan2(s_safe, c)
+    scale = torch.where(small, 1.0 + (1.0 - c) * (1.0 / 3.0),
+                        theta / s_safe)
+    return w_raw * scale[..., None]
+
+
+def log6(R: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """SE(3) log: (R [..., 3, 3], p [..., 3]) -> twist [..., 6], linear
+    part first (pinocchio Motion::toVector()). Linear part V(theta)^-1 p
+    with V^-1 = I - [w]x / 2 + coef [w]x^2; below theta^2 = 1e-4 coef is
+    the series 1/12 + theta^2 / 720 (the closed form cancels in f32), with
+    the double-where guard keeping the derivative finite at theta = 0."""
+    w = log3(R)
+    th2 = (w * w).sum(-1)
+    small = th2 < 1e-4
+    th_safe = torch.sqrt(torch.where(small, torch.ones_like(th2), th2))
+    s, c = torch.sin(th_safe), torch.cos(th_safe)
+    denom = torch.where(small, torch.ones_like(th2), 2.0 * (1.0 - c) * th2)
+    coef_big = (2.0 * (1.0 - c) - th_safe * s) / denom
+    coef = torch.where(small, 1.0 / 12.0 + th2 * (1.0 / 720.0), coef_big)
+    wx = _skew(w)
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    v_inv = eye - 0.5 * wx + coef[..., None, None] * (wx @ wx)
+    return torch.cat([_mv(v_inv, p), w], -1)
+
+
+def leg_pose(geom: LegGeometry, q: torch.Tensor):
+    """Contact-frame pose in the base frame: (R [..., 3, 3], p [..., 3]).
+    The fixed foot / contact joints carry identity rotations, so the frame
+    rotation is the joint chain Rx(q0) Ry(q1) Ry(q2)."""
+    r0 = _rx(q[..., 0])
+    r01 = r0 @ _ry(q[..., 1])
+    r012 = r01 @ _ry(q[..., 2])
+    p = (geom.abad + _mv(r0, geom.hip) + _mv(r01, geom.knee)
+         + _mv(r012, geom.foot))
+    return r012, p
+
+
+def _log6_error_jacobian(geom: LegGeometry, q: torch.Tensor,
+                         target: torch.Tensor):
+    """The log6 IK's 6-DoF error e = log6(oMf^-1 oMdes) with the identity
+    desired orientation, log6(R', R' (target - p)) [..., 6], and its
+    Jacobian J = de/dq [..., 6, 3]: the forward-mode derivative of the same
+    formulas, guards included, written out with the three joint directions
+    on one axis (JAX takes it with ``jax.jacfwd``).
+
+    With A = R' and b = A (target - p): dR/dq_j = R [w_j]x for the
+    body-frame axes w_0 = Ry(q1 + q2)' e_x, w_1 = w_2 = e_y, so
+    dA_j = -[w_j]x A and db_j = -[w_j]x b - A dp/dq_j (dp/dq: the contact
+    Jacobian); then log3 and log6 are differentiated step by step, each
+    ``where`` selecting the derivative of its branch."""
+    R, p = leg_pose(geom, q)
+    A = R.transpose(-1, -2)
+    b = _mv(A, target - p)
+    q12 = q[..., 1] + q[..., 2]
+    zero, one = torch.zeros_like(q12), torch.ones_like(q12)
+    ey = torch.stack([zero, one, zero], -1)
+    axes = torch.stack([torch.stack([torch.cos(q12), zero, torch.sin(q12)],
+                                    -1), ey, ey], -2)      # [..., 3 dir, 3]
+    wx = _skew(axes)                                      # [..., 3, 3, 3]
+    dA = -(wx @ A[..., None, :, :])
+    db = (-_mv(wx, b[..., None, :])
+          - _mv(A[..., None, :, :],
+                contact_jacobian(geom, q).transpose(-1, -2)))
+    A, b = A[..., None, :, :], b[..., None, :]           # against the dirs
+
+    # log3(A) and its derivative
+    tr = A[..., 0, 0] + A[..., 1, 1] + A[..., 2, 2]
+    dtr = dA[..., 0, 0] + dA[..., 1, 1] + dA[..., 2, 2]
+    c_raw = (tr - 1.0) * 0.5
+    c = torch.clamp(c_raw, -1.0, 1.0)
+    dc = torch.where((c_raw > -1.0) & (c_raw < 1.0), 0.5 * dtr,
+                     torch.zeros_like(dtr))
+
+    def vee_asym(M):
+        return 0.5 * torch.stack([M[..., 2, 1] - M[..., 1, 2],
+                                  M[..., 0, 2] - M[..., 2, 0],
+                                  M[..., 1, 0] - M[..., 0, 1]], -1)
+
+    w_raw, dw_raw = vee_asym(A), vee_asym(dA)
+    s2 = (w_raw * w_raw).sum(-1)
+    ds2 = 2.0 * (w_raw * dw_raw).sum(-1)
+    small = s2 < 1e-12
+    s_safe = torch.sqrt(torch.where(small, torch.ones_like(s2), s2))
+    ds_safe = torch.where(small, torch.zeros_like(ds2), ds2 / (2.0 * s_safe))
+    theta = torch.atan2(s_safe, c)
+    dtheta = (c * ds_safe - s_safe * dc) / (s_safe * s_safe + c * c)
+    scale = torch.where(small, 1.0 + (1.0 - c) * (1.0 / 3.0),
+                        theta / s_safe)
+    dscale = torch.where(small, -dc * (1.0 / 3.0),
+                         (dtheta * s_safe - theta * ds_safe)
+                         / (s_safe * s_safe))
+    w = w_raw * scale[..., None]
+    dw = dw_raw * scale[..., None] + w_raw * dscale[..., None]
+
+    # log6(A, b) and its derivative
+    th2 = (w * w).sum(-1)
+    dth2 = 2.0 * (w * dw).sum(-1)
+    small6 = th2 < 1e-4
+    th_safe = torch.sqrt(torch.where(small6, torch.ones_like(th2), th2))
+    dth = torch.where(small6, torch.zeros_like(dth2), dth2 / (2.0 * th_safe))
+    sn, cs = torch.sin(th_safe), torch.cos(th_safe)
+    dsn, dcs = cs * dth, -sn * dth
+    denom = torch.where(small6, torch.ones_like(th2),
+                        2.0 * (1.0 - cs) * th2)
+    ddenom = torch.where(small6, torch.zeros_like(th2),
+                         -2.0 * dcs * th2 + 2.0 * (1.0 - cs) * dth2)
+    num = 2.0 * (1.0 - cs) - th_safe * sn
+    dnum = -2.0 * dcs - dth * sn - th_safe * dsn
+    coef = torch.where(small6, 1.0 / 12.0 + th2 * (1.0 / 720.0), num / denom)
+    dcoef = torch.where(small6, dth2 * (1.0 / 720.0),
+                        (dnum * denom - num * ddenom) / (denom * denom))
+    wx, dwx = _skew(w), _skew(dw)
+    eye = torch.eye(3, dtype=q.dtype, device=q.device)
+    v_inv = eye - 0.5 * wx + coef[..., None, None] * (wx @ wx)
+    dv_inv = (-0.5 * dwx + dcoef[..., None, None] * (wx @ wx)
+              + coef[..., None, None] * (dwx @ wx + wx @ dwx))
+    v = _mv(v_inv, b)
+    dv = _mv(dv_inv, b) + _mv(v_inv, db)
+    e = torch.cat([v, w], -1)[..., 0, :]
+    J = torch.cat([dv, dw], -1).transpose(-1, -2)        # [..., 6, 3]
+    return e, J
+
+
+def inverse_kinematics_log6(geom: LegGeometry, target: torch.Tensor,
+                            q_init: torch.Tensor, iters: int = 10,
+                            damp: float = 1e-6,
+                            dt: float = 0.1) -> torch.Tensor:
+    """SE(3) log6 damped-least-squares IK, the reference's pinocchio loop
+    (include/pinocchio_kinematics.h:61-149): desired pose (identity,
+    target); per iteration e = log6(oMf^-1 oMdes), J = de/dq (the forward
+    derivative of the error, :func:`_log6_error_jacobian`: the chain rule of
+    the reference's -Jlog6 @ frameJacobian), v = -J' (J J' + damp I)^-1 e
+    and q <- q + v dt, ``iters`` times with no early exit. A 3-joint point
+    foot cannot realize the identity orientation, so the error trades
+    position against rotation, as the reference's does
+    (ik_method="log6")."""
+    eye6 = torch.eye(6, dtype=q_init.dtype, device=q_init.device)
+    q = q_init
+    for _ in range(iters):
+        e, J = _log6_error_jacobian(geom, q, target)
+        JJt = J @ J.transpose(-1, -2) + damp * eye6
+        q = q + dt * -_mv(J.transpose(-1, -2),
+                          torch.linalg.solve(JJt, e[..., None])[..., 0])
+    return q
 
 
 def full_fk(offsets: LegOffsets, q6: torch.Tensor):

@@ -38,11 +38,13 @@ SMEM_SIZERS = ("walking_mpc_prep_smem_bytes", "walking_tick_smem_bytes",
                "standing_tick_kf_smem_bytes", "fused_qp_nu3_smem_bytes",
                "fused_qp_nu6_smem_bytes")
 PARAMS_SIZERS = ("walking_mpc_params_bytes", "walking_tick_params_bytes",
-                 "chol_params_bytes")
-# those of csrc/chol.cu, which take the matrix order n and the number of
-# right-hand sides k
-CHOL_SMEM_SIZERS = ("cholesky_smem_bytes", "chol_solve_smem_bytes",
-                    "posdef_solve_smem_bytes", "posdef_solve_fast_smem_bytes")
+                 "chol_params_bytes", "pdip_params_bytes")
+# those that take two sizes: the matrix order n and the number of
+# right-hand sides k (csrc/chol.cu), or n and the inequality rows m
+# (csrc/pdip_fused.cu)
+PAIR_SMEM_SIZERS = ("cholesky_smem_bytes", "chol_solve_smem_bytes",
+                    "posdef_solve_smem_bytes", "posdef_solve_fast_smem_bytes",
+                    "pdip_fused_smem_bytes")
 
 
 def _sources():
@@ -127,7 +129,7 @@ def build_library() -> dict:
     for name in SMEM_SIZERS:
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
-    for name in CHOL_SMEM_SIZERS:
+    for name in PAIR_SMEM_SIZERS:
         getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
     for name in PARAMS_SIZERS:

@@ -251,23 +251,30 @@ def make_walking_fused(cfg, solve_form: str | None = None):
     (QPSolution, xi_pred, (z, y)), batch-first.
 
     solve_form=None: the ``walking_mpc_prep`` / ``walking_mpc_prep_inv``
-    kernel for CUDA tensors (a config the kernel does not implement
-    raises), the plain composition with the explicit f32 K^-1 (``"kinv"``,
-    the JAX CPU path) for CPU tensors. solve_form="kinv" / "subst" /
-    "linv": the plain composition with that solve form on any device.
+    kernel for CUDA tensors, the plain composition with the explicit f32
+    K^-1 (``"kinv"``, the JAX CPU path) for CPU tensors. A receding
+    attitude reference runs that composition on CUDA tensors too: the
+    in-kernel reference rows are level only, and the JAX package serves
+    the receding form by its composition on the TPU as well
+    (mpc_fused_pallas.py:913-916); its factorization is the ``cholesky``
+    kernel. Any other config the kernel does not implement raises.
+    solve_form="kinv" / "subst" / "linv": the plain composition with that
+    solve form on any device.
     """
     if solve_form is not None and solve_form not in qps.SOLVE_FORMS:
         raise ValueError(f"solve_form must be None or one of "
                          f"{qps.SOLVE_FORMS}, got {solve_form!r}")
     iters = int(cfg.srbd.solver.admm_warm_iters)
+    receding = cfg.srbd.attitude_ref == "receding"
 
     def solve(arms, x0, v_des, yaw_rate, z_warm, y_warm, anchor):
-        if solve_form is None and x0.device.type == "cuda":
+        if solve_form is None and x0.device.type == "cuda" and not receding:
             if not supports_fused_walking_qp(cfg):
                 raise NotImplementedError(
-                    "walking MPC on CUDA: the walking_mpc_prep kernel is "
-                    "level-attitude only with horizon <= 21; the receding "
-                    "reference is ROADMAP queue 1, item 13")
+                    "walking MPC on CUDA: the walking_mpc_prep kernel takes "
+                    f"horizon <= {MAX_HORIZON} and solve_form 'subst' or "
+                    f"'inv' (got horizon={cfg.srbd.horizon}, solve_form="
+                    f"{cfg.srbd.solver.solve_form!r})")
             args = [t.contiguous() for t in
                     (arms, x0, v_des, yaw_rate, z_warm, y_warm, anchor)]
             z, y, res, xp = fused_walking_qp_prep(*args, cfg=cfg)

@@ -42,6 +42,8 @@ from typing import NamedTuple
 
 import torch
 
+from mpc_limx_control_tpu_torch.control.controller import (IK_METHODS,
+                                                            SOLVER_METHODS)
 from mpc_limx_control_tpu_torch.ops import _build
 from mpc_limx_control_tpu_torch.ops.mpc_fused_cuda import (
     KERNEL_SOLVE_FORMS, MAX_HORIZON, NX, MpcParams, mpc_params,
@@ -175,40 +177,56 @@ def _solver_reason(cfg) -> str | None:
     return None
 
 
+def _variant_reason(cfg) -> str | None:
+    """Why the tick kernels refuse a config for its swing IK or attitude
+    reference (None: they do not)."""
+    if cfg.ik_method != "analytic":
+        return ("the tick kernels run the analytic IK (got ik_method="
+                f"{cfg.ik_method!r})")
+    if cfg.srbd.attitude_ref != "level":
+        return ("the tick kernels' MPC is level-attitude only (got "
+                f"attitude_ref={cfg.srbd.attitude_ref!r})")
+    return None
+
+
 def runs_as_composition(cfg) -> bool:
-    """True when the tick kernels refuse the config only because of its
-    solver (cold start, PDIP, dense ADMM) and the port has that solver:
-    ``rollout.plant_step`` then runs the plain composition of the tick on
-    the card, its QP solves through the ``ops/chol_cuda.py`` kernels."""
-    return (_solver_reason(cfg) is not None
-            and _other_reason(cfg) is None
-            and cfg.srbd.solver.method in ("pdip", "admm", "admm_fused"))
+    """True when the tick kernels refuse a config that the port runs all
+    the same: a solver other than the warm admm_fused (cold starts, PDIP,
+    the dense ADMM, Riccati), an iterative swing IK or the receding
+    attitude reference. ``rollout.plant_step`` then runs the plain
+    composition of the tick on the card, as the JAX package runs its
+    composition for such configs on the TPU: its dense QP solves launch the
+    ``ops/chol_cuda.py`` kernels, its warm admm_fused solves the fused MPC
+    kernels where they apply (level attitude walking, any standing)."""
+    return (_other_reason(cfg) is None
+            and (_variant_reason(cfg) or _solver_reason(cfg)) is not None)
 
 
 def _config_reason(cfg) -> str | None:
-    return _other_reason(cfg) or _solver_reason(cfg)
+    return _other_reason(cfg) or _variant_reason(cfg) or _solver_reason(cfg)
 
 
 def _other_reason(cfg) -> str | None:
+    """Why the port cannot run the config on the card at all (None: it
+    can): an unknown value, or a horizon past the MPC kernels' reach."""
     if cfg.mode not in ("walk", "stand"):
         return f"mode={cfg.mode!r} is unknown"
     if cfg.estimator_mode not in ("truth", "kf"):
         return f"estimator_mode={cfg.estimator_mode!r} is unknown"
-    if cfg.ik_method != "analytic":
-        return "iterative IK is ROADMAP queue 1, item 15"
-    if cfg.srbd.solver.method == "riccati":
-        return ("solver method='riccati' (ops/riccati.py) is ROADMAP queue "
-                "1, item 13")
+    if cfg.ik_method not in IK_METHODS:
+        return f"ik_method={cfg.ik_method!r} is unknown"
+    if cfg.srbd.solver.method not in SOLVER_METHODS:
+        return f"solver method={cfg.srbd.solver.method!r} is unknown"
     if cfg.placement_mode not in ("capture", "reference"):
         return f"placement_mode={cfg.placement_mode!r} is unknown"
     if cfg.srbd.solver.solve_form not in KERNEL_SOLVE_FORMS:
         return (f"solve_form={cfg.srbd.solver.solve_form!r} is unknown "
                 f"(the kernels run {KERNEL_SOLVE_FORMS})")
-    if (cfg.srbd.attitude_ref != "level"
-            or not 1 <= cfg.srbd.horizon <= MAX_HORIZON):
-        return ("the tick kernel's MPC is level-attitude only with horizon "
-                f"<= {MAX_HORIZON} (the receding reference is ROADMAP queue "
-                "1, item 13)")
+    if cfg.srbd.attitude_ref not in ("level", "receding"):
+        return f"attitude_ref={cfg.srbd.attitude_ref!r} is unknown"
+    if not 1 <= cfg.srbd.horizon <= MAX_HORIZON:
+        return (f"horizon={cfg.srbd.horizon}: the MPC kernels take 1 to "
+                f"{MAX_HORIZON} steps (n = nu N within a block's threads)")
     return None
 
 

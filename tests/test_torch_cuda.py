@@ -7,10 +7,13 @@ skip. On a CUDA machine (which need not have JAX) run them with
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest \
         -o addopts='' -p no:cacheprovider -q
 
-This file imports only torch, numpy and the port.
+This file imports only torch, numpy, the port and chip_smoke.py (the K9
+check).
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -226,10 +229,18 @@ def test_unsupported_configs_raise_on_cuda(cuda_device):
     ro.plant_step(cfg, s, it, grf_override=torch.zeros(
         2, 6, device=cuda_device))
     assert tfc.WALKING_TICK_HOLD.launches == before + 1
+    # the receding reference runs the composition: its QP's factorization
+    # is the cholesky kernel, no tick kernel launches
     rec = dataclasses.replace(cfg, srbd=dataclasses.replace(
         cfg.srbd, attitude_ref="receding"))
-    with pytest.raises(NotImplementedError, match="level-attitude"):
-        ro.plant_step(rec, s, it)
+    ticks = [k.launches for k in tfc.TICK_KERNELS.values()]
+    before = chol_cuda.CHOLESKY.launches
+    ro.plant_step(rec, s, it)
+    assert chol_cuda.CHOLESKY.launches == before + 1
+    assert [k.launches for k in tfc.TICK_KERNELS.values()] == ticks
+    # an unknown value still raises
+    with pytest.raises(NotImplementedError, match="ik_method"):
+        ro.plant_step(dataclasses.replace(cfg, ik_method="x"), s, it)
     # standing (K6) is ported: it launches the standing kernel
     stand = ControllerConfig.standing()
     before = tfc.STAND_KERNELS[(False, False)].launches
@@ -707,3 +718,169 @@ def test_tick_inv_kernels_match_twin_and_subst(cuda_device, est_kf):
     before = hold.launches
     ro.plant_step(cfg, s0, its, grf_override=m_k["grf"])
     assert hold.launches == before + 1
+
+
+# ---- the fused interior point (K9) and the controller variants -----------
+
+def _standing_qp(B, seed, device):
+    """The condensed two-foot QP of ControllerConfig() standing (n = 120,
+    m = 240; controller.stance_mpc's cold branch) at kicked states."""
+    from mpc_limx_control_tpu_torch.ops import condense as cnd
+
+    cfg = dataclasses.replace(ControllerConfig(), mode="stand")
+    s = _states(cfg, B, seed, device, yaw=0.0)
+    od = ro._odom_from_xi(s.xi)
+    xi0 = srbd.initial_state(od.ori, od.pos, od.v_ori, od.v_pos)
+    Ac, Bc2 = srbd.linearize_shared(
+        cfg.robot, torch.stack([s.foot_l, s.foot_r], -2), od.pos,
+        od.ori[:, 2])
+    Ad, Bd = srbd.discretize_srbd(Ac, torch.cat([Bc2[:, 0], Bc2[:, 1]], -1),
+                                  cfg.srbd.ts)
+    N = cfg.srbd.horizon
+    mid = 0.5 * (s.foot_l + s.foot_r)
+    x_ref = srbd.walking_reference(
+        xi0, cfg.srbd, N, torch.zeros(B, 3, device=device),
+        torch.zeros(B, device=device), height_des=0.65,
+        pos_anchor=torch.cat([mid[:, :2], torch.full_like(mid[:, 2:], 0.65)],
+                             -1))
+    Q, R, P = ctrl._weights(cfg.srbd, 2, torch.float32, device)
+    ones = torch.ones(B, N, device=device)
+    qp = cnd.condense(Ad, Bd[:, None].expand(B, N, 13, 6), Q, R, P, N, xi0,
+                      x_ref, extra_G=ctrl._cone_rows(cfg, torch.float32,
+                                                     device),
+                      extra_h=ctrl._cone_bounds(cfg, ones, ones))
+    return qp.H, qp.f, qp.G.expand(B, -1, -1), qp.h
+
+
+def _pdip_inputs(n, B, seed, device):
+    """K9's three QPs with their start: the recipe of
+    tests/test_qp_pallas.py:46-58 (n = 30, m = 64; z0 = 0, s0 = lam0 = 1),
+    the walking (60 / 120) and standing (120 / 240) QPs from the cold start
+    of ops/qp.py's PDIP."""
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32,
+                            device=device)
+
+    if n == 30:
+        rng = np.random.default_rng(seed)
+        A = rng.normal(size=(B, 30, 30))
+        H = t(np.einsum("bij,bkj->bik", A, A) / 30 + 3 * np.eye(30))
+        f, G = t(rng.normal(size=(B, 30))), t(rng.normal(size=(B, 64, 30)))
+        h = t(np.abs(rng.normal(size=(B, 64))) + 1.0)
+        return [a.contiguous() for a in (H, f, G, h, torch.zeros_like(f),
+                                         torch.ones_like(h),
+                                         torch.ones_like(h))]
+    H, f, G, h = (_walking_qp(ControllerConfig.walking(), B, seed, device)
+                  if n == 60 else _standing_qp(B, seed, device))
+    z0 = -cholp.posdef_solve_plain(H + 1e-6 * torch.eye(n, device=device),
+                                   f[..., None])[..., 0]
+    s_raw = h - (G @ z0[..., None])[..., 0]
+    s0 = s_raw + torch.clamp(-s_raw.amin(-1, keepdim=True), min=0.0) + 1.0
+    return [a.contiguous() for a in (H, f, G, h, z0, s0, torch.ones_like(h))]
+
+
+@pytest.mark.parametrize("n", [30, 60, 120])
+def test_pdip_fused_matches_plain(cuda_device, n):
+    """The K9 kernel against pdip_fused_plain at B = 257 after 6 and 20
+    Newton steps, every scenario held by chip_smoke.py's ``pdip_check``:
+    the merit after 0 and 1 steps within 1e-3 of itself, the best-iterate
+    pick bit for bit from the kernel's own launches, the best merit within
+    1e-3 of itself plus 8x its f32 floor, all four outputs at 6 steps (a
+    z_best apart from the plain one is the plain iterate of the step the
+    kernel picked, a tie at the floor), the objective and the violation of
+    z_best."""
+    from mpc_limx_control_tpu_torch.ops import qp_cuda
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    args = _pdip_inputs(n, 257, 30 + n, cuda_device)
+    before = qp_cuda.PDIP_FUSED.launches
+    qp_cuda.pdip_fused(*args, iters=6)
+    assert qp_cuda.PDIP_FUSED.launches == before + 1
+    for iters in (6, 20):
+        e = smoke.pdip_check(args, iters, smoke.pdip_floor(args, iters))
+        assert e["ok"], (iters, e)
+
+
+def test_pdip_fused_refuses_what_the_kernel_does_not_take(cuda_device):
+    from mpc_limx_control_tpu_torch.ops import qp_cuda
+
+    args = _pdip_inputs(30, 4, 1, cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        qp_cuda.pdip_fused(*[a.double() for a in args])
+    with pytest.raises(ValueError, match="contiguous"):
+        qp_cuda.pdip_fused(args[0].transpose(1, 2), *args[1:])
+    big = [torch.zeros(s, device=cuda_device) for s in
+           ((1, 120, 120), (1, 120), (1, 500, 120), (1, 500), (1, 120),
+            (1, 500), (1, 500))]
+    with pytest.raises(ValueError, match="232448"):
+        qp_cuda.pdip_fused(*big)
+
+
+VARIANT_LAUNCHES = {
+    # (mode, variant) -> the kernels one tick of the composition launches
+    ("walk", "riccati"): {},
+    ("walk", "riccati_cold"): {"cholesky": 12, "chol_solve": 24,
+                               "posdef_solve": 1},
+    ("walk", "damped_ls"): {"walking_mpc_prep": 1},
+    ("walk", "log6"): {"walking_mpc_prep": 1},
+    ("walk", "receding"): {"cholesky": 1},
+    ("stand", "log6"): {"fused_qp_nu6": 1},
+    ("stand", "receding"): {"fused_qp_nu6": 1},
+}
+
+
+@pytest.mark.parametrize("mode,variant", list(VARIANT_LAUNCHES))
+def test_variant_ticks_run_on_the_card(cuda_device, mode, variant):
+    """Each controller variant the tick kernels refuse runs through
+    plant_step on CUDA tensors as the composition: it launches exactly the
+    kernels its QP reaches (no tick kernel) and matches the same tick on
+    CPU tensors: xi 3e-4, q and feet 5e-4 (log6: 1e-2 and 5e-3), grf
+    5e-3 of its scale."""
+    from mpc_limx_control_tpu_torch.ops import qp_cuda
+
+    base = (ControllerConfig.walking() if mode == "walk"
+            else ControllerConfig.standing())
+    if variant.startswith("riccati"):
+        cfg = dataclasses.replace(base, qp_warm_start=variant == "riccati",
+                                  srbd=dataclasses.replace(
+                                      base.srbd, solver=dataclasses.replace(
+                                          base.srbd.solver,
+                                          method="riccati")))
+    elif variant == "receding":
+        cfg = dataclasses.replace(base, srbd=dataclasses.replace(
+            base.srbd, attitude_ref="receding"))
+    else:
+        cfg = dataclasses.replace(base, ik_method=variant)
+    assert tfc.runs_as_composition(cfg)
+    kernels = {k.name: k for k in (
+        mfc.WALKING_MPC_PREP, mfc.WALKING_MPC_PREP_INV, mfc.FUSED_QP_NU3_INV,
+        *mfc.FUSED_QP.values(), *tfc.TICK_KERNELS.values(),
+        *tfc.TICK_KERNELS_INV.values(), *tfc.STAND_KERNELS.values(),
+        *chol_cuda.KERNELS.values(), qp_cuda.PDIP_FUSED)}
+    B = 16
+    s0 = _states(cfg, B, 3, cuda_device, yaw=0.0)
+    its = _staggered(B, cuda_device)
+    before = {n_: k.launches for n_, k in kernels.items()}
+    s_k, m_k = ro.plant_step(cfg, s0, its)
+    torch.cuda.synchronize()
+    got = {n_: k.launches - before[n_] for n_, k in kernels.items()}
+    assert got == {n_: VARIANT_LAUNCHES[(mode, variant)].get(n_, 0)
+                   for n_ in kernels}
+    s_c, m_c = ro.plant_step(cfg, ro._map_state(s0, lambda x: x.cpu()),
+                             its.cpu())
+    # the log6 IK solves a damped rank-3 6 x 6 system: float32 keeps ~3
+    # digits of the swing joints (as in JAX, tests/test_torch_variants.py)
+    log6 = variant == "log6"
+    for k, a in (("xi", 3e-4), ("q", 1e-2 if log6 else 5e-4),
+                 ("foot_l", 5e-3 if log6 else 5e-4),
+                 ("foot_r", 5e-3 if log6 else 5e-4)):
+        torch.testing.assert_close(getattr(s_k, k).cpu(), getattr(s_c, k),
+                                   atol=a, rtol=0)
+    # the cold PDIP's best-iterate pick can differ between the kernels and
+    # torch.linalg (tests above): 5e-3 of the force scale
+    torch.testing.assert_close(
+        m_k["grf"].cpu(), m_c["grf"],
+        atol=5e-3 * (float(m_c["grf"].abs().max()) + 1.0), rtol=0)

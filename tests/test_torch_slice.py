@@ -324,19 +324,25 @@ def test_unsupported_configs_refuse():
                solver(stand, solve_form="inv")):
         assert ttfc.supports_fused_tick(ok)
         assert not ttfc.runs_as_composition(ok)
-    # refused by the tick kernels because of the solver only: the
-    # composition runs them, on the card too
+    rec = dataclasses.replace(cfg, srbd=dataclasses.replace(
+        cfg.srbd, attitude_ref="receding"))
+    # refused by the tick kernels for the solver, the swing IK or the
+    # attitude reference: the composition runs them, on the card too
     for other in (dataclasses.replace(cfg, qp_warm_start=False),
                   dataclasses.replace(stand, qp_warm_start=False),
                   solver(cfg, method="pdip"), solver(stand, method="admm"),
-                  TCfg()):
+                  TCfg(), dataclasses.replace(cfg, ik_method="damped_ls"),
+                  dataclasses.replace(stand, ik_method="log6"),
+                  solver(cfg, method="riccati"), rec):
         assert not ttfc.supports_fused_tick(other)
         assert ttfc.runs_as_composition(other)
-    # refused by both
-    for bad in (dataclasses.replace(cfg, ik_method="damped_ls"),
-                solver(cfg, method="riccati"), solver(cfg, solve_form="x"),
+    # refused by both: unknown values, a horizon past the kernels
+    for bad in (solver(cfg, solve_form="x"), solver(cfg, method="x"),
+                dataclasses.replace(cfg, ik_method="x"),
                 dataclasses.replace(cfg, srbd=dataclasses.replace(
-                    cfg.srbd, attitude_ref="receding"))):
+                    cfg.srbd, attitude_ref="x")),
+                dataclasses.replace(cfg, srbd=dataclasses.replace(
+                    cfg.srbd, horizon=22))):
         assert not ttfc.supports_fused_tick(bad)
         assert not ttfc.runs_as_composition(bad)
     # the KF state, standing and the cold two-foot solve are ported
@@ -351,13 +357,17 @@ def test_unsupported_configs_refuse():
     assert s3.qp_z is None and bool(m3["qp_residual"] > 0)
     assert abs(float(m3["grf"][0, 2] + m3["grf"][0, 5]) - 9.81
                * cold.robot.mass) < 0.1 * 9.81 * cold.robot.mass
+    # the Riccati solver is ported: its warm walking tick threads (z, y)
     ric = solver(cfg, method="riccati")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tro.plant_step(ric, tro.initial_plant_state(ric, batch=(1,),
+    sr, mr = tro.plant_step(ric, tro.initial_plant_state(
+        ric, batch=(1,), device="cpu"), torch.zeros(1))
+    assert sr.qp_z.shape == (1, 60) and bool(torch.isfinite(mr["grf"]).all())
+    with pytest.raises(ValueError, match="ik_method"):
+        bad = dataclasses.replace(cfg, ik_method="x")
+        tro.plant_step(bad, tro.initial_plant_state(cfg, batch=(1,),
                                                     device="cpu"),
                        torch.zeros(1))
-    rec = dataclasses.replace(cfg, srbd=dataclasses.replace(
-        cfg.srbd, attitude_ref="receding"))
+    # the kernel wrapper itself still takes the level reference only
     with pytest.raises(ValueError, match="level-attitude"):
         tmfc.fused_walking_qp_prep(
             torch.zeros(1, 20, 3), torch.zeros(1, 13), torch.zeros(1, 3),

@@ -518,7 +518,8 @@ def test_state_entry_points_default_to_the_card():
 
 def test_stand_wrapper_dispatch_and_refusals():
     """CPU tensors run the plain standing tick and count no launch; the
-    kernel set follows the mode; what is not ported still raises."""
+    kernel set follows the mode; what the tick kernels refuse runs as the
+    composition, and an unknown value raises."""
     cfg = TCfg.standing()
     assert ttfc.tick_kernels(cfg) is ttfc.STAND_KERNELS
     assert ttfc.tick_kernels(TCfg.walking()) is ttfc.TICK_KERNELS
@@ -536,13 +537,17 @@ def test_stand_wrapper_dispatch_and_refusals():
     ric = dataclasses.replace(cfg, srbd=dataclasses.replace(
         cfg.srbd, solver=dataclasses.replace(cfg.srbd.solver,
                                              method="riccati")))
-    for bad, match in (
-            (dataclasses.replace(cfg, ik_method="log6"), "item 15"),
-            (ric, "item 13")):
-        with pytest.raises(NotImplementedError, match=match):
-            tro.plant_step(bad, tro.initial_plant_state(
-                bad, batch=(1,), device="cpu"), torch.zeros(1))
-        assert match in ttfc.unsupported_reason(bad, s)
+    # the iterative IK and the Riccati solver are ported: the tick kernels
+    # refuse them, the composition runs them (standing "riccati" is the
+    # cold PDIP of stance_mpc, as in JAX)
+    for other, match in (
+            (dataclasses.replace(cfg, ik_method="log6"), "analytic IK"),
+            (ric, "admm_fused")):
+        assert ttfc.runs_as_composition(other)
+        assert match in ttfc.unsupported_reason(other, s)
+        _, mo = tro.plant_step(other, tro.initial_plant_state(
+            other, batch=(1,), device="cpu"), torch.zeros(1))
+        assert bool(torch.isfinite(mo["grf"]).all())
     # a cold standing config is the cold PDIP, not a refusal
     cold = dataclasses.replace(cfg, qp_warm_start=False)
     assert ttfc.runs_as_composition(cold)
