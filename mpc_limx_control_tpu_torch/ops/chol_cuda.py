@@ -10,7 +10,8 @@ names and argument order, batch-first:
   factor, the forward substitution riding on the factorization.
 
 The kernels are ``csrc/chol.cu`` (one block per matrix, any B >= 1, any
-k >= 1, n as far as shared memory reaches, float32). A wrapper launches its
+k >= 1, n <= 256 as far as shared memory reaches, float32; each reads only
+the lower triangle of its matrix argument). A wrapper launches its
 kernel for CUDA tensors and runs the kernel's plain version (``ops/chol.py``)
 for CPU tensors; nothing here calls a library factorization.
 """
@@ -45,19 +46,33 @@ class CholParams(ctypes.Structure):
 
 def smem_bytes(name: str, n: int, k: int = 1) -> int:
     """Dynamic shared memory per block of kernel `name` (the arithmetic of
-    csrc/chol.cu: the panel with an odd leading dimension, the diagonal
-    and its reciprocal)."""
-    width = n + k if name == "posdef_solve_fast" else n
-    return 4 * (n * (width | 1) + 2 * n)
+    csrc/chol.cu: the packed lower triangle, plus the diagonal and its
+    reciprocal where the kernel factors; ``posdef_solve_fast`` a
+    column-major panel with an odd leading dimension and k appended
+    rows)."""
+    tri = n * (n + 1) // 2
+    if name == "chol_solve":
+        return 4 * tri
+    if name == "posdef_solve_fast":
+        return 4 * (n * ((n + k) | 1) + 2 * n)
+    return 4 * (tri + 2 * n)
+
+
+def size_reason(name: str, n: int, k: int = 1) -> str | None:
+    """Why kernel `name` cannot take order n with k right-hand sides
+    (None: it can)."""
+    need = smem_bytes(name, n, k)
+    if n < 1 or k < 1 or n > MAX_N or need > SMEM_LIMIT_BYTES:
+        return (f"{name}: n = {n}, k = {k} needs {need} bytes of shared "
+                f"memory; the kernel takes 1 <= n <= {MAX_N}, k >= 1 within "
+                f"{SMEM_LIMIT_BYTES} bytes per block")
+    return None
 
 
 def _check_size(name: str, n: int, k: int) -> None:
-    need = smem_bytes(name, n, k)
-    if n < 1 or k < 1 or n > MAX_N or need > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"{name}: n = {n}, k = {k} needs {need} bytes of shared memory; "
-            f"the kernel takes 1 <= n <= {MAX_N}, k >= 1 within "
-            f"{SMEM_LIMIT_BYTES} bytes per block")
+    reason = size_reason(name, n, k)
+    if reason is not None:
+        raise ValueError(reason)
 
 
 def _launch(kernel, tensors_in, out, n, k):

@@ -38,9 +38,13 @@
 // What bounds it on this card: operations.  The formation of G' diag(d) G
 // costs m n (n + 1) operations a step (3.5 MFLOP at n = 120, m = 240), the
 // factorization n^3 / 3, the rest O(m n); the inputs are read once (H about
-// twice a step, from L2).  The serial chain of a block (n pivots with two
-// barriers each, 4 n dependent shuffle steps of the sweeps, ~15 block
-// reductions per step) sets the latency.
+// twice a step, from L2).  The serial chain of a block (the factorization's
+// n pivots with one barrier each plus one per 8-column panel, whose
+// trailing update is spread over the block in register tiles; 4 n
+// dependent shuffle steps of the sweeps, ~15 block reductions per step)
+// sets the latency.  20 Newton steps at B = 4096 on an H100 (700 W,
+// tools/time_chol_kernels.py): 20.4 ms walking (n / m = 60 / 120, four
+// blocks an SM), 169 ms standing (120 / 240, one); PERF.md section 6.
 //
 // Limits: n <= 256 (eight rows per lane in a sweep) and the shared memory
 // of pdip_fused_smem_bytes within 232448 bytes; the Python wrapper raises
@@ -143,8 +147,12 @@ __device__ float max_step2(const float* v1, const float* d1, const float* v2,
   return nmin(1.0f, block_reduce<MIN>(part, red));
 }
 
+// n <= 64 (RPL <= 2): at most 64 registers a thread, so that the four
+// blocks whose shared memory fits an SM at n / m = 60 / 120 are resident
+// (the factorization's register tiles took it to 123 and two blocks: 30.2
+// ms against 20.4 at B = 4096, tools/time_chol_kernels.py, H100)
 template <int RPL>
-__global__ void __launch_bounds__(PDIP_NT)
+__global__ void __launch_bounds__(PDIP_NT, RPL <= 2 ? 4 : 1)
 pdip_kernel(const float* __restrict__ Hg, const float* __restrict__ fg,
             const float* __restrict__ Gg, const float* __restrict__ hg,
             const float* __restrict__ z0g, const float* __restrict__ s0g,
@@ -242,8 +250,10 @@ pdip_kernel(const float* __restrict__ Hg, const float* __restrict__ fg,
         const int r = lane + 32 * q;
         bv[q] = r < n ? w[r] : 0.0f;
       }
-      sweep_forward<false, RPL>(M, dginv, n, ld, lane, bv);
-      sweep_backward<false, RPL>(M, dginv, n, ld, lane, bv);
+      float dv[RPL];
+      load_dinv<RPL>(dginv, n, lane, dv);
+      sweep_forward<ROWS, RPL>(M, dv, n, ld, lane, bv);
+      sweep_backward<ROWS, RPL>(M, dv, n, ld, lane, bv);
 #pragma unroll
       for (int q = 0; q < RPL; ++q) {
         const int r = lane + 32 * q;
@@ -287,7 +297,7 @@ pdip_kernel(const float* __restrict__ Hg, const float* __restrict__ fg,
       M[i * ld + j] = v;
     }
     __syncthreads();
-    factor<false>(M, dg, dginv, n, n, ld);
+    factor<ROWS>(M, dg, dginv, n, n, ld);
 
     direction(dsa, dla);                                  // affine
     const float a_aff = max_step2(s, dsa, lam, dla, m, red);

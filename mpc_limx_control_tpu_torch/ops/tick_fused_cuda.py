@@ -44,7 +44,7 @@ import torch
 
 from mpc_limx_control_tpu_torch.control.controller import (IK_METHODS,
                                                             SOLVER_METHODS)
-from mpc_limx_control_tpu_torch.ops import _build
+from mpc_limx_control_tpu_torch.ops import _build, chol_cuda
 from mpc_limx_control_tpu_torch.ops.mpc_fused_cuda import (
     KERNEL_SOLVE_FORMS, MAX_HORIZON, NX, MpcParams, mpc_params,
     plain_solve_form)
@@ -197,18 +197,23 @@ def runs_as_composition(cfg) -> bool:
     composition of the tick on the card, as the JAX package runs its
     composition for such configs on the TPU: its dense QP solves launch the
     ``ops/chol_cuda.py`` kernels, its warm admm_fused solves the fused MPC
-    kernels where they apply (level attitude walking, any standing)."""
+    kernels where they apply (level attitude walking, any standing). The
+    horizon is bounded only where the composition launches an MPC kernel
+    (21 steps) or a Cholesky kernel (``chol_cuda.MAX_N`` within a block's
+    shared memory)."""
     return (_other_reason(cfg) is None
-            and (_variant_reason(cfg) or _solver_reason(cfg)) is not None)
+            and (_variant_reason(cfg) or _solver_reason(cfg)) is not None
+            and _composition_reason(cfg) is None)
 
 
 def _config_reason(cfg) -> str | None:
-    return _other_reason(cfg) or _variant_reason(cfg) or _solver_reason(cfg)
+    return (_other_reason(cfg) or _horizon_reason(cfg)
+            or _variant_reason(cfg) or _solver_reason(cfg))
 
 
 def _other_reason(cfg) -> str | None:
     """Why the port cannot run the config on the card at all (None: it
-    can): an unknown value, or a horizon past the MPC kernels' reach."""
+    can): an unknown value."""
     if cfg.mode not in ("walk", "stand"):
         return f"mode={cfg.mode!r} is unknown"
     if cfg.estimator_mode not in ("truth", "kf"):
@@ -224,15 +229,61 @@ def _other_reason(cfg) -> str | None:
                 f"(the kernels run {KERNEL_SOLVE_FORMS})")
     if cfg.srbd.attitude_ref not in ("level", "receding"):
         return f"attitude_ref={cfg.srbd.attitude_ref!r} is unknown"
-    if not 1 <= cfg.srbd.horizon <= MAX_HORIZON:
-        return (f"horizon={cfg.srbd.horizon}: the MPC kernels take 1 to "
-                f"{MAX_HORIZON} steps (n = nu N within a block's threads)")
+    if cfg.srbd.horizon < 1:
+        return f"horizon={cfg.srbd.horizon} is not a horizon"
     return None
 
 
+def _horizon_reason(cfg) -> str | None:
+    """Why an MPC kernel (the tick kernels, ``walking_mpc_prep``,
+    ``fused_qp``) cannot take the config's horizon (None: it can)."""
+    if cfg.srbd.horizon <= MAX_HORIZON:
+        return None
+    return (f"horizon={cfg.srbd.horizon}: the MPC kernels take 1 to "
+            f"{MAX_HORIZON} steps (n = nu N within a block's threads)")
+
+
+def _launches_mpc_kernel(cfg) -> bool:
+    """Whether controller.tick reaches a fused MPC kernel on CUDA tensors:
+    the warm admm_fused walking QP with the level reference
+    (``walking_mpc_prep``, whatever the swing IK) or the warm admm /
+    admm_fused standing QP (``fused_qp_nu6``)."""
+    if not cfg.qp_warm_start:
+        return False
+    method = cfg.srbd.solver.method
+    if cfg.mode == "stand":
+        return method in ("admm", "admm_fused")
+    return method == "admm_fused" and cfg.srbd.attitude_ref == "level"
+
+
+def _composition_reason(cfg) -> str | None:
+    """Why the composition of a config the tick kernels refuse cannot run
+    on the card (None: it can): the horizon of the MPC kernel it launches,
+    or a QP too large for the Cholesky kernels. Every dense-QP path
+    launches ``cholesky``, whose shared memory is the largest of the
+    three K8 kernels a PDIP launches; the warm Riccati walking ADMM
+    launches none."""
+    if _launches_mpc_kernel(cfg):
+        return _horizon_reason(cfg)
+    if (cfg.mode == "walk" and cfg.qp_warm_start
+            and cfg.srbd.solver.method == "riccati"):
+        return None
+    n = cfg.srbd.horizon * (6 if cfg.mode == "stand" else 3)
+    reason = chol_cuda.size_reason("cholesky", n, 1)
+    if reason is None:
+        return None
+    return (f"horizon={cfg.srbd.horizon}: the dense QP (n = {n}) is past "
+            f"the Cholesky kernels' reach ({reason})")
+
+
 def unsupported_reason(cfg, state) -> str | None:
-    """Why plant_step cannot run `state` on the tick kernel (None: it can)."""
-    reason = _config_reason(cfg)
+    """Why plant_step cannot run `state` on the tick kernel (None: it can).
+    For a config the tick kernels refuse, the reason the composition
+    cannot run either comes first."""
+    reason = _other_reason(cfg)
+    if reason is None and (_variant_reason(cfg) or _solver_reason(cfg)):
+        reason = _composition_reason(cfg)
+    reason = reason or _config_reason(cfg)
     if reason is None and (state.qp_z is None or state.qp_lam is None):
         reason = "the tick kernel needs the warm QP state (qp_warm_start)"
     kf_state = (state.kf is not None and state.prev_v is not None

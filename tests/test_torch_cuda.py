@@ -453,39 +453,75 @@ def _spd(B, n, k, seed, device):
     return M, rhs, t(M), t(rhs)
 
 
-@pytest.mark.parametrize("k", [1, 2])
-@pytest.mark.parametrize("n", [1, 30, 33, 60, 120, 128])
-def test_chol_kernels_match_plain_and_numpy(cuda_device, n, k):
+# the edges of csrc/chol.cu's schedule: the 8-column panel (7, 8, 9), the
+# 4 x 4 trailing tiles and 32-row blocks (31, 32, 33, 63, 64, 65, 119, 121),
+# the rows per lane of a sweep (32 / 64 / 128 / 256), the block sizes (64,
+# 128, 256 threads) and the shared-memory limit of posdef_solve_fast's
+# square panel (239 with k <= 2)
+CHOL_EDGES = [1, 7, 8, 9, 30, 31, 32, 33, 60, 63, 64, 65, 119, 120, 121, 128,
+              239, 256]
+
+
+@pytest.mark.parametrize("B", [257, 1])
+@pytest.mark.parametrize("k", [1, 2, 5])
+@pytest.mark.parametrize("n", CHOL_EDGES)
+def test_chol_kernels_match_plain_and_numpy(cuda_device, n, k, B):
     """cholesky / chol_solve / posdef_solve / posdef_solve_fast at B = 257
-    (not a multiple of 128) against their plain versions and against f64
-    numpy.linalg with the bands of tests/test_qp_pallas.py (2e-5 on L,
-    5e-5 on x), each launch counted once."""
-    M64, r64, M, rhs = _spd(257, n, k, 100 + n + k, cuda_device)
+    (not a multiple of the blocks an SM holds times 132) and B = 1 against
+    their plain versions and against f64 numpy.linalg with the bands of
+    tests/test_qp_pallas.py (2e-5 on L, 5e-5 on x), strict upper triangle
+    of L exactly 0, each launch counted once; a kernel whose shared memory
+    would pass the block's limit raises instead (chol_cuda.size_reason) and
+    launches nothing."""
+    M64, r64, M, rhs = _spd(B, n, k, 100 + n + k, cuda_device)
+    fits = {name: chol_cuda.size_reason(name, n, k) is None
+            for name in chol_cuda.KERNELS}
     counts = {name: kern.launches for name, kern in chol_cuda.KERNELS.items()}
-    L = chol_cuda.cholesky(M)
-    x_cs = chol_cuda.chol_solve(L, rhs)
-    x_ps = chol_cuda.posdef_solve(M, rhs)
-    x_pf = chol_cuda.posdef_solve_fast(M, rhs)
+    L_p = cholp.cholesky_plain(M)
+
+    def run(name, *args):
+        if fits[name]:
+            return getattr(chol_cuda, name)(*args)
+        with pytest.raises(ValueError, match="232448"):
+            getattr(chol_cuda, name)(*args)
+        return None
+
+    L = run("cholesky", M)
+    xs = {"chol_solve": run("chol_solve", L_p if L is None else L, rhs),
+          "posdef_solve": run("posdef_solve", M, rhs),
+          "posdef_solve_fast": run("posdef_solve_fast", M, rhs)}
     torch.cuda.synchronize()
     for name, kern in chol_cuda.KERNELS.items():
-        assert kern.launches == counts[name] + 1, name
-    for name in chol_cuda.KERNELS:
-        lib = chol_cuda._build.build_library()["lib"]
-        assert getattr(lib, name + "_smem_bytes")(n, k) == \
-            chol_cuda.smem_bytes(name, n, k)
-    L_p = cholp.cholesky_plain(M)
-    assert float(torch.triu(L, 1).abs().sum()) == 0.0
-    torch.testing.assert_close(L, L_p, atol=2e-5, rtol=0)
-    torch.testing.assert_close(L.double().cpu().numpy(),
-                               np.linalg.cholesky(M64), atol=2e-5, rtol=0)
+        assert kern.launches == counts[name] + int(fits[name]), name
+    assert fits["chol_solve"] and fits["cholesky"] and fits["posdef_solve"]
+    if L is not None:
+        assert float(torch.triu(L, 1).abs().sum()) == 0.0
+        torch.testing.assert_close(L, L_p, atol=2e-5, rtol=0)
+        torch.testing.assert_close(L.double().cpu().numpy(),
+                                   np.linalg.cholesky(M64), atol=2e-5,
+                                   rtol=0)
     x_ref = np.linalg.solve(M64, r64)
     x_p = cholp.posdef_solve_plain(M, rhs)
-    for x in (x_cs, x_ps, x_pf):
+    for x in xs.values():
+        if x is None:
+            continue
         torch.testing.assert_close(x, x_p, atol=5e-5, rtol=0)
         np.testing.assert_allclose(x.double().cpu().numpy(), x_ref,
                                    atol=5e-5, rtol=0)
-    torch.testing.assert_close(x_cs, cholp.chol_solve_plain(L, rhs),
-                               atol=5e-5, rtol=0)
+    torch.testing.assert_close(
+        xs["chol_solve"], cholp.chol_solve_plain(L_p if L is None else L, rhs),
+        atol=5e-5, rtol=0)
+
+
+def test_chol_smem_mirror_matches_library(cuda_device):
+    """chol_cuda.smem_bytes (the wrapper's size rule) equals the library's
+    *_smem_bytes for every kernel at every edge order and k = 1, 2, 5."""
+    lib = chol_cuda._build.build_library()["lib"]
+    for name in chol_cuda.KERNELS:
+        for n in CHOL_EDGES:
+            for k in (1, 2, 5):
+                assert getattr(lib, name + "_smem_bytes")(n, k) == \
+                    chol_cuda.smem_bytes(name, n, k), (name, n, k)
 
 
 def test_chol_kernels_on_late_pdip_matrices(cuda_device):
@@ -884,3 +920,54 @@ def test_variant_ticks_run_on_the_card(cuda_device, mode, variant):
     torch.testing.assert_close(
         m_k["grf"].cpu(), m_c["grf"],
         atol=5e-3 * (float(m_c["grf"].abs().max()) + 1.0), rtol=0)
+
+
+def _horizon(cfg, N):
+    return dataclasses.replace(cfg, srbd=dataclasses.replace(cfg.srbd,
+                                                             horizon=N))
+
+
+def test_composition_runs_past_the_mpc_horizon(cuda_device):
+    """A horizon of 22 steps (past the MPC kernels' 21): the warm PDIP
+    walking composition runs through plant_step on the card, one cholesky
+    and two chol_solve launches per Newton step and tick (n = 66), its
+    first tick within the bands of the variant ticks above against the
+    same tick on CPU tensors; the warm fused walking QP and the warm
+    standing ADMM, which would launch an MPC kernel, raise naming the
+    limit."""
+    base = ControllerConfig.walking()
+    cfg = _horizon(dataclasses.replace(base, srbd=dataclasses.replace(
+        base.srbd, solver=dataclasses.replace(base.srbd.solver,
+                                              method="pdip"))), 22)
+    assert tfc.runs_as_composition(cfg)
+    B, ticks = 16, 3
+    s0 = _states(cfg, B, 3, cuda_device, yaw=0.0)
+    its = _staggered(B, cuda_device)
+    counts = {n_: k.launches for n_, k in chol_cuda.KERNELS.items()}
+    s_k, m_k = ro.plant_step(cfg, s0, its)
+    s_c, m_c = ro.plant_step(cfg, ro._map_state(s0, lambda x: x.cpu()),
+                             its.cpu())
+    for k, a in (("xi", 3e-4), ("q", 5e-4), ("foot_l", 5e-4),
+                 ("foot_r", 5e-4)):
+        torch.testing.assert_close(getattr(s_k, k).cpu(), getattr(s_c, k),
+                                   atol=a, rtol=0)
+    torch.testing.assert_close(
+        m_k["grf"].cpu(), m_c["grf"],
+        atol=5e-3 * (float(m_c["grf"].abs().max()) + 1.0), rtol=0)
+    st = s_k
+    for t in range(1, ticks):
+        st, m = ro.plant_step(cfg, st, its + t)
+    torch.cuda.synchronize()
+    iters = cfg.srbd.solver.warm_iters
+    got = {n_: k.launches - counts[n_] for n_, k in chol_cuda.KERNELS.items()}
+    assert got == dict(cholesky=iters * ticks, chol_solve=2 * iters * ticks,
+                       posdef_solve=0, posdef_solve_fast=0)
+    assert bool(torch.isfinite(st.xi).all()) and st.qp_z.shape == (B, 66)
+    for bad in (_horizon(base, 22), _horizon(dataclasses.replace(
+            ControllerConfig.standing(), srbd=dataclasses.replace(
+                ControllerConfig.standing().srbd, solver=dataclasses.replace(
+                    ControllerConfig.standing().srbd.solver,
+                    method="admm"))), 22)):
+        sb = ro.initial_plant_state(bad, batch=(2,), device=cuda_device)
+        with pytest.raises(NotImplementedError, match="1 to 21 steps"):
+            ro.plant_step(bad, sb, torch.zeros(2, device=cuda_device))

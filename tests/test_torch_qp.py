@@ -69,7 +69,7 @@ def _spd(B, n, k, seed):
 
 @pytest.mark.parametrize("name", ["cholesky", "chol_solve", "posdef_solve",
                                   "posdef_solve_fast"])
-@pytest.mark.parametrize("n,k", [(24, 1), (24, 2), (60, 1)])
+@pytest.mark.parametrize("n,k", [(24, 1), (24, 2), (60, 1), (1, 1), (33, 1)])
 def test_chol_twin_matches_pallas_interpret(name, n, k):
     """Each plain twin against its Pallas kernel (interpret mode, B = 128)
     and against f64 numpy.linalg with the bands of
@@ -103,6 +103,22 @@ def test_chol_twin_matches_pallas_interpret(name, n, k):
     assert all(k_.launches == 0 for k_ in chol_cuda.KERNELS.values())
 
 
+PACKED = {"cholesky", "chol_solve", "posdef_solve"}
+
+
+@pytest.mark.parametrize("n,k,takes", [
+    (239, 1, PACKED | {"posdef_solve_fast"}), (239, 5, PACKED),
+    (240, 1, PACKED), (256, 1, PACKED), (257, 1, set())])
+def test_chol_size_rule(n, k, takes):
+    """Which orders each K8 kernel takes within a block's 232448 bytes of
+    shared memory: the packed lower triangle (n (n + 1) / 2 floats, and
+    2 n where the kernel factors) up to the sweeps' n = 256,
+    posdef_solve_fast's square column-major panel (n ((n + k) | 1) + 2 n)
+    to n = 239."""
+    assert {name for name in chol_cuda.KERNELS
+            if chol_cuda.size_reason(name, n, k) is None} == takes
+
+
 def test_factor_inverse_plain_inverts_the_factor():
     M, _ = _spd(8, 24, 1, 3)
     L = tchol.cholesky_plain(T(M, torch.float64))
@@ -119,8 +135,11 @@ def test_chol_wrappers_validate():
         chol_cuda.posdef_solve(M, torch.zeros(2, 5, 1))
     with pytest.raises(ValueError, match="CUDA"):
         chol_cuda.cholesky(torch.zeros(1, 2, 2, device="meta"))
-    # what shared memory allows, named in the refusal
-    assert chol_cuda.smem_bytes("cholesky", 120) == 4 * (120 * 121 + 240)
+    # what shared memory allows, named in the refusal (the packed lower
+    # triangle n (n + 1) / 2 and 2 n floats; posdef_solve_fast's square
+    # column-major panel)
+    assert chol_cuda.smem_bytes("cholesky", 120) == 4 * (7260 + 240)
+    assert chol_cuda.smem_bytes("chol_solve", 120) == 4 * 7260
     assert chol_cuda.smem_bytes("posdef_solve_fast", 60, 2) == \
         4 * (60 * 63 + 120)
     chol_cuda._check_size("cholesky", 128, 1)

@@ -336,15 +336,37 @@ def test_unsupported_configs_refuse():
                   solver(cfg, method="riccati"), rec):
         assert not ttfc.supports_fused_tick(other)
         assert ttfc.runs_as_composition(other)
-    # refused by both: unknown values, a horizon past the kernels
+    # refused by both: unknown values
     for bad in (solver(cfg, solve_form="x"), solver(cfg, method="x"),
                 dataclasses.replace(cfg, ik_method="x"),
                 dataclasses.replace(cfg, srbd=dataclasses.replace(
-                    cfg.srbd, attitude_ref="x")),
-                dataclasses.replace(cfg, srbd=dataclasses.replace(
-                    cfg.srbd, horizon=22))):
+                    cfg.srbd, attitude_ref="x"))):
         assert not ttfc.supports_fused_tick(bad)
         assert not ttfc.runs_as_composition(bad)
+    # a horizon past the MPC kernels' 21 steps: the compositions that launch
+    # no MPC kernel run it; the warm fused walking QP and the warm standing
+    # ADMM (walking_mpc_prep, fused_qp_nu6) are refused, naming the limit
+    def n22(c):
+        return dataclasses.replace(c, srbd=dataclasses.replace(
+            c.srbd, horizon=22))
+
+    for other in (solver(cfg, method="pdip"),
+                  dataclasses.replace(stand, qp_warm_start=False),
+                  solver(cfg, method="riccati"), rec, TCfg()):
+        assert not ttfc.supports_fused_tick(n22(other))
+        assert ttfc.runs_as_composition(n22(other))
+    s22 = tro.initial_plant_state(n22(cfg), batch=(1,), device="cpu")
+    for bad in (cfg, solver(stand, method="admm"),
+                dataclasses.replace(cfg, ik_method="damped_ls")):
+        assert not ttfc.supports_fused_tick(n22(bad))
+        assert not ttfc.runs_as_composition(n22(bad))
+        assert "1 to 21 steps" in ttfc.unsupported_reason(n22(bad), s22)
+    # a dense QP past the Cholesky kernels (standing n = 6 N > 256)
+    far = dataclasses.replace(stand, qp_warm_start=False,
+                              srbd=dataclasses.replace(stand.srbd,
+                                                       horizon=45))
+    assert not ttfc.runs_as_composition(far)
+    assert "Cholesky kernels" in ttfc.unsupported_reason(far, s22)
     # the KF state, standing and the cold two-foot solve are ported
     assert tro.initial_plant_state(kf, device="cpu").kf.x_hat.shape == (12,)
     s = tro.initial_plant_state(stand, batch=(1,), device="cpu")

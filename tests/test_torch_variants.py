@@ -353,18 +353,24 @@ def _variant(base, name):
     if name == "receding":
         return dataclasses.replace(base, srbd=dataclasses.replace(
             srbd, attitude_ref="receding"))
+    if name == "pdip_n22":
+        # a horizon past the MPC kernels' 21 steps: the composition runs it
+        return dataclasses.replace(base, srbd=dataclasses.replace(
+            srbd, horizon=22, solver=dataclasses.replace(solver,
+                                                         method="pdip")))
     return dataclasses.replace(base, ik_method=name)
 
 
 VARIANTS = [("walk", "riccati_warm"), ("walk", "riccati_cold"),
             ("walk", "damped_ls"), ("walk", "log6"), ("walk", "receding"),
             ("stand", "riccati_warm"), ("stand", "damped_ls"),
-            ("stand", "log6"), ("stand", "receding")]
+            ("stand", "log6"), ("stand", "receding"), ("walk", "pdip_n22")]
 
 
 @pytest.mark.parametrize("mode,name", VARIANTS)
 def test_variant_tick_matches_jax_f64(mode, name):
-    """One full-width tick (N = 20) of each variant through plant_step on
+    """One full-width tick (N = 20; "pdip_n22": the warm PDIP walking at
+    N = 22) of each variant through plant_step on
     CPU tensors against JAX _plant_step_ref, f64: 1e-8 on the state, the
     warm QP state and every metric. Standing runs the stance MPC whatever
     the method ("riccati" there is the cold PDIP, as in JAX)."""
