@@ -10,14 +10,20 @@ Phases (each prints one line; any failure raises and the exit code is
 non-zero):
 
 1. torch / CUDA versions, TF32 flags, the card's name and power limit;
-2. build the kernels from ops/csrc (nvcc, sm_90a) and print the build time;
+2. build the kernels from ops/csrc (nvcc, sm_90a) and print the build time,
+   the dynamic shared memory of each entry point on the MPC core (held
+   equal to the wrappers' mirror, ``mpc_fused_cuda.smem_bytes``) and its
+   blocks an SM at N = 20 (at least five for ``standing_tick{,_kf}``, four
+   for ``fused_qp_nu6``);
 3. ``walking_mpc_prep`` against its plain version (exact-solve ADMM) at
    N = 20 and N = 8, B = 257, numpy-seeded inputs; ``fused_qp_nu3`` /
-   ``fused_qp_nu6`` (given, dense Ad) against theirs at N = 20, B = 257;
+   ``fused_qp_nu6`` (given, dense Ad) against theirs at N = 20, B = 257,
+   ``fused_qp_nu6`` also at N = 30;
 4. ``walking_tick`` and its hold, KF and KF + hold variants against the
    plain tick at B = 257: one tick with staggered iterations (both swing
    sides, 299/300), then five threaded ticks; the four ``standing_tick``
-   forms likewise at full width (n = 120);
+   forms likewise at full width (n = 120), the two solving ones also at
+   N = 30 (n = 180);
 5. the main paths, each run with every kernel's launch counter set to 0
    just before it and checked just after (one launch per tick of the
    path's own kind, none of any other): closed-loop quality through
@@ -31,7 +37,10 @@ non-zero):
    (1200 ticks), the standing dtMPC schedule with truth and KF odometry,
    a standing ``controller.tick`` closed loop (``fused_qp_nu6``) and the
    ``make_admm_fused`` entry point with one foot (``fused_qp_nu3``, held
-   against ``walking_mpc_prep`` on the same QP);
+   against ``walking_mpc_prep`` on the same QP); past the walking kernels'
+   21 steps, the compositions at N = 22, the walking refusals, and the
+   standing kernels at N = 22 (the fused tick and the warm ADMM) and N = 30
+   (100 ticks, height above 0.6);
 6. with CUDA events at B = 1, 1024 and 4096: the time per tick of each
    tick form through ``plant_step`` and of its plain version, the tick
    kernel alone, and the prep and fused-QP kernels and their plain
@@ -742,10 +751,23 @@ def main() -> int:
              if "registers" in ln or "Compiling entry" in ln]
     lib = info["lib"]
     smem = {f"{name}_N{N}": getattr(lib, f"{name}_smem_bytes")(N)
-            for name in ("walking_mpc_prep", "walking_tick", "walking_tick_kf",
-                         "standing_tick", "standing_tick_kf", "fused_qp_nu3",
-                         "fused_qp_nu6")
-            for N in (8, 20)}
+            for name in mfc.MPC_ENTRIES for N in (8, 20, 30)
+            if N <= mfc.max_horizon(mfc.entry_nu(name))}
+    for key, got in smem.items():
+        name, N = key.rsplit("_N", 1)
+        check(got == mfc.smem_bytes(name, int(N)),
+              f"{name}: the wrapper's shared-memory size is not the "
+              f"library's at N = {N}")
+    # blocks an SM of each entry on the MPC core at N = 20 (the redesigned
+    # nu = 6 core: at least five of the standing solving forms, four of
+    # fused_qp_nu6)
+    per_sm = {name: getattr(lib, f"{name}_blocks_per_sm")(20)
+              for name in mfc.MPC_ENTRIES}
+    say("occupancy", N=20, smem_bytes={k: smem[f"{k}_N20"] for k in per_sm},
+        blocks_per_sm=per_sm)
+    check(min(per_sm["standing_tick"], per_sm["standing_tick_kf"]) >= 5
+          and per_sm["fused_qp_nu6"] >= 4,
+          f"blocks an SM at N = 20: {per_sm}")
     smem.update({f"{name}_n{n}_k1": getattr(lib, f"{name}_smem_bytes")(n, 1)
                  for name in chol_cuda.KERNELS for n in (30, 60, 120)})
     for name in chol_cuda.KERNELS:
@@ -810,28 +832,35 @@ def main() -> int:
             prep_err = e["u"]
     summary["walking_mpc_prep"]["max_abs_err"] = prep_err
 
-    # the generic fused QP (given, dense Ad), one and two feet per step
-    for nu in mfc.FUSED_QP:
-        args = qp_inputs(base, nu, 257, seed=40 + nu, device=dev)
-        solve = mfc.make_admm_fused(base.srbd, two_feet=nu == 6)
+    # the generic fused QP (given, dense Ad), one and two feet per step;
+    # two feet also at N = 30 (n = 180: eight solve rows a lane)
+    def horizon(c, N):
+        return dataclasses.replace(c, srbd=dataclasses.replace(c.srbd,
+                                                               horizon=N))
+
+    for nu, N in ((3, 20), (6, 20), (6, 30)):
+        qcfg = horizon(base, N)
+        args = qp_inputs(qcfg, nu, 257, seed=40 + nu + (N - 20), device=dev)
+        solve = mfc.make_admm_fused(qcfg.srbd, two_feet=nu == 6)
         sol, (z, y) = solve(*args)
         torch.cuda.synchronize()
         sol_p, (z_p, y_p) = mfc.make_admm_fused(
-            base.srbd, two_feet=nu == 6, solve_form="subst")(*args)
+            qcfg.srbd, two_feet=nu == 6, solve_form="subst")(*args)
         # bands a few times the f32 rounding of the two routes, each on
         # its own scale: forces of ~100 N, duals of a few N
         scale = float(z_p.abs().max()) + 1.0
         y_scale = float(y_p.abs().max()) + 1.0
         e = dict(u=maxerr(z, z_p), y=maxerr(y, y_p),
                  res=maxerr(sol.residual, sol_p.residual))
-        say("fused_qp_vs_plain", nu=nu, N=20, B=257, scale=scale,
+        say("fused_qp_vs_plain", nu=nu, N=N, B=257, scale=scale,
             y_scale=y_scale, **e, finite=bool(torch.isfinite(z).all()))
         check(bool(torch.isfinite(z).all() and torch.isfinite(y).all()),
               f"fused_qp_nu{nu} output not finite")
         check(e["u"] <= 1e-4 * scale, f"nu={nu} u error {e['u']}")
         check(e["y"] <= 1e-4 * y_scale, f"nu={nu} y error {e['y']}")
         check(e["res"] <= 1e-4, f"nu={nu} residual error {e['res']}")
-        summary[f"fused_qp_nu{nu}"]["max_abs_err"] = e["u"]
+        if N == 20:
+            summary[f"fused_qp_nu{nu}"]["max_abs_err"] = e["u"]
 
     # ---- 4. walking_tick vs the plain tick ------------------------------
     cfg = base
@@ -889,11 +918,15 @@ def main() -> int:
         summary[name]["max_abs_err"] = v1["xi"]
 
     # the four standing forms at full width (n = 120), same bands; the
-    # feet do not move, the solving forms' z within 2e-3 of its scale
+    # feet do not move, the solving forms' z within 2e-3 of its scale; the
+    # solving forms also at N = 30 (n = 180, eight solve rows a lane)
     scfg = ControllerConfig.standing()
-    for (est_kf, hold), name in STAND_VARIANTS.items():
-        v1, v5 = variant_vs_plain(scfg, est_kf, hold, B, dev)
-        say("variant_vs_plain", kernel=name, B=B, one=v1, five=v5)
+    stand_cases = [(v, name, 20) for v, name in STAND_VARIANTS.items()]
+    stand_cases += [(v, name, 30) for v, name in STAND_VARIANTS.items()
+                    if not v[1]]
+    for (est_kf, hold), name, N in stand_cases:
+        v1, v5 = variant_vs_plain(horizon(scfg, N), est_kf, hold, B, dev)
+        say("variant_vs_plain", kernel=name, N=N, B=B, one=v1, five=v5)
         bands1 = [("xi", 3e-4), ("q", 5e-4), ("foot_l", 0.0),
                   ("foot_r", 0.0), ("grf", 5e-2), ("target", 5e-4)]
         bands5 = [("xi", 5e-4), ("q", 1e-3), ("grf", 2e-1)]
@@ -912,7 +945,8 @@ def main() -> int:
         else:
             check(v1["z"] <= 2e-3 * v1["z_scale"],
                   f"{name} z error {v1['z']} > 2e-3*{v1['z_scale']}")
-        summary[name]["max_abs_err"] = v1["xi"]
+        if N == 20:
+            summary[name]["max_abs_err"] = v1["xi"]
 
     # ---- 7a. the batched Cholesky / SPD-solve kernels vs plain ----------
     # seeded SPD batches at B = 257 (not a multiple of 128): against the
@@ -1683,15 +1717,16 @@ def main() -> int:
     path("receding_walk", lambda: variant_loop("receding_walk", rec, 700,
                                                0.5), {"cholesky": 700})
 
-    # (h) a horizon past the MPC kernels' 21 steps (N = 22): the
+    # (h) a horizon past the walking MPC kernels' 21 steps (N = 22): the
     # compositions that launch no MPC kernel run on the card, their dense
     # QPs (n = 66 walking, 132 standing) on the K8 kernels, with the bands
-    # of their N = 20 paths above; a config that would launch an MPC kernel
-    # (the warm fused walking QP, the warm standing ADMM) raises before the
-    # tick, naming the limit
+    # of their N = 20 paths above; the warm fused walking QP would launch
+    # walking_mpc_prep and raises before the tick, naming the limit; the
+    # standing MPC kernels take 1 to 42 steps: the fused standing tick and
+    # the warm standing ADMM run their kernels at N = 22, the fused
+    # standing tick at N = 30 (n = 180) for 100 ticks
     def n22(c):
-        return dataclasses.replace(c, srbd=dataclasses.replace(c.srbd,
-                                                               horizon=22))
+        return horizon(c, 22)
 
     pw22, ric22, rec22 = n22(pw), n22(rcfg), n22(rec)
     cs22 = n22(with_solver(scfg, warm=False, method="pdip", iters=20))
@@ -1711,7 +1746,7 @@ def main() -> int:
 
     def n22_refusals():
         said = []
-        for c in (n22(cfg), n22(with_solver(scfg, method="admm"))):
+        for c in (n22(cfg), n22(kcfg)):
             st = ro.initial_plant_state(c, batch=(2,), device=dev)
             try:
                 ro.plant_step(c, st, torch.zeros(2, device=dev))
@@ -1721,6 +1756,18 @@ def main() -> int:
         q["n22_refusal_ok"] = all("1 to 21 steps" in m for m in said)
 
     path("n22_refusals", n22_refusals, {})
+    sa22 = n22(with_solver(scfg, method="admm"))
+    check(tfc.supports_fused_tick(n22(scfg))
+          and tfc.runs_as_composition(sa22), "standing N = 22 is refused")
+    path("n22_stand", lambda: variant_loop("n22_stand", n22(scfg), T22, 0.6,
+                                           batch=Bg),
+         {"standing_tick": T22})
+    path("n22_stand_admm", lambda: variant_loop("n22_stand_admm", sa22, T22,
+                                                0.6, batch=Bg),
+         {"fused_qp_nu6": T22})
+    path("n30_stand", lambda: variant_loop("n30_stand", horizon(scfg, 30),
+                                           T22, 0.6, batch=Bg),
+         {"standing_tick": T22})
 
     q["main_path_s"] = time.perf_counter() - t_main
     say("quality", launches=launches, **q)
@@ -1736,7 +1783,8 @@ def main() -> int:
               "riccati_vs_fused_ok", "damped_ls_walk_ok", "log6_walk_ok",
               "receding_walk_ok", "n22_pdip_walk_ok", "n22_cold_stand_ok",
               "n22_riccati_walk_ok", "n22_receding_walk_ok",
-              "n22_refusal_ok"):
+              "n22_refusal_ok", "n22_stand_ok", "n22_stand_admm_ok",
+              "n30_stand_ok"):
         check(q[k], f"quality gate {k} failed: {q}")
     for k in kernels:
         summary[k]["launches"] = launches[k]

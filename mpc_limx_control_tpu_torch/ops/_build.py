@@ -31,12 +31,16 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
-# C functions of the library that take the horizon N and return bytes of
-# dynamic shared memory per block, and those that return sizeof(params)
-SMEM_SIZERS = ("walking_mpc_prep_smem_bytes", "walking_tick_smem_bytes",
-               "walking_tick_kf_smem_bytes", "standing_tick_smem_bytes",
-               "standing_tick_kf_smem_bytes", "fused_qp_nu3_smem_bytes",
-               "fused_qp_nu6_smem_bytes")
+# The entry points built on the MPC core (csrc/mpc_core.cuh). C functions
+# of the library that take the horizon N: `<entry>_smem_bytes` (dynamic
+# shared memory per block) and `<entry>_blocks_per_sm` (blocks an SM holds,
+# cudaOccupancyMaxActiveBlocksPerMultiprocessor); then those that return
+# sizeof(params)
+MPC_ENTRIES = ("walking_mpc_prep", "walking_tick", "walking_tick_kf",
+               "standing_tick", "standing_tick_kf", "fused_qp_nu3",
+               "fused_qp_nu6")
+SMEM_SIZERS = tuple(f"{e}_smem_bytes" for e in MPC_ENTRIES) + tuple(
+    f"{e}_blocks_per_sm" for e in MPC_ENTRIES)
 PARAMS_SIZERS = ("walking_mpc_params_bytes", "walking_tick_params_bytes",
                  "chol_params_bytes", "pdip_params_bytes")
 # those that take two sizes: the matrix order n and the number of
@@ -64,15 +68,19 @@ def _nvcc() -> str:
     return found
 
 
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def source_hash(defines: tuple = ()) -> str:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for p in _sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _compile(out: Path) -> str:
+def _compile(out: Path, defines: tuple = ()) -> str:
     """Compile every ``.cu`` of ops/csrc to an object (the compilers run
     side by side), link them into `out`; returns the compilers' reports."""
     nvcc = _nvcc()
@@ -81,7 +89,7 @@ def _compile(out: Path) -> str:
     for src in sorted(CSRC.glob("*.cu")):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
         jobs.append((src, obj, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            [nvcc, *_flags(defines), "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             cwd=str(CSRC))))
     log, failed = "", []
@@ -109,18 +117,22 @@ def _compile(out: Path) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def build_library() -> dict:
+def build_library(defines: tuple = ()) -> dict:
     """Compile (if needed) and load the kernel library once per process.
 
-    Returns {"lib": CDLL, "path": str, "seconds": build wall time (0.0
-    when reused), "built": bool, "log": nvcc's -Xptxas -v report}.
+    `defines`: preprocessor macros of a separate instrumented build (the
+    kernels launch from the default build, which defines none; the timing
+    tool's ``MPC_STAGE_CLOCKS`` build is loaded beside it). Returns {"lib":
+    CDLL, "path": str, "seconds": build wall time (0.0 when reused),
+    "built": bool, "log": nvcc's -Xptxas -v report}.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libmpc_torch_kernels_{source_hash()}.so"
+    tag = "".join(f"_{d.lower()}" for d in defines)
+    out = BUILD_DIR / f"libmpc_torch_kernels{tag}_{source_hash(defines)}.so"
     log, seconds, built = "", 0.0, False
     if not out.is_file():
         t0 = time.perf_counter()
-        log = _compile(out)
+        log = _compile(out, defines)
         seconds = time.perf_counter() - t0
         built = True
     lib = ctypes.CDLL(str(out))

@@ -17,8 +17,9 @@
 // dense Ad costs 13 multiply-adds where the closed form costs 1-3, in the
 // Gramian recursion (N x 169 elements) and the band emission's Ad' t
 // (169 per row and step): at nu = 6, ~0.5 M of the block's ~1.6 M flops.
-// Shared memory at N = 20: ~36 KB (nu = 3), ~55 KB (nu = 6, packed K, all
-// N Bd blocks).  `fused_qp_nu3_inv` is the solve_form = "inv" instantiation
+// Shared memory at N = 20: ~36 KB (nu = 3), 45.2 KB (nu = 6: packed K,
+// all N Bd blocks, S_k = W_k Bd_k instead of the Gramians, no arm sets;
+// five blocks an SM).  `fused_qp_nu3_inv` is the solve_form = "inv" instantiation
 // of the core (the factor inverted once, mat-vecs per z-update), same
 // shared memory.
 //
@@ -33,12 +34,20 @@ namespace {
 // after the core's layout (floats): Ad [13][13], then x_ref [N + 1][13]
 constexpr int AD_SIZE = 176;
 
+// the core's layout for N Bd blocks: at nu = 3 with N unused arm sets (the
+// layout of the prep kernel), at nu = 6 with none
 template <int NU>
-__host__ __device__ inline int qp_smem_floats(int N) {
-  return mpc::smem_layout<NU>(N, N).total + AD_SIZE + (N + 1) * mpc::NX;
+__host__ __device__ inline mpc::Smem qp_layout(int N) {
+  return mpc::smem_layout<NU>(N, N, NU == 3 ? N : 0);
 }
 
-template <int NU, bool INV>
+template <int NU>
+__host__ __device__ inline int qp_smem_floats(int N) {
+  return qp_layout<NU>(N).total + AD_SIZE + (N + 1) * mpc::NX;
+}
+
+// RPL: solve rows per lane of the nu = 6 sweeps, mpc::rpl6(N)
+template <int NU, bool INV, int RPL = mpc::Dim<NU>::RPL>
 __global__ void __launch_bounds__(mpc::Dim<NU>::NT)
 fused_qp_kernel(const __grid_constant__ mpc::MpcParams P,
                 const float* __restrict__ Ad, const float* __restrict__ Bd_t,
@@ -49,8 +58,9 @@ fused_qp_kernel(const __grid_constant__ mpc::MpcParams P,
   constexpr int NT = mpc::Dim<NU>::NT, NX = mpc::NX;
   extern __shared__ float sm[];
   const int b = blockIdx.x, tid = threadIdx.x;
+  MPC_STAGE(mpc::ST_START);
   const int N = P.N, n = NU * N, m = mpc::Dim<NU>::MU * N;
-  const mpc::Smem L = mpc::smem_layout<NU>(N, N);
+  const mpc::Smem L = qp_layout<NU>(N);
   float* ad_s = sm + L.total;
   float* xr_s = ad_s + AD_SIZE;
 
@@ -62,16 +72,29 @@ fused_qp_kernel(const __grid_constant__ mpc::MpcParams P,
     xr_s[i] = x_ref[(size_t)b * (N + 1) * NX + i];
   for (int i = tid; i < NX; i += NT) sm[L.x0 + i] = x0[b * NX + i];
   __syncthreads();
+  MPC_STAGE(mpc::ST_PRE);
 
   const mpc::AdDense ad{ad_s};
   const mpc::RefGiven ref{xr_s};
-  mpc::mpc_condense_solve<NU, INV>(P, sm, L, ad, ref, NX * NU,
-                                   z_warm + (size_t)b * n,
-                                   y_warm + (size_t)b * m);
+  mpc::mpc_condense_solve<NU, INV, RPL>(P, sm, L, ad, ref, NX * NU,
+                                        z_warm + (size_t)b * n,
+                                        y_warm + (size_t)b * m);
 
   for (int c = tid; c < n; c += NT) z_out[(size_t)b * n + c] = sm[L.z + c];
   for (int r = tid; r < m; r += NT) y_out[(size_t)b * m + r] = sm[L.y + r];
   if (tid == 0) res_out[b] = sm[L.aux + mpc::AUX_RES];
+  MPC_STAGE(mpc::ST_END);
+}
+
+// the kernel for horizon N (nu = 6: four solve rows per lane up to N = 21,
+// eight beyond)
+template <int NU, bool INV>
+auto qp_kernel(int N) {
+  if constexpr (NU == 6)
+    return mpc::rpl6(N) == 4 ? fused_qp_kernel<NU, INV, 4>
+                             : fused_qp_kernel<NU, INV, 8>;
+  else
+    return fused_qp_kernel<NU, INV>;
 }
 
 template <int NU, bool INV = false>
@@ -80,13 +103,14 @@ int launch(const mpc::MpcParams* prm, const void* Ad, const void* Bd_t,
            const void* y_warm, void* z_out, void* y_out, void* res_out,
            int B, void* stream) {
   if (B <= 0) return 0;
+  if (prm->N < 1 || prm->N > mpc::Dim<NU>::MAX_N)
+    return (int)cudaErrorInvalidValue;
   const int bytes = (int)(qp_smem_floats<NU>(prm->N) * sizeof(float));
+  const auto kernel = qp_kernel<NU, INV>(prm->N);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_qp_kernel<NU, INV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  fused_qp_kernel<NU, INV>
-      <<<B, mpc::Dim<NU>::NT, bytes, (cudaStream_t)stream>>>(
+  kernel<<<B, mpc::Dim<NU>::NT, bytes, (cudaStream_t)stream>>>(
       *prm, (const float*)Ad, (const float*)Bd_t, (const float*)x_ref,
       (const float*)x0, (const float*)z_warm, (const float*)y_warm,
       (float*)z_out, (float*)y_out, (float*)res_out);
@@ -95,12 +119,25 @@ int launch(const mpc::MpcParams* prm, const void* Ad, const void* Bd_t,
 
 }  // namespace
 
+MPC_STAGE_READER(fused_qp_stage_clocks)
+
 extern "C" int fused_qp_nu3_smem_bytes(int N) {
   return (int)(qp_smem_floats<3>(N) * sizeof(float));
 }
 
 extern "C" int fused_qp_nu6_smem_bytes(int N) {
   return (int)(qp_smem_floats<6>(N) * sizeof(float));
+}
+
+// blocks an SM holds at horizon N
+extern "C" int fused_qp_nu3_blocks_per_sm(int N) {
+  return mpc::blocks_per_sm(qp_kernel<3, false>(N), mpc::Dim<3>::NT,
+                            fused_qp_nu3_smem_bytes(N));
+}
+
+extern "C" int fused_qp_nu6_blocks_per_sm(int N) {
+  return mpc::blocks_per_sm(qp_kernel<6, false>(N), mpc::Dim<6>::NT,
+                            fused_qp_nu6_smem_bytes(N));
 }
 
 extern "C" int fused_qp_nu3(const mpc::MpcParams* prm, const void* Ad,

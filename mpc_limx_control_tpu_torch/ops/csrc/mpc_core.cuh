@@ -39,22 +39,35 @@
 // AdDense) and where a reference row comes from (synthesized level-attitude
 // ramps, RefLevel, or rows read from shared memory, RefGiven).
 //
-// Design: one thread block per scenario, NT = 64 threads at NU = 3 and 128
-// at NU = 6 (n = NU N <= NT); the whole per-scenario working set lives in
-// dynamic shared memory sized from N: K, the Gramians, Bd and the vectors,
-// ~34.6 KB at NU = 3, N = 20 (K 60 x 61) and ~47 KB at NU = 6 with one
-// step-invariant Bd (the standing tick), where K keeps only its lower
-// triangle, packed (120 x 121 / 2 floats = 29 KB instead of 58 KB: four
-// blocks per SM instead of two).  The block's threads share out the
-// Gramian elements, one row of K each (the band emission), and the
-// trailing update of the column Cholesky; warp 0 runs the sequential sweeps
+// Design: one thread block per scenario, the whole per-scenario working set
+// in dynamic shared memory sized from N; warp 0 runs the sequential sweeps
 // (the f sweeps and the ADMM), keeping each substitution's right-hand side
-// in registers (n / 32 rows per lane: two at NU = 3, four at NU = 6) and
-// broadcasting each pivot with a warp shuffle, so a substitution step costs
-// no block barrier.
+// in registers (n / 32 rows per lane) and broadcasting each pivot with a
+// warp shuffle, so a substitution step costs no block barrier.
+//
+// NU = 3 (walking, n = 3 N <= 64 threads): K 60 x 61 with row stride
+// n + 1 and the N Gramians, ~34.6 KB at N = 20; thread (k, b) emits row
+// 3 k + b of K; the column Cholesky shares each pivot's trailing update
+// over the block (two barriers a column); two rows per lane.
+//
+// NU = 6 (standing, 128 threads, n = 6 N <= 256, N <= 42): K a packed
+// lower triangle; the Gramian recursion keeps one W_k and its scratch in
+// K's storage and leaves only S_k = W_k Bd_k per step, the emission's sole
+// read of the Gramians; the emission walks the rows tid, tid + 128; step 5
+// is the panel factorization of chol_common.cuh (factor<PACKED>: n + n / 8
+// barrier-separated steps, every element's fused multiply-add chain that
+// of the column loop, so the same factor bit for bit) and step 6 its two
+// warp sweeps with the reciprocal pivots in registers (RPL = 4 rows a lane
+// up to N = 21, 8 beyond; the same arithmetic as the NU = 3 sweeps); z, v
+// and y reuse S's storage once the emission is done, sqrt(d) and 1 /
+// sqrt(d) the f sweep's.  37.5 KB at N = 20 with one step-invariant Bd
+// (the standing tick: six blocks an SM), 45.2 KB with N Bd blocks and Ad
+// (fused_qp: five).  A standing block alone takes ~604k cycles, 175k of
+// them in the factorization and 273k in the ADMM, and B = 4096 standing
+// ticks 1.85 ms (NVIDIA H100 80GB HBM3; tools/time_mpc_kernels.py).
 //
 // What bounds it on this card: latency, not flops or bytes.  One scenario
-// is n barrier-separated Cholesky pivot steps plus 12 x n dependent
+// is a chain of barrier-separated pivot steps plus 12 x n dependent
 // substitution steps (6 solves per tick, forward + backward), each a short
 // chain of shared-memory loads and FMAs; a solve moves ~20-40 KB of inputs
 // and outputs per scenario in total.  Throughput comes from many
@@ -69,9 +82,56 @@
 
 #include <cuda_runtime.h>
 
+#include "chol_common.cuh"
+
 namespace mpc {
 
 constexpr int NX = 13;
+
+// ---- stage clocks, compiled in only for a timing build ---------------------
+// A build that defines MPC_STAGE_CLOCKS (tools/time_mpc_kernels.py --stages;
+// ops/_build.py's normal build never does) records clock64() at the stage
+// boundaries of every block b < STAGE_MAX_B, read by thread 0 (the
+// clocks of a block's other warps do not agree with its own).  Each
+// source that launches the core exports a reader
+// (MPC_STAGE_READER) that copies the [STAGE_MAX_B][STAGE_SLOTS] int64
+// array of its own translation unit to the host.
+constexpr int STAGE_MAX_B = 4096;
+constexpr int STAGE_SLOTS = 16;
+enum Stage {
+  ST_START = 0,   // kernel entry
+  ST_PRE = 1,     // the MPC's inputs staged (prologue / loads done)
+  ST_GRAM = 2,    // linearization and Gramian recursion done
+  ST_EMIT = 3,    // warp 0's band emission rows done
+  ST_FSWEEP = 4,  // warp 0's f sweeps done
+  ST_BAND = 5,    // the block barrier after emission and f sweeps
+  ST_CHOL = 6,    // factorization (and, INV, the inverse) done
+  ST_ADMM = 7,    // the ADMM and its outputs done
+  ST_END = 8      // kernel end (outputs, epilogue)
+};
+
+}  // namespace mpc
+
+#ifdef MPC_STAGE_CLOCKS
+namespace {
+__device__ long long g_stage_clock[mpc::STAGE_MAX_B * mpc::STAGE_SLOTS];
+}
+#define MPC_STAGE(slot)                                                  \
+  do {                                                                   \
+    if (threadIdx.x == 0 && blockIdx.x < mpc::STAGE_MAX_B)               \
+      g_stage_clock[blockIdx.x * mpc::STAGE_SLOTS + (slot)] = clock64(); \
+  } while (0)
+#define MPC_STAGE_READER(name)                                           \
+  extern "C" int name(void* dst) {                                       \
+    return (int)cudaMemcpyFromSymbol(dst, g_stage_clock,                 \
+                                     sizeof(g_stage_clock));             \
+  }
+#else
+#define MPC_STAGE(slot) ((void)0)
+#define MPC_STAGE_READER(name)
+#endif
+
+namespace mpc {
 
 // Sizes that follow from NU.
 template <int NU>
@@ -79,9 +139,16 @@ struct Dim {
   static_assert(NU == 3 || NU == 6, "one or two point feet");
   static constexpr int MU = 2 * NU;             // cone rows per step
   static constexpr int NF = NU / 3;             // feet per step
-  static constexpr int NT = NU == 3 ? 64 : 128; // threads; n = NU N <= NT
+  static constexpr int NT = NU == 3 ? 64 : 128; // threads a block
   static constexpr int RPL = NT / 32;           // solve rows per lane
+  // the largest horizon: n = NU N <= NT at NU = 3 (a row of K a thread),
+  // n <= 32 MAX_RPL = 256 at NU = 6 (RPL = 8 rows a lane past N = 21)
+  static constexpr int MAX_N = NU == 3 ? NT / NU : 32 * MAX_RPL / NU;
 };
+
+// Solve rows per lane of the NU = 6 core at horizon N: 4 while n <= 128,
+// 8 beyond (n <= 256).
+__host__ __device__ inline int rpl6(int N) { return 6 * N <= 128 ? 4 : 8; }
 
 // Host and device share this layout; the Python side mirrors it with a
 // ctypes.Structure (all fields 4 bytes, so no padding).  The per-foot
@@ -109,8 +176,12 @@ constexpr int AUX_XP = 43;    // xi_pred [13]
 constexpr int AUX_SIZE = 64;
 
 struct Smem {
-  int K, W, Bd, arms, qe, f, dginv, z, v, y, x0, aux, total;
+  int K, W, S, Bd, arms, qe, f, dg, dginv, z, v, y, x0, aux, total;
 };
+
+// NU = 6: W_k and Ad' W_{k+1}, 176 floats apart, in K's storage while the
+// Gramian recursion runs
+constexpr int GRAM_PAIR = 2 * 176;
 
 // Row i of the lower factor starts here: row stride n + 1 at NU = 3, the
 // packed lower triangle at NU = 6.
@@ -120,14 +191,39 @@ __host__ __device__ __forceinline__ int krow(int i, int n) {
   else return (i * (i + 1)) / 2;
 }
 
-// nbd: how many Bd blocks (and arm sets) the kernel keeps: N when they
-// differ over the horizon, 1 when they are step-invariant (standing).
+// nbd: how many Bd blocks the kernel keeps: N when they differ over the
+// horizon, 1 when they are step-invariant (standing); narms: how many arm
+// sets (-1: nbd; 0 at NU = 6 where Bd is given, fused_qp.cu).
+//
+// NU = 6 keeps no Gramians: the recursion runs on one W and one scratch
+// in K's storage and leaves S_k = W_k Bd_k [13][6] per step, all that the
+// band emission reads; once the emission is done S holds z, v and y, and
+// once the f sweeps are done qe holds the factor's sqrt(d) and 1 / sqrt(d).
 template <int NU>
-__host__ __device__ inline Smem smem_layout(int N, int nbd) {
+__host__ __device__ inline Smem smem_layout(int N, int nbd, int narms = -1) {
   const int n = NU * N, m = Dim<NU>::MU * N;
-  Smem s;
+  Smem s{};
   int o = 0;
   const int ksize = krow<NU>(n, n);
+  if (narms < 0) narms = nbd;
+  if constexpr (NU == 6) {
+    s.K = o;     o += ksize > GRAM_PAIR ? ksize : GRAM_PAIR;
+    s.W = s.K;
+    s.S = o;     o += N * NX * NU;     // S_k = W_k Bd_k, row-major [13][6]
+    s.Bd = o;    o += nbd * NX * NU;
+    s.arms = o;  o += narms * NU;      // both feet per step
+    s.qe = o;    o += N * NX;
+    s.f = o;     o += n;
+    s.x0 = o;    o += 16;
+    s.aux = o;   o += AUX_SIZE;
+    s.total = o;
+    s.z = s.S;                         // z [n], v [m], y [m]: 30 N <= 78 N
+    s.v = s.z + n;
+    s.y = s.v + m;
+    s.dg = s.qe;                       // dg [n], dginv [n]: 12 N <= 13 N
+    s.dginv = s.qe + n;
+    return s;
+  }
   s.K = o;     o += ksize > 176 ? ksize : 176;  // also the Gramian scratch
   s.W = o;     o += N * NX * NX;     // Gramians W_k
   s.Bd = o;    o += nbd * NX * NU;   // Bd_k, row-major [13][NU]
@@ -350,19 +446,12 @@ __host__ __device__ __forceinline__ int tri(int i) {
   return (i * (i + 1)) / 2;
 }
 
-// z = K^-1 (-f + rho G'(v - y)) into sm z; warp 0 only.  INV: K^-1 b as
-// T'(T b) with the packed factor inverse Tinv; z and tmp [n] are scratch.
-template <int NU, bool INV>
-__device__ __forceinline__ void admm_z_update(const MpcParams& P,
-                                              const float* K,
-                                              const float* dginv,
-                                              const float* Tinv, float* tmp,
-                                              const float* f,
-                                              const float* v,
-                                              const float* y, float* z,
-                                              int n, int lane) {
-  constexpr int MU = Dim<NU>::MU, RPL = Dim<NU>::RPL;
-  float b[RPL];
+// b = -f + rho G'(v - y), rows lane + 32 s in b[s]; warp 0 only.
+template <int NU, int RPL>
+__device__ __forceinline__ void admm_rhs(const MpcParams& P, const float* f,
+                                         const float* v, const float* y,
+                                         int n, int lane, float (&b)[RPL]) {
+  constexpr int MU = Dim<NU>::MU;
 #pragma unroll
   for (int s = 0; s < RPL; ++s) {
     const int c = lane + 32 * s;
@@ -380,6 +469,22 @@ __device__ __forceinline__ void admm_z_update(const MpcParams& P,
     }
     b[s] = val;
   }
+}
+
+// z = K^-1 (-f + rho G'(v - y)) into sm z; warp 0 only.  INV: K^-1 b as
+// T'(T b) with the packed factor inverse Tinv; z and tmp [n] are scratch.
+template <int NU, bool INV>
+__device__ __forceinline__ void admm_z_update(const MpcParams& P,
+                                              const float* K,
+                                              const float* dginv,
+                                              const float* Tinv, float* tmp,
+                                              const float* f,
+                                              const float* v,
+                                              const float* y, float* z,
+                                              int n, int lane) {
+  constexpr int RPL = Dim<NU>::RPL;
+  float b[RPL];
+  admm_rhs<NU, RPL>(P, f, v, y, n, lane, b);
   if constexpr (INV) {
     // y = T b: lane i takes row i of T against b staged in z
 #pragma unroll
@@ -419,6 +524,25 @@ __device__ __forceinline__ void admm_z_update(const MpcParams& P,
     if (lane + 32 * s < n) z[lane + 32 * s] = b[s];
 }
 
+// The same z-update at NU = 6: the two sweeps of chol_common.cuh on the
+// packed factor, the reciprocal pivots dv of this lane's rows in registers.
+template <int RPL>
+__device__ __forceinline__ void admm_z_update6(const MpcParams& P,
+                                               const float* K,
+                                               const float (&dv)[RPL],
+                                               const float* f,
+                                               const float* v,
+                                               const float* y, float* z,
+                                               int n, int lane) {
+  float b[RPL];
+  admm_rhs<6, RPL>(P, f, v, y, n, lane, b);
+  sweep_forward<PACKED, RPL>(K, dv, n, 0, lane, b);
+  sweep_backward<PACKED, RPL>(K, dv, n, 0, lane, b);
+#pragma unroll
+  for (int s = 0; s < RPL; ++s)
+    if (lane + 32 * s < n) z[lane + 32 * s] = b[s];
+}
+
 // Condense, factor and solve for the scenario of this block.
 //
 // In shared memory before the call (and followed by a __syncthreads, or
@@ -428,7 +552,9 @@ __device__ __forceinline__ void admm_z_update(const MpcParams& P,
 // warm state in global memory.  On return (after a block barrier): z [n]
 // at L.z, y [m] at L.y, the residual at aux[AUX_RES], xi_pred at
 // aux[AUX_XP].
-template <int NU, bool INV, class AdP, class RefP>
+//
+// RPL: solve rows per lane of the NU = 6 sweeps (n <= 32 RPL; rpl6(N)).
+template <int NU, bool INV, int RPL = Dim<NU>::RPL, class AdP, class RefP>
 __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
                                           const Smem& L, const AdP& ad,
                                           const RefP& ref, int bd_stride,
@@ -452,7 +578,43 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
   float* aux = sm + L.aux;
 
   // ---- 2. backward Gramian recursion (K's storage as scratch) ---------
-  {
+  if constexpr (NU == 6) {
+    // one W_k in K's storage, Ad' W_k beside it; each step leaves
+    // S_k = W_k Bd_k, summed in the order of the NU = 3 emission's
+    // t = W_k Bd_k column
+    float* Z = K + GRAM_PAIR / 2;
+    float* S = sm + L.S;
+    for (int idx = tid; idx < NX * NX; idx += NT) {
+      const int r = idx / NX, c = idx - NX * (idx / NX);
+      W[idx] = (r == c) ? P.p[r] : 0.0f;
+    }
+    __syncthreads();
+    for (int k = N - 1; k >= 0; --k) {
+      const float* Bk = Bd + k * bd_stride;
+      float* Sk = S + k * NX * NU;
+      const int items = NX * NU + (k > 0 ? NX * NX : 0);
+      for (int idx = tid; idx < items; idx += NT) {
+        if (idx < NX * NU) {
+          const int x = idx / NU, b = idx - NU * (idx / NU);
+          float acc = 0.0f;
+          for (int yy = 0; yy < NX; ++yy)
+            acc += W[x * NX + yy] * Bk[yy * NU + b];
+          Sk[idx] = acc;
+        } else {
+          const int e = idx - NX * NU;
+          const int r = e / NX, c = e - NX * (e / NX);
+          Z[e] = ad.tM(W, NX, r, c);
+        }
+      }
+      __syncthreads();
+      if (k == 0) break;
+      for (int idx = tid; idx < NX * NX; idx += NT) {
+        const int r = idx / NX, c = idx - NX * (idx / NX);
+        W[idx] = ad.Mr(Z, r, c) + ((r == c) ? P.q[r] : 0.0f);
+      }
+      __syncthreads();
+    }
+  } else {
     float* WN = W + (N - 1) * NX * NX;
     for (int idx = tid; idx < NX * NX; idx += NT) {
       const int r = idx / NX, c = idx - NX * (idx / NX);
@@ -475,10 +637,35 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
       __syncthreads();
     }
   }
+  MPC_STAGE(ST_GRAM);
 
   // ---- 3. band emission: thread (k, b) owns row NU k + b of the lower K
   // K[NU k+b][NU j+a] = 2 Bd_j' (Ad')^{k-j} W_k Bd_k [a][b]
-  if (tid < n) {
+  if constexpr (NU == 6) {
+    // rows tid, tid + NT, ... (n <= 2 NT), t = S_k column b
+    for (int row = tid; row < n; row += NT) {
+      const int k = row / NU, b = row - NU * (row / NU);
+      const float* Sk = sm + L.S + k * NX * NU;
+      float t[NX];
+#pragma unroll
+      for (int x = 0; x < NX; ++x) t[x] = Sk[x * NU + b];
+      float* Krow = K + krow<NU>(row, n);
+      for (int j = k; j >= 0; --j) {
+        const float* Bj = Bd + j * bd_stride;
+#pragma unroll
+        for (int a = 0; a < NU; ++a) {
+          float e = 0.0f;
+#pragma unroll
+          for (int x = 0; x < NX; ++x) e += t[x] * Bj[x * NU + a];
+          float val = 2.0f * e;
+          if (j == k && a / 3 == b / 3)
+            val += P.dblk[a / 3][(a % 3) * 3 + b % 3];
+          if (NU * j + a <= row) Krow[NU * j + a] = val;
+        }
+        if (j > 0) ad.tvec(t);
+      }
+    }
+  } else if (tid < n) {
     const int k = tid / NU, b = tid - NU * (tid / NU);
     const float* Wk = W + k * NX * NX;
     const float* Bk = Bd + k * bd_stride;
@@ -506,6 +693,7 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
       if (j > 0) ad.tvec(t);
     }
   }
+  MPC_STAGE(ST_EMIT);
 
   // ---- 4. linear term f: forward error sweep + adjoint (warp 0) -------
   if (warp == 0) {
@@ -540,22 +728,31 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
       }
       __syncwarp();
     }
+    MPC_STAGE(ST_FSWEEP);
   }
   __syncthreads();
+  MPC_STAGE(ST_BAND);
 
   // ---- 5. in-place Cholesky of the lower triangle of K ----------------
-  for (int j = 0; j < n; ++j) {
-    const float d = fmaxf(K[krow<NU>(j, n) + j], 1e-30f);
-    const float inv = 1.0f / sqrtf(d);
-    for (int i = j + 1 + tid; i < n; i += NT) K[krow<NU>(i, n) + j] *= inv;
-    if (tid == 0) dginv[j] = inv;
-    __syncthreads();
-    for (int i = j + 1 + tid; i < n; i += NT) {
-      float* Ki = K + krow<NU>(i, n);
-      const float lij = Ki[j];
-      for (int l = j + 1; l <= i; ++l) Ki[l] -= lij * K[krow<NU>(l, n) + j];
+  // NU = 6: the K8 panel factorization of chol_common.cuh on the packed
+  // triangle (the same chain of fused multiply-adds for every element as
+  // the column loop below, so the same factor)
+  if constexpr (NU == 6) {
+    factor<PACKED>(K, sm + L.dg, dginv, n, n, 0);
+  } else {
+    for (int j = 0; j < n; ++j) {
+      const float d = fmaxf(K[krow<NU>(j, n) + j], 1e-30f);
+      const float inv = 1.0f / sqrtf(d);
+      for (int i = j + 1 + tid; i < n; i += NT) K[krow<NU>(i, n) + j] *= inv;
+      if (tid == 0) dginv[j] = inv;
+      __syncthreads();
+      for (int i = j + 1 + tid; i < n; i += NT) {
+        float* Ki = K + krow<NU>(i, n);
+        const float lij = Ki[j];
+        for (int l = j + 1; l <= i; ++l) Ki[l] -= lij * K[krow<NU>(l, n) + j];
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 
   // ---- 5b. T = L^-1 into the Gramians' storage (packed lower triangle):
@@ -574,6 +771,7 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
     }
     __syncthreads();
   }
+  MPC_STAGE(ST_CHOL);
 
   // ---- 6. warm ADMM in factor form (warp 0) ---------------------------
   if (warp == 0) {
@@ -585,8 +783,14 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
     }
     __syncwarp();
     const float alpha = P.alpha, beta = 1.0f - P.alpha;
+    // NU = 6: the reciprocal pivots of this lane's rows, once per solve
+    float dv[RPL];
+    if constexpr (NU == 6) load_dinv<RPL>(dginv, n, lane, dv);
     for (int it = 0; it < P.iters; ++it) {
-      admm_z_update<NU, USE_INV>(P, K, dginv, W, qe, f, v, y, z, n, lane);
+      if constexpr (NU == 6)
+        admm_z_update6<RPL>(P, K, dv, f, v, y, z, n, lane);
+      else
+        admm_z_update<NU, USE_INV>(P, K, dginv, W, qe, f, v, y, z, n, lane);
       __syncwarp();
       for (int r = lane; r < m; r += 32) {
         const float gzr = alpha * g_row<NU>(P, z, r) + beta * v[r];
@@ -596,7 +800,10 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
       }
       __syncwarp();
     }
-    admm_z_update<NU, USE_INV>(P, K, dginv, W, qe, f, v, y, z, n, lane);
+    if constexpr (NU == 6)
+      admm_z_update6<RPL>(P, K, dv, f, v, y, z, n, lane);
+    else
+      admm_z_update<NU, USE_INV>(P, K, dginv, W, qe, f, v, y, z, n, lane);
     __syncwarp();
 
     float rp = 0.0f, fm = 0.0f;
@@ -617,6 +824,7 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
     }
   }
   __syncthreads();
+  MPC_STAGE(ST_ADMM);
 }
 
 // The whole prep + solve for the scenario of this block: the SRBD
@@ -628,7 +836,7 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
 // from at L.arms, [nbd][NF][3] (nbd = N, or 1 when the arms do not change
 // over the horizon); v_des / yaw rate / anchor in the aux area.  Results as
 // mpc_condense_solve.
-template <int NU, bool INV = false>
+template <int NU, bool INV = false, int RPL = Dim<NU>::RPL>
 __device__ inline void mpc_prep_solve(const MpcParams& P, float* sm,
                                       const Smem& L, int nbd,
                                       const float* __restrict__ zw,
@@ -688,8 +896,24 @@ __device__ inline void mpc_prep_solve(const MpcParams& P, float* sm,
 
   const AdSrbd ad{ts, h2, cy, sy};
   const RefLevel ref{aux, x0, P.height_des, ts};
-  mpc_condense_solve<NU, INV>(P, sm, L, ad, ref, nbd > 1 ? NX * NU : 0, zw,
-                              yw);
+  mpc_condense_solve<NU, INV, RPL>(P, sm, L, ad, ref, nbd > 1 ? NX * NU : 0,
+                                   zw, yw);
+}
+
+// Blocks of `kernel` an SM holds at `threads` threads and `bytes` of
+// dynamic shared memory (the attribute raised to `bytes` first, as a launch
+// does); -1 when CUDA refuses either call.
+template <class Kernel>
+inline int blocks_per_sm(Kernel kernel, int threads, int bytes) {
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes) != cudaSuccess)
+    return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                    bytes) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 }  // namespace mpc

@@ -21,11 +21,13 @@
 // MPC's x0, the plant steps from the truth (as in walking_tick.cu).
 //
 // Bound on this card: latency.  n = 6 N = 120 decision variables at
-// N = 20: 120 barrier-separated Cholesky pivot steps (n^3 / 3 = 576k
-// flops shared by 128 threads) and 12 substitution sweeps of 120
-// warp-shuffle steps, four rows per lane.  One block of 128 threads per
-// scenario; K is stored as a packed lower triangle and Bd once, so the
-// block's ~47 KB of shared memory lets four scenarios share an SM.  The
+// N = 20: the panel Cholesky of chol_common.cuh (n + n / 8 barrier-
+// separated steps, n^3 / 3 = 576k flops shared by 128 threads) and 12
+// substitution sweeps of 120 warp-shuffle steps, four rows per lane
+// (eight past N = 21; the horizon goes to 42, n <= 256).  One block of 128
+// threads per scenario; K is stored as a packed lower triangle, Bd once
+// and, instead of the N Gramians, only S_k = W_k Bd_k, so the block's
+// 37.5 KB of shared memory at N = 20 lets six scenarios share an SM.  The
 // hold forms run no MPC: one thread (truth) or one warp (KF) per scenario.
 #include "tick_common.cuh"
 
@@ -35,13 +37,15 @@ constexpr int NU = 6;
 constexpr int NT = mpc::Dim<NU>::NT;
 
 // ---- the solving forms: one block of NT threads per scenario ------------
-template <bool KF>
+// RPL: solve rows per lane, mpc::rpl6(N)
+template <bool KF, int RPL>
 __global__ void __launch_bounds__(NT)
 standing_tick_kernel(const __grid_constant__ TickParams T,
                      const __grid_constant__ TickIO io) {
   extern __shared__ float sm[];
   const mpc::MpcParams& P = T.mpc;
   const int b = blockIdx.x, tid = threadIdx.x;
+  MPC_STAGE(mpc::ST_START);
   const int N = P.N, n = NU * N, m = mpc::Dim<NU>::MU * N;
   const mpc::Smem L = mpc::smem_layout<NU>(N, 1);
   float* aux = sm + L.aux;
@@ -88,10 +92,11 @@ standing_tick_kernel(const __grid_constant__ TickParams T,
     aux[mpc::AUX_WDES] = io.wdes[b];
   }
   __syncthreads();
+  MPC_STAGE(mpc::ST_PRE);
 
   // ---- the prep-fused two-foot MPC solve ------------------------------
-  mpc::mpc_prep_solve<NU>(P, sm, L, 1, io.zw + (size_t)b * n,
-                          io.yw + (size_t)b * m);
+  mpc::mpc_prep_solve<NU, false, RPL>(P, sm, L, 1, io.zw + (size_t)b * n,
+                                      io.yw + (size_t)b * m);
 
   for (int c = tid; c < n; c += NT) io.z_o[(size_t)b * n + c] = sm[L.z + c];
   for (int r = tid; r < m; r += NT) io.y_o[(size_t)b * m + r] = sm[L.y + r];
@@ -104,6 +109,7 @@ standing_tick_kernel(const __grid_constant__ TickParams T,
                    io.xi_o + b * mpc::NX, io.q_o + b * 6, io.fl_o + b * 3,
                    io.fr_o + b * 3, io.grf_o + b * 6);
   }
+  MPC_STAGE(mpc::ST_END);
 }
 
 // ---- the held-force forms: no MPC ----------------------------------------
@@ -155,16 +161,26 @@ __host__ __device__ inline int solve_smem_floats(int N, bool kf) {
   return (kf && L.K + KW_SIZE > L.total) ? L.K + KW_SIZE : L.total;
 }
 
+// the solving kernel for horizon N: four solve rows per lane up to
+// N = 21, eight beyond
+template <bool KF>
+auto solve_kernel(int N) {
+  return mpc::rpl6(N) == 4 ? standing_tick_kernel<KF, 4>
+                           : standing_tick_kernel<KF, 8>;
+}
+
 template <bool KF>
 int launch_solve(const TickParams* prm, const TickIO& io, int B,
                  void* stream) {
   if (B <= 0) return 0;
+  if (prm->mpc.N < 1 || prm->mpc.N > mpc::Dim<NU>::MAX_N)
+    return (int)cudaErrorInvalidValue;
   const int bytes = (int)(solve_smem_floats(prm->mpc.N, KF) * sizeof(float));
+  const auto kernel = solve_kernel<KF>(prm->mpc.N);
   cudaError_t err = cudaFuncSetAttribute(
-      standing_tick_kernel<KF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  standing_tick_kernel<KF><<<B, NT, bytes, (cudaStream_t)stream>>>(*prm, io);
+  kernel<<<B, NT, bytes, (cudaStream_t)stream>>>(*prm, io);
   return (int)cudaGetLastError();
 }
 
@@ -190,6 +206,19 @@ extern "C" int standing_tick_smem_bytes(int N) {
 extern "C" int standing_tick_kf_smem_bytes(int N) {
   return (int)(solve_smem_floats(N, true) * sizeof(float));
 }
+
+// blocks of the solving forms an SM holds at horizon N
+extern "C" int standing_tick_blocks_per_sm(int N) {
+  return mpc::blocks_per_sm(solve_kernel<false>(N), NT,
+                            standing_tick_smem_bytes(N));
+}
+
+extern "C" int standing_tick_kf_blocks_per_sm(int N) {
+  return mpc::blocks_per_sm(solve_kernel<true>(N), NT,
+                            standing_tick_kf_smem_bytes(N));
+}
+
+MPC_STAGE_READER(standing_tick_stage_clocks)
 
 // the C entry points (pointer order in tick_common.cuh)
 TICK_ENTRY_SOLVE(standing_tick, launch_solve<false>)

@@ -39,6 +39,7 @@ walking_mpc_prep_kernel(const __grid_constant__ mpc::MpcParams P,
                         float* __restrict__ xp_out) {
   extern __shared__ float sm[];
   const int b = blockIdx.x, tid = threadIdx.x;
+  MPC_STAGE(mpc::ST_START);
   const int N = P.N, n = NU * N, m = mpc::Dim<NU>::MU * N;
   const mpc::Smem L = mpc::smem_layout<NU>(N, N);
   float* aux = sm + L.aux;
@@ -53,6 +54,7 @@ walking_mpc_prep_kernel(const __grid_constant__ mpc::MpcParams P,
   }
   if (tid == 0) aux[mpc::AUX_WDES] = yaw_rate[b];
   __syncthreads();
+  MPC_STAGE(mpc::ST_PRE);
 
   mpc::mpc_prep_solve<NU, INV>(P, sm, L, N, z_warm + (size_t)b * n,
                                y_warm + (size_t)b * m);
@@ -61,6 +63,7 @@ walking_mpc_prep_kernel(const __grid_constant__ mpc::MpcParams P,
   for (int r = tid; r < m; r += NT) y_out[(size_t)b * m + r] = sm[L.y + r];
   if (tid < mpc::NX) xp_out[b * mpc::NX + tid] = aux[mpc::AUX_XP + tid];
   if (tid == 0) res_out[b] = aux[mpc::AUX_RES];
+  MPC_STAGE(mpc::ST_END);
 }
 
 template <bool INV>
@@ -85,8 +88,15 @@ int launch(const mpc::MpcParams* prm, const void* x0, const void* arms,
 
 }  // namespace
 
+MPC_STAGE_READER(walking_mpc_prep_stage_clocks)
+
 extern "C" int walking_mpc_prep_smem_bytes(int N) {
   return (int)(mpc::smem_layout<NU>(N, N).total * sizeof(float));
+}
+
+extern "C" int walking_mpc_prep_blocks_per_sm(int N) {
+  return mpc::blocks_per_sm(walking_mpc_prep_kernel<false>, NT,
+                            walking_mpc_prep_smem_bytes(N));
 }
 
 extern "C" int walking_mpc_params_bytes() {

@@ -70,6 +70,7 @@ walking_tick_kernel(const __grid_constant__ TickParams T,
   extern __shared__ float sm[];
   const mpc::MpcParams& P = T.mpc;
   const int b = blockIdx.x, tid = threadIdx.x;
+  MPC_STAGE(mpc::ST_START);
   const int N = P.N, n = NU * N, m = mpc::Dim<NU>::MU * N;
   const mpc::Smem L = mpc::smem_layout<NU>(N, N);
   float* aux = sm + L.aux;
@@ -133,6 +134,7 @@ walking_tick_kernel(const __grid_constant__ TickParams T,
     for (int i = 0; i < 3; ++i) sm[L.arms + 3 * k + i] = arm[i];
   }
   __syncthreads();
+  MPC_STAGE(mpc::ST_PRE);
 
   // ---- the prep-fused MPC solve ---------------------------------------
   mpc::mpc_prep_solve<NU, INV>(P, sm, L, N, io.zw + (size_t)b * n,
@@ -155,6 +157,7 @@ walking_tick_kernel(const __grid_constant__ TickParams T,
                   tk + TK_SWQ, io.xi_o + b * mpc::NX, io.q_o + b * 6,
                   io.fl_o + b * 3, io.fr_o + b * 3, io.grf_o + b * 6);
   }
+  MPC_STAGE(mpc::ST_END);
 }
 
 // ---- the held-force forms: no MPC ----------------------------------------
@@ -248,12 +251,25 @@ int launch_hold(const TickParams* prm, const TickIO& io, int B,
 
 // dynamic shared memory per block of the solving forms (the hold forms
 // use none)
+MPC_STAGE_READER(walking_tick_stage_clocks)
+
 extern "C" int walking_tick_smem_bytes(int N) {
   return (int)(solve_smem_floats(N, false) * sizeof(float));
 }
 
 extern "C" int walking_tick_kf_smem_bytes(int N) {
   return (int)(solve_smem_floats(N, true) * sizeof(float));
+}
+
+// blocks of the solving forms an SM holds at horizon N
+extern "C" int walking_tick_blocks_per_sm(int N) {
+  return mpc::blocks_per_sm(walking_tick_kernel<false, false>, NT,
+                            walking_tick_smem_bytes(N));
+}
+
+extern "C" int walking_tick_kf_blocks_per_sm(int N) {
+  return mpc::blocks_per_sm(walking_tick_kernel<true, false>, NT,
+                            walking_tick_kf_smem_bytes(N));
 }
 
 extern "C" int walking_tick_params_bytes() { return (int)sizeof(TickParams); }

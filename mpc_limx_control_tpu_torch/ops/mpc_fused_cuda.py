@@ -45,9 +45,11 @@ from mpc_limx_control_tpu_torch.models import srbd
 from mpc_limx_control_tpu_torch.ops import _build
 from mpc_limx_control_tpu_torch.ops import condense as cnd
 from mpc_limx_control_tpu_torch.ops import qp as qps
+from mpc_limx_control_tpu_torch.ops.chol_cuda import SMEM_LIMIT_BYTES
 
 NX = 13
-MAX_HORIZON = 21          # n = nu N <= threads per block (64 / 128)
+MAX_HORIZON = 21          # nu = 3: n = 3 N <= the block's 64 threads
+MAX_HORIZON_STAND = 42    # nu = 6: n = 6 N <= 256, eight solve rows a lane
 REG = 1e-6                # added to K's diagonal (f32)
 
 # The kernels and their launch counters (see ops/_build.py).
@@ -62,6 +64,77 @@ FUSED_QP_NU3_INV = _build.Kernel("fused_qp_nu3_inv", n_ptr=9,
                                  params_sizer="walking_mpc_params_bytes")
 # SolverConfig.solve_form values the kernels run
 KERNEL_SOLVE_FORMS = ("subst", "inv")
+
+
+# ---- the core's shared-memory layout (csrc/mpc_core.cuh:smem_layout) -------
+_AUX_SIZE = 64            # the aux area
+_KW_SIZE = 756            # the filter's scratch (csrc/tick_common.cuh)
+_TK_SIZE = 16             # the walking tick's scratch (csrc/walking_tick.cu)
+_AD_SIZE = 176            # fused_qp's Ad [13][13] (csrc/fused_qp.cu)
+MPC_ENTRIES = _build.MPC_ENTRIES
+
+
+def entry_nu(entry: str) -> int:
+    """Forces per horizon step of an entry point built on the MPC core."""
+    if entry not in MPC_ENTRIES:
+        raise ValueError(f"{entry!r} is not one of {MPC_ENTRIES}")
+    return 6 if entry.startswith("standing") or entry == "fused_qp_nu6" else 3
+
+
+def max_horizon(nu: int) -> int:
+    """The longest horizon the MPC core takes at nu forces a step."""
+    return MAX_HORIZON if nu == 3 else MAX_HORIZON_STAND
+
+
+def _layout_floats(nu: int, N: int, nbd: int, narms: int) -> int:
+    """Floats of mpc::smem_layout<nu>(N, nbd, narms): nu = 6 keeps K packed
+    and S_k = W_k Bd_k where nu = 3 keeps K with row stride n + 1 and the
+    N Gramians."""
+    n, m = nu * N, 2 * nu * N
+    if nu == 6:
+        return (max(n * (n + 1) // 2, 2 * 176) + N * NX * 6 + nbd * NX * 6
+                + narms * 6 + N * NX + n + 16 + _AUX_SIZE)
+    return (max(n * (n + 1), 176) + N * NX * NX + nbd * NX * 3 + narms * 3
+            + N * NX + 2 * n + 64 + 2 * m + 16 + _AUX_SIZE)
+
+
+def smem_bytes(entry: str, N: int) -> int:
+    """Dynamic shared memory per block of `entry` at horizon N, as the
+    library's ``<entry>_smem_bytes(N)`` computes it: the core's layout (N
+    Bd blocks and arm sets walking; one of each standing; N Bd blocks and,
+    at nu = 6, no arm sets in fused_qp), plus the walking tick's scratch,
+    fused_qp's Ad and reference rows, and room for the filter's scratch
+    from K's area in the KF forms."""
+    nu = entry_nu(entry)
+    if entry.startswith("fused_qp"):
+        total = _layout_floats(nu, N, N, N if nu == 3 else 0)
+        return 4 * (total + _AD_SIZE + (N + 1) * NX)
+    sets = 1 if nu == 6 else N
+    total = _layout_floats(nu, N, sets, sets)
+    if entry.startswith("walking_tick"):
+        total += _TK_SIZE
+    if entry.endswith("_kf"):
+        total = max(total, _KW_SIZE)      # K's area starts at 0
+    return 4 * total
+
+
+def size_reason(entry: str, N: int) -> str | None:
+    """Why entry point `entry` cannot take horizon N (None: it can): nu = 3
+    takes 1 to 21 steps (a row of K per thread), nu = 6 1 to 42 (n <= 256),
+    each within a block's shared memory."""
+    nu = entry_nu(entry)
+    if not 1 <= N <= max_horizon(nu):
+        if nu == 3:
+            return (f"horizon={N}: the MPC kernels take 1 to {MAX_HORIZON} "
+                    "steps (n = nu N within a block's threads)")
+        return (f"horizon={N}: the standing MPC kernels take 1 to "
+                f"{MAX_HORIZON_STAND} steps (n = 6 N <= 256, eight solve "
+                "rows a lane)")
+    need = smem_bytes(entry, N)
+    if need > SMEM_LIMIT_BYTES:
+        return (f"horizon={N}: {entry} needs {need} bytes of shared memory "
+                f"a block, over the {SMEM_LIMIT_BYTES} a block can have")
+    return None
 
 
 def plain_solve_form(solve_form: str, nu: int) -> str:
@@ -357,9 +430,12 @@ def fused_walking_qp(Ad, Bd_t, x_ref, x0, z_warm, y_warm, *, N: int,
     at nu = 3 (plain: ``"linv"``) and changes nothing at nu = 6.
     """
     nu = Bd_t.shape[-1]
-    if nu not in FUSED_QP or not 1 <= N <= MAX_HORIZON:
-        raise ValueError(f"fused_qp takes nu = 3 or 6 and a horizon <= "
-                         f"{MAX_HORIZON}, got nu = {nu}, N = {N}")
+    if nu not in FUSED_QP:
+        raise ValueError(f"fused_qp takes nu = 3 or 6, got nu = {nu}, "
+                         f"N = {N}")
+    reason = size_reason(f"fused_qp_nu{nu}", N)
+    if reason is not None:
+        raise ValueError(f"fused_qp: {reason}")
     consts = dict(N=N, iters=iters, rho=rho, alpha=alpha, q_diag=q_diag,
                   r_diag=r_diag, p_diag=p_diag, Gu=Gu, h=h)
     prm = _qp_params(nu, N, iters, float(rho), float(alpha), float(reg),

@@ -46,8 +46,8 @@ from mpc_limx_control_tpu_torch.control.controller import (IK_METHODS,
                                                             SOLVER_METHODS)
 from mpc_limx_control_tpu_torch.ops import _build, chol_cuda
 from mpc_limx_control_tpu_torch.ops.mpc_fused_cuda import (
-    KERNEL_SOLVE_FORMS, MAX_HORIZON, NX, MpcParams, mpc_params,
-    plain_solve_form)
+    KERNEL_SOLVE_FORMS, NX, MpcParams, mpc_params, plain_solve_form,
+    size_reason)
 
 # The kernels and their launch counters (see ops/_build.py). The hold
 # variants take neither the warm QP state nor return it (it passes
@@ -164,7 +164,8 @@ def supports_fused_tick(cfg) -> bool:
     the config's tick: walk or stand mode, truth or KF odometry, analytic
     IK, the warm ``admm_fused`` solver (solve_form "subst" or "inv"),
     capture or reference placement, and a QP the MPC core implements
-    (level attitude, horizon <= 21)."""
+    (level attitude; a horizon of 1 to 21 steps walking, 1 to 42
+    standing)."""
     return _config_reason(cfg) is None
 
 
@@ -199,8 +200,8 @@ def runs_as_composition(cfg) -> bool:
     ``ops/chol_cuda.py`` kernels, its warm admm_fused solves the fused MPC
     kernels where they apply (level attitude walking, any standing). The
     horizon is bounded only where the composition launches an MPC kernel
-    (21 steps) or a Cholesky kernel (``chol_cuda.MAX_N`` within a block's
-    shared memory)."""
+    (21 steps walking, 42 standing) or a Cholesky kernel
+    (``chol_cuda.MAX_N`` within a block's shared memory)."""
     return (_other_reason(cfg) is None
             and (_variant_reason(cfg) or _solver_reason(cfg)) is not None
             and _composition_reason(cfg) is None)
@@ -234,13 +235,15 @@ def _other_reason(cfg) -> str | None:
     return None
 
 
-def _horizon_reason(cfg) -> str | None:
-    """Why an MPC kernel (the tick kernels, ``walking_mpc_prep``,
-    ``fused_qp``) cannot take the config's horizon (None: it can)."""
-    if cfg.srbd.horizon <= MAX_HORIZON:
-        return None
-    return (f"horizon={cfg.srbd.horizon}: the MPC kernels take 1 to "
-            f"{MAX_HORIZON} steps (n = nu N within a block's threads)")
+def _horizon_reason(cfg, entry: str | None = None) -> str | None:
+    """Why the MPC kernel `entry` (default: the config's solving tick
+    kernel; ``walking_mpc_prep`` or ``fused_qp_nu6`` for a composition)
+    cannot take the config's horizon (None: it can): walking 1 to 21
+    steps, standing 1 to 42, within a block's shared memory."""
+    if entry is None:
+        entry = ("standing_tick" if cfg.mode == "stand" else "walking_tick")
+        entry += "_kf" if cfg.estimator_mode == "kf" else ""
+    return size_reason(entry, cfg.srbd.horizon)
 
 
 def _launches_mpc_kernel(cfg) -> bool:
@@ -264,7 +267,8 @@ def _composition_reason(cfg) -> str | None:
     three K8 kernels a PDIP launches; the warm Riccati walking ADMM
     launches none."""
     if _launches_mpc_kernel(cfg):
-        return _horizon_reason(cfg)
+        return _horizon_reason(cfg, "fused_qp_nu6" if cfg.mode == "stand"
+                               else "walking_mpc_prep")
     if (cfg.mode == "walk" and cfg.qp_warm_start
             and cfg.srbd.solver.method == "riccati"):
         return None

@@ -280,8 +280,19 @@ def test_stand_tick_variant_matches_plain(cuda_device, variant):
     """standing_tick / _hold / _kf / _kf_hold against the plain standing
     tick at B = 257 and full width (n = 120), from states three plain
     ticks in: one tick, then five threaded ticks, each one launch."""
+    _stand_variant_vs_plain(cuda_device, variant, 20)
+
+
+@pytest.mark.parametrize("variant", ["solve", "kf"])
+def test_stand_tick_n30_matches_plain(cuda_device, variant):
+    """The solving standing forms past the 21 steps the core once took:
+    N = 30 (n = 180, eight solve rows a lane), the bands above."""
+    _stand_variant_vs_plain(cuda_device, variant, 30)
+
+
+def _stand_variant_vs_plain(cuda_device, variant, N):
     est_kf, hold = variant.startswith("kf"), variant.endswith("hold")
-    cfg = ControllerConfig.standing()
+    cfg = _horizon(ControllerConfig.standing(), N)
     if est_kf:
         cfg = dataclasses.replace(cfg, estimator_mode="kf")
     kern = tfc.STAND_KERNELS[(est_kf, hold)]
@@ -297,7 +308,7 @@ def test_stand_tick_variant_matches_plain(cuda_device, variant):
     assert kern.launches == before + 1
     s_p, m_p = ro._plant_step_ref(cfg, s0, its, grf_override=held,
                                   solve_form="subst")
-    assert s_k.ref_anchor is None and s_k.qp_z.shape == (B, 120)
+    assert s_k.ref_anchor is None and s_k.qp_z.shape == (B, 6 * N)
     for k, a in (("xi", 3e-4), ("q", 5e-4), ("foot_l", 0.0),
                  ("foot_r", 0.0)):
         torch.testing.assert_close(getattr(s_k, k), getattr(s_p, k),
@@ -371,6 +382,46 @@ def _qp_inputs(cfg, nu, B, seed, device):
 def test_fused_qp_matches_plain(cuda_device, nu, N):
     """fused_qp_nu3 / _nu6 through make_admm_fused against the plain
     condense + exact-solve ADMM at B = 257, with a dense Ad."""
+    _fused_qp_vs_plain(cuda_device, nu, N)
+
+
+def test_fused_qp_nu6_past_21_steps_matches_plain(cuda_device):
+    """fused_qp_nu6 at N = 30 (n = 180, eight solve rows a lane), the bands
+    above; nu = 3 still refuses past 21 steps."""
+    _fused_qp_vs_plain(cuda_device, 6, 30)
+    args = _qp_inputs(_cfg(22), 3, 2, 1, cuda_device)
+    with pytest.raises(ValueError, match="1 to 21 steps"):
+        mfc.make_admm_fused(_cfg(22).srbd)(*args)
+
+
+def test_fused_qp_nu6_at_42_steps_matches_f64(cuda_device):
+    """fused_qp_nu6 at its longest horizon, N = 42 (n = 252, the last lane
+    of each eight-row block short). z and the residual within the bands
+    above of the plain f32 version; the duals y, where the two f32 routes
+    part on a few elements by more than the shorter horizons' 1e-4 of the
+    dual scale (3.06e-3 against 2.23e-3 on 2 of 129,528 duals on an H100;
+    the plain f32 version alone is 2.3e-3 from float64 there),
+    held against the plain version in float64 on the CPU: the kernel's
+    error at most twice the plain f32 version's."""
+    cfg = _cfg(42)
+    args = _qp_inputs(cfg, 6, 257, 88, cuda_device)
+    solve = mfc.make_admm_fused(cfg.srbd, two_feet=True)
+    plain = mfc.make_admm_fused(cfg.srbd, two_feet=True, solve_form="subst")
+    before = mfc.FUSED_QP[6].launches
+    sol, (z, y) = solve(*args)
+    assert mfc.FUSED_QP[6].launches == before + 1
+    sol_p, (z_p, y_p) = plain(*args)
+    _, (_, y_d) = plain(*[a.cpu().double() for a in args])
+    scale = float(z_p.abs().max()) + 1.0
+    torch.testing.assert_close(z, z_p, atol=1e-4 * scale, rtol=0)
+    torch.testing.assert_close(sol.residual, sol_p.residual, atol=1e-4,
+                               rtol=0)
+    err_k = float((y.cpu().double() - y_d).abs().max())
+    err_p = float((y_p.cpu().double() - y_d).abs().max())
+    assert err_k <= 2.0 * err_p, (err_k, err_p)
+
+
+def _fused_qp_vs_plain(cuda_device, nu, N):
     cfg = _cfg(N)
     args = _qp_inputs(cfg, nu, 257, 40 + nu + N, cuda_device)
     kern = mfc.FUSED_QP[nu]
@@ -522,6 +573,22 @@ def test_chol_smem_mirror_matches_library(cuda_device):
             for k in (1, 2, 5):
                 assert getattr(lib, name + "_smem_bytes")(n, k) == \
                     chol_cuda.smem_bytes(name, n, k), (name, n, k)
+
+
+def test_mpc_smem_mirror_matches_library(cuda_device):
+    """mpc_fused_cuda.smem_bytes (the wrappers' size rule) equals the
+    library's *_smem_bytes for every entry point on the MPC core at every
+    horizon it takes; at N = 20 the standing solving forms hold at least
+    five blocks an SM, fused_qp_nu6 at least four."""
+    lib = chol_cuda._build.build_library()["lib"]
+    for name in mfc.MPC_ENTRIES:
+        for N in range(1, mfc.max_horizon(mfc.entry_nu(name)) + 1):
+            assert getattr(lib, name + "_smem_bytes")(N) == \
+                mfc.smem_bytes(name, N), (name, N)
+    per_sm = {name: getattr(lib, name + "_blocks_per_sm")(20)
+              for name in mfc.MPC_ENTRIES}
+    assert min(per_sm["standing_tick"], per_sm["standing_tick_kf"]) >= 5
+    assert per_sm["fused_qp_nu6"] >= 4
 
 
 def test_chol_kernels_on_late_pdip_matrices(cuda_device):
@@ -963,11 +1030,27 @@ def test_composition_runs_past_the_mpc_horizon(cuda_device):
     assert got == dict(cholesky=iters * ticks, chol_solve=2 * iters * ticks,
                        posdef_solve=0, posdef_solve_fast=0)
     assert bool(torch.isfinite(st.xi).all()) and st.qp_z.shape == (B, 66)
-    for bad in (_horizon(base, 22), _horizon(dataclasses.replace(
-            ControllerConfig.standing(), srbd=dataclasses.replace(
-                ControllerConfig.standing().srbd, solver=dataclasses.replace(
-                    ControllerConfig.standing().srbd.solver,
-                    method="admm"))), 22)):
+    for bad in (_horizon(base, 22),
+                _horizon(dataclasses.replace(base, estimator_mode="kf"), 22)):
         sb = ro.initial_plant_state(bad, batch=(2,), device=cuda_device)
         with pytest.raises(NotImplementedError, match="1 to 21 steps"):
             ro.plant_step(bad, sb, torch.zeros(2, device=cuda_device))
+    # the standing MPC kernels take 1 to 42 steps: the fused standing tick
+    # and the warm standing ADMM (fused_qp_nu6) run at N = 22
+    stand = ControllerConfig.standing()
+    admm = dataclasses.replace(stand, srbd=dataclasses.replace(
+        stand.srbd, solver=dataclasses.replace(stand.srbd.solver,
+                                               method="admm")))
+    for c, kern in ((_horizon(stand, 22), tfc.STAND_KERNELS[(False, False)]),
+                    (_horizon(admm, 22), mfc.FUSED_QP[6])):
+        sb = ro.initial_plant_state(c, batch=(2,), device=cuda_device)
+        before = kern.launches
+        s2, m2 = ro.plant_step(c, sb, torch.zeros(2, device=cuda_device))
+        assert kern.launches == before + 1
+        assert s2.qp_z.shape == (2, 132) and bool(
+            torch.isfinite(m2["grf"]).all())
+    s43 = ro.initial_plant_state(_horizon(stand, 43), batch=(2,),
+                                 device=cuda_device)
+    with pytest.raises(NotImplementedError, match="1 to 42 steps"):
+        ro.plant_step(_horizon(stand, 43), s43,
+                      torch.zeros(2, device=cuda_device))

@@ -343,12 +343,13 @@ def test_unsupported_configs_refuse():
                     cfg.srbd, attitude_ref="x"))):
         assert not ttfc.supports_fused_tick(bad)
         assert not ttfc.runs_as_composition(bad)
-    # a horizon past the MPC kernels' 21 steps: the compositions that launch
-    # no MPC kernel run it; the warm fused walking QP and the warm standing
-    # ADMM (walking_mpc_prep, fused_qp_nu6) are refused, naming the limit
-    def n22(c):
+    # a horizon past the walking MPC kernels' 21 steps: the compositions
+    # that launch no MPC kernel run it; the warm fused walking QP
+    # (walking_mpc_prep) is refused, naming the limit; the standing kernels
+    # (standing_tick, fused_qp_nu6) take 1 to 42 steps (n = 6 N <= 256)
+    def n22(c, N=22):
         return dataclasses.replace(c, srbd=dataclasses.replace(
-            c.srbd, horizon=22))
+            c.srbd, horizon=N))
 
     for other in (solver(cfg, method="pdip"),
                   dataclasses.replace(stand, qp_warm_start=False),
@@ -356,11 +357,23 @@ def test_unsupported_configs_refuse():
         assert not ttfc.supports_fused_tick(n22(other))
         assert ttfc.runs_as_composition(n22(other))
     s22 = tro.initial_plant_state(n22(cfg), batch=(1,), device="cpu")
-    for bad in (cfg, solver(stand, method="admm"),
-                dataclasses.replace(cfg, ik_method="damped_ls")):
+    for bad in (cfg, kf, dataclasses.replace(cfg, ik_method="damped_ls")):
         assert not ttfc.supports_fused_tick(n22(bad))
         assert not ttfc.runs_as_composition(n22(bad))
         assert "1 to 21 steps" in ttfc.unsupported_reason(n22(bad), s22)
+    for N in (22, 42):
+        s_n = tro.initial_plant_state(n22(stand, N), batch=(1,),
+                                      device="cpu")
+        for ok in (stand, dataclasses.replace(stand, estimator_mode="kf")):
+            assert ttfc.supports_fused_tick(n22(ok, N))
+        assert ttfc.unsupported_reason(n22(stand, N), s_n) is None
+        assert ttfc.runs_as_composition(n22(solver(stand, method="admm"), N))
+    s43 = tro.initial_plant_state(n22(stand, 43), batch=(1,), device="cpu")
+    for bad in (stand, solver(stand, method="admm"),
+                dataclasses.replace(stand, ik_method="log6")):
+        assert not ttfc.supports_fused_tick(n22(bad, 43))
+        assert not ttfc.runs_as_composition(n22(bad, 43))
+        assert "1 to 42 steps" in ttfc.unsupported_reason(n22(bad, 43), s43)
     # a dense QP past the Cholesky kernels (standing n = 6 N > 256)
     far = dataclasses.replace(stand, qp_warm_start=False,
                               srbd=dataclasses.replace(stand.srbd,

@@ -358,6 +358,79 @@ def test_stand_plant_step_ref_matches_jax_f64(est):
     assert torch.equal(st.foot_l, _port_state(sj, torch.float64).foot_l)
 
 
+def test_stand_plant_step_ref_n30_matches_jax_f64():
+    """The standing tick past the 21 steps the core once took: N = 30
+    (n = 180, what the standing kernels run with eight solve rows a lane),
+    B = 3, two threaded full-width ticks against JAX _plant_step_ref in
+    float64, 1e-8 on the state, the warm QP state and every metric."""
+    def n30(c):
+        return dataclasses.replace(c, srbd=dataclasses.replace(c.srbd,
+                                                               horizon=30))
+
+    jcfg, tcfg = n30(JCfg.standing()), n30(TCfg.standing())
+    assert ttfc.supports_fused_tick(tcfg)
+    sj = _kicked(jcfg, 3, 5, np.float64)
+    st = _port_state(sj, torch.float64)
+    its = np.asarray([0.0, 150.0, 299.0])
+    keys = [k for k in FIELDS if getattr(sj, k) is not None]
+    for j in range(2):
+        sj, mj = jax.vmap(lambda s, it: jro._plant_step_ref(jcfg, s, it))(
+            sj, jnp.asarray(its + j))
+        st, mt = tro._plant_step_ref(tcfg, st, torch.tensor(its + j))
+        _assert_state(st, sj, {k: 1e-8 for k in keys})
+        for k, v in mt.items():
+            _close(v, mj[k], 1e-8, k)
+    assert st.qp_z.shape == (3, 180) and st.qp_lam.shape == (3, 360)
+
+
+def test_core_layout_fits_the_blocks_an_sm(monkeypatch):
+    """The Python mirror of the MPC core's shared-memory layout
+    (mpc_fused_cuda.smem_bytes): at N = 20 the standing solving forms fit
+    at least five blocks in an SM's 233,472 bytes with 1 KB reserved a
+    block and fused_qp_nu6 at least four; the walking (nu = 3) layouts are
+    those of the core before the nu = 6 redesign; every horizon the
+    kernels take fits a block; the refusals name the horizon and the
+    shared-memory limits."""
+    def per_sm(entry):
+        return 233472 // (tmfc.smem_bytes(entry, 20) + 1024)
+
+    assert min(per_sm("standing_tick"), per_sm("standing_tick_kf")) >= 5
+    assert per_sm("fused_qp_nu6") >= 4
+    assert tmfc.smem_bytes("standing_tick", 20) == 37456
+    assert tmfc.smem_bytes("standing_tick_kf", 20) == 37456
+    assert tmfc.smem_bytes("fused_qp_nu6", 20) == 45156
+    for entry, was in (("walking_mpc_prep", 34576), ("walking_tick", 34640),
+                       ("walking_tick_kf", 34640), ("fused_qp_nu3", 36372)):
+        assert tmfc.smem_bytes(entry, 20) == was, entry
+    for entry in tmfc.MPC_ENTRIES:
+        top = tmfc.max_horizon(tmfc.entry_nu(entry))
+        assert top == (42 if tmfc.entry_nu(entry) == 6 else 21)
+        for N in range(1, top + 1):
+            assert tmfc.size_reason(entry, N) is None, (entry, N)
+        assert f"1 to {top} steps" in tmfc.size_reason(entry, top + 1)
+        assert "steps" in tmfc.size_reason(entry, 0)
+    # the wrapper refuses what the kernel does not take, on any device
+    ins = [torch.zeros(1, 13, 13), torch.zeros(1, 43, 13, 6),
+           torch.zeros(1, 44, 13), torch.zeros(1, 13),
+           torch.zeros(1, 258), torch.zeros(1, 516)]
+    k = tmfc.cone_constants(TCfg.standing().srbd)
+    consts = dict(
+        N=43, iters=k["iters"], rho=k["rho"], alpha=k["alpha"], reg=k["reg"],
+        q_diag=k["q_diag"], r_diag=k["r_diag"] * 2, p_diag=k["p_diag"],
+        Gu=tuple(map(tuple, np.kron(np.eye(2), np.asarray(k["Gu"])))),
+        h=k["hu"] * 2 * 43)
+    with pytest.raises(ValueError, match="1 to 42 steps"):
+        tmfc.fused_walking_qp(*ins, **consts)
+    # a layout past a block's shared memory is refused, naming the limit
+    monkeypatch.setattr(tmfc, "SMEM_LIMIT_BYTES", 40000)
+    assert tmfc.size_reason("standing_tick", 20) is None
+    assert "40000" in tmfc.size_reason("fused_qp_nu6", 20)
+    s20 = tro.initial_plant_state(TCfg.standing(), batch=(1,), device="cpu")
+    assert "40000" in ttfc.unsupported_reason(
+        dataclasses.replace(TCfg.standing(), srbd=dataclasses.replace(
+            TCfg.standing().srbd, horizon=22)), s20)
+
+
 @pytest.mark.parametrize("est", ["truth", "kf"])
 def test_stand_tick_twin_solve_then_hold_matches_jax_kernel_interpret(est):
     """The plain twins of standing_tick{,_kf} (solve) then
