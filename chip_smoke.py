@@ -12,18 +12,20 @@ non-zero):
 1. torch / CUDA versions, TF32 flags, the card's name and power limit;
 2. build the kernels from ops/csrc (nvcc, sm_90a) and print the build time,
    the dynamic shared memory of each entry point on the MPC core (held
-   equal to the wrappers' mirror, ``mpc_fused_cuda.smem_bytes``) and its
-   blocks an SM at N = 20 (at least five for ``standing_tick{,_kf}``, four
-   for ``fused_qp_nu6``);
+   equal to the wrappers' mirror, ``mpc_fused_cuda.smem_bytes``, at
+   N = 8 to 85) and its blocks an SM at N = 20 (at least five for
+   ``standing_tick{,_kf}``, four for ``fused_qp_nu6``, more than six for
+   ``walking_tick{,_kf}`` and ``walking_mpc_prep``);
 3. ``walking_mpc_prep`` against its plain version (exact-solve ADMM) at
-   N = 20 and N = 8, B = 257, numpy-seeded inputs; ``fused_qp_nu3`` /
-   ``fused_qp_nu6`` (given, dense Ad) against theirs at N = 20, B = 257,
-   ``fused_qp_nu6`` also at N = 30;
+   N = 20, 8 and 30, B = 257, numpy-seeded inputs; ``fused_qp_nu3`` /
+   ``fused_qp_nu6`` (given, dense Ad) against theirs at N = 20 and 30,
+   B = 257;
 4. ``walking_tick`` and its hold, KF and KF + hold variants against the
    plain tick at B = 257: one tick with staggered iterations (both swing
-   sides, 299/300), then five threaded ticks; the four ``standing_tick``
-   forms likewise at full width (n = 120), the two solving ones also at
-   N = 30 (n = 180);
+   sides, 299/300), then five threaded ticks; the two walking solving
+   forms likewise at N = 22 and 42 (n = 66, 126); the four
+   ``standing_tick`` forms at full width (n = 120), the two solving ones
+   also at N = 30 (n = 180);
 5. the main paths, each run with every kernel's launch counter set to 0
    just before it and checked just after (one launch per tick of the
    path's own kind, none of any other): closed-loop quality through
@@ -37,10 +39,11 @@ non-zero):
    (1200 ticks), the standing dtMPC schedule with truth and KF odometry,
    a standing ``controller.tick`` closed loop (``fused_qp_nu6``) and the
    ``make_admm_fused`` entry point with one foot (``fused_qp_nu3``, held
-   against ``walking_mpc_prep`` on the same QP); past the walking kernels'
-   21 steps, the compositions at N = 22, the walking refusals, and the
-   standing kernels at N = 22 (the fused tick and the warm ADMM) and N = 30
-   (100 ticks, height above 0.6);
+   against ``walking_mpc_prep`` on the same QP); past the 21 steps the MPC
+   kernels once took, the compositions at N = 22, the walking fused tick at
+   N = 22 and 42 and its refusal at N = 86, and the standing kernels at
+   N = 22 (the fused tick and the warm ADMM) and N = 30 (100 ticks each,
+   height above 0.6);
 6. with CUDA events at B = 1, 1024 and 4096: the time per tick of each
    tick form through ``plant_step`` and of its plain version, the tick
    kernel alone, and the prep and fused-QP kernels and their plain
@@ -304,18 +307,22 @@ def tick_both(cfg, s_k, s_p, its, held=None):
     from mpc_limx_control_tpu_torch.ops import mpc_fused_cuda as mfc
 
     form = mfc.plain_solve_form(cfg.srbd.solver.solve_form,
-                                6 if cfg.mode == "stand" else 3)
+                                6 if cfg.mode == "stand" else 3,
+                                cfg.srbd.horizon)
     s_k, m_k = ro.plant_step(cfg, s_k, its, grf_override=held)
     s_p, m_p = ro._plant_step_ref(cfg, s_p, its, grf_override=held,
                                   solve_form=form)
     return s_k, m_k, s_p, m_p
 
 
-def variant_vs_plain(cfg, est_kf: bool, hold: bool, B: int, device):
+def variant_vs_plain(cfg, est_kf: bool, hold: bool, B: int, device,
+                     f64: bool = False):
     """A tick variant (walking or standing, by the config's mode) against
     the plain tick from states three plain ticks in (the filter and
     prev_v / prev_q past their seed): one tick and five threaded ticks.
-    Returns (errors after one tick, after five)."""
+    Returns (errors after one tick, after five); with f64, also the five
+    threaded ticks of the plain tick in float64 on the CPU and, per field,
+    the kernel's and the plain f32 tick's distance from them."""
     from mpc_limx_control_tpu_torch.control import rollout as ro
 
     if est_kf:
@@ -363,7 +370,28 @@ def variant_vs_plain(cfg, est_kf: bool, hold: bool, B: int, device):
     for j in range(5):
         s_k, m_k, s_p, m_p = tick_both(cfg, s_k, s_p, its + j, held)
     torch.cuda.synchronize()
-    return e1, errs(s_k, m_k, s_p, m_p)
+    e5 = errs(s_k, m_k, s_p, m_p)
+    if f64:
+        from mpc_limx_control_tpu_torch.ops import mpc_fused_cuda as mfc
+
+        def to64(x):
+            return x.cpu().double()
+
+        form = mfc.plain_solve_form(cfg.srbd.solver.solve_form,
+                                    6 if stand else 3, cfg.srbd.horizon)
+        s_d = ro._map_state(s0, to64)
+        for j in range(5):
+            s_d, m_d = ro._plant_step_ref(
+                cfg, s_d, to64(its + j),
+                grf_override=None if held is None else to64(held),
+                solve_form=form)
+        pairs = [("xi", s_k.xi, s_p.xi, s_d.xi), ("q", s_k.q, s_p.q, s_d.q),
+                 ("grf", m_k["grf"], m_p["grf"], m_d["grf"])]
+        if est_kf:
+            pairs.append(("x_hat", s_k.kf.x_hat, s_p.kf.x_hat, s_d.kf.x_hat))
+        e5["f64"] = {k: (maxerr(to64(a), d), maxerr(to64(b), d))
+                     for k, a, b, d in pairs}
+    return e1, e5
 
 
 def loop_rate(cfg, B: int, steps: int, device, mpc_every: int = 1):
@@ -751,7 +779,7 @@ def main() -> int:
              if "registers" in ln or "Compiling entry" in ln]
     lib = info["lib"]
     smem = {f"{name}_N{N}": getattr(lib, f"{name}_smem_bytes")(N)
-            for name in mfc.MPC_ENTRIES for N in (8, 20, 30)
+            for name in mfc.MPC_ENTRIES for N in (8, 20, 22, 30, 42, 85)
             if N <= mfc.max_horizon(mfc.entry_nu(name))}
     for key, got in smem.items():
         name, N = key.rsplit("_N", 1)
@@ -759,14 +787,16 @@ def main() -> int:
               f"{name}: the wrapper's shared-memory size is not the "
               f"library's at N = {N}")
     # blocks an SM of each entry on the MPC core at N = 20 (the redesigned
-    # nu = 6 core: at least five of the standing solving forms, four of
-    # fused_qp_nu6)
+    # core: at least five of the standing solving forms, four of
+    # fused_qp_nu6, more than the six of the walking forms before it)
     per_sm = {name: getattr(lib, f"{name}_blocks_per_sm")(20)
               for name in mfc.MPC_ENTRIES}
     say("occupancy", N=20, smem_bytes={k: smem[f"{k}_N20"] for k in per_sm},
         blocks_per_sm=per_sm)
     check(min(per_sm["standing_tick"], per_sm["standing_tick_kf"]) >= 5
-          and per_sm["fused_qp_nu6"] >= 4,
+          and per_sm["fused_qp_nu6"] >= 4
+          and min(per_sm[e] for e in ("walking_tick", "walking_tick_kf",
+                                      "walking_mpc_prep")) > 6,
           f"blocks an SM at N = 20: {per_sm}")
     smem.update({f"{name}_n{n}_k1": getattr(lib, f"{name}_smem_bytes")(n, 1)
                  for name in chol_cuda.KERNELS for n in (30, 60, 120)})
@@ -809,7 +839,7 @@ def main() -> int:
     # ---- 3. walking_mpc_prep vs its plain version -----------------------
     base = ControllerConfig.walking()
     prep_err = 0.0
-    for N in (20, 8):
+    for N in (20, 8, 30):
         cfg = dataclasses.replace(
             base, srbd=dataclasses.replace(base.srbd, horizon=N))
         args = prep_inputs(cfg, 257, seed=21 + N, device=dev)
@@ -832,13 +862,13 @@ def main() -> int:
             prep_err = e["u"]
     summary["walking_mpc_prep"]["max_abs_err"] = prep_err
 
-    # the generic fused QP (given, dense Ad), one and two feet per step;
-    # two feet also at N = 30 (n = 180: eight solve rows a lane)
+    # the generic fused QP (given, dense Ad), one and two feet per step,
+    # also at N = 30 (n = 90: four solve rows a lane; n = 180: eight)
     def horizon(c, N):
         return dataclasses.replace(c, srbd=dataclasses.replace(c.srbd,
                                                                horizon=N))
 
-    for nu, N in ((3, 20), (6, 20), (6, 30)):
+    for nu, N in ((3, 20), (6, 20), (3, 30), (6, 30)):
         qcfg = horizon(base, N)
         args = qp_inputs(qcfg, nu, 257, seed=40 + nu + (N - 20), device=dev)
         solve = mfc.make_admm_fused(qcfg.srbd, two_feet=nu == 6)
@@ -894,12 +924,17 @@ def main() -> int:
     for k, tol in (("xi", 5e-4), ("q", 1e-3), ("grf", 2e-1)):
         check(e5[k] <= tol, f"five-tick {k} error {e5[k]} > {tol}")
 
-    # the hold, KF and KF + hold variants (bands of tests/test_torch_cuda)
-    for (est_kf, hold), name in VARIANTS.items():
-        if name == "walking_tick":
-            continue
-        v1, v5 = variant_vs_plain(cfg, est_kf, hold, B, dev)
-        say("variant_vs_plain", kernel=name, B=B, one=v1, five=v5)
+    # the hold, KF and KF + hold variants (bands of tests/test_torch_cuda);
+    # the two solving forms also past the 21 steps the walking core once
+    # took (N = 22, 42: two and four solve rows a lane), same bands
+    walk_cases = [(v, name, 20) for v, name in VARIANTS.items()
+                  if name != "walking_tick"]
+    walk_cases += [(v, name, N) for N in (22, 42)
+                   for v, name in VARIANTS.items() if not v[1]]
+    for (est_kf, hold), name, N in walk_cases:
+        v1, v5 = variant_vs_plain(horizon(cfg, N), est_kf, hold, B, dev,
+                                  f64=N > 20)
+        say("variant_vs_plain", kernel=name, N=N, B=B, one=v1, five=v5)
         bands1 = [("xi", 3e-4), ("q", 5e-4), ("foot_l", 5e-4),
                   ("foot_r", 5e-4), ("grf", 5e-2), ("target", 5e-4),
                   ("anchor", 1e-5)]
@@ -909,13 +944,23 @@ def main() -> int:
             bands5 += [("x_hat", 5e-4), ("p_cov", 1e-5)]
         for k, tol in bands1:
             check(v1[k] <= tol, f"{name} one-tick {k} error {v1[k]} > {tol}")
+        # past 21 steps a field five threaded ticks in may part from the
+        # plain f32 tick by more than the N = 20 band (the two f32 routes'
+        # rounding grows with the horizon): it then passes only if it stays
+        # within twice that band and the kernel is within twice the plain
+        # f32 tick's distance of the plain tick in float64
         for k, tol in bands5:
-            check(v5[k] <= tol, f"{name} five-tick {k} error {v5[k]} > {tol}")
+            k64, p64 = v5.get("f64", {}).get(k, (None, None))
+            check(v5[k] <= tol or (k64 is not None and v5[k] <= 2.0 * tol
+                                   and k64 <= 2.0 * p64),
+                  f"{name} N={N} five-tick {k} error {v5[k]} > {tol} "
+                  f"(against float64: kernel {k64}, plain f32 {p64})")
         check(v1["finite"] and v5["finite"], f"{name}: non-finite state")
         if hold:
             check(v1["res_max"] == 0.0 and v5["res_max"] == 0.0,
                   f"{name}: held tick with a non-zero residual")
-        summary[name]["max_abs_err"] = v1["xi"]
+        if N == 20:
+            summary[name]["max_abs_err"] = v1["xi"]
 
     # the four standing forms at full width (n = 120), same bands; the
     # feet do not move, the solving forms' z within 2e-3 of its scale; the
@@ -1717,14 +1762,15 @@ def main() -> int:
     path("receding_walk", lambda: variant_loop("receding_walk", rec, 700,
                                                0.5), {"cholesky": 700})
 
-    # (h) a horizon past the walking MPC kernels' 21 steps (N = 22): the
-    # compositions that launch no MPC kernel run on the card, their dense
-    # QPs (n = 66 walking, 132 standing) on the K8 kernels, with the bands
-    # of their N = 20 paths above; the warm fused walking QP would launch
-    # walking_mpc_prep and raises before the tick, naming the limit; the
-    # standing MPC kernels take 1 to 42 steps: the fused standing tick and
-    # the warm standing ADMM run their kernels at N = 22, the fused
-    # standing tick at N = 30 (n = 180) for 100 ticks
+    # (h) a horizon past the 21 steps the MPC kernels once took (N = 22):
+    # the compositions that launch no MPC kernel run on the card, their
+    # dense QPs (n = 66 walking, 132 standing) on the K8 kernels, with the
+    # bands of their N = 20 paths above; the walking MPC kernels take 1 to
+    # 85 steps: the fused walking tick runs 100 ticks at N = 22 and 42 and
+    # refuses N = 86 before the tick, naming the limit; the standing ones
+    # take 1 to 42: the fused standing tick and the warm standing ADMM run
+    # their kernels at N = 22, the fused standing tick at N = 30 (n = 180)
+    # for 100 ticks
     def n22(c):
         return horizon(c, 22)
 
@@ -1743,19 +1789,25 @@ def main() -> int:
                                                   T22, 0.55, batch=4), {})
     path("n22_receding_walk", lambda: variant_loop(
         "n22_receding_walk", rec22, T22, 0.5, batch=Bg), {"cholesky": T22})
+    for N in (22, 42):
+        check(tfc.supports_fused_tick(horizon(cfg, N)),
+              f"walking N = {N} is refused")
+        path(f"n{N}_walk", lambda: variant_loop(
+            f"n{N}_walk", horizon(cfg, N), T22, 0.6, batch=Bg),
+            {"walking_tick": T22})
 
-    def n22_refusals():
+    def n86_refusals():
         said = []
-        for c in (n22(cfg), n22(kcfg)):
+        for c in (horizon(cfg, 86), horizon(kcfg, 86)):
             st = ro.initial_plant_state(c, batch=(2,), device=dev)
             try:
                 ro.plant_step(c, st, torch.zeros(2, device=dev))
                 said.append("ran")
             except NotImplementedError as exc:
                 said.append(str(exc))
-        q["n22_refusal_ok"] = all("1 to 21 steps" in m for m in said)
+        q["n86_refusal_ok"] = all("1 to 85 steps" in m for m in said)
 
-    path("n22_refusals", n22_refusals, {})
+    path("n86_refusals", n86_refusals, {})
     sa22 = n22(with_solver(scfg, method="admm"))
     check(tfc.supports_fused_tick(n22(scfg))
           and tfc.runs_as_composition(sa22), "standing N = 22 is refused")
@@ -1783,7 +1835,8 @@ def main() -> int:
               "riccati_vs_fused_ok", "damped_ls_walk_ok", "log6_walk_ok",
               "receding_walk_ok", "n22_pdip_walk_ok", "n22_cold_stand_ok",
               "n22_riccati_walk_ok", "n22_receding_walk_ok",
-              "n22_refusal_ok", "n22_stand_ok", "n22_stand_admm_ok",
+              "n22_walk_ok", "n42_walk_ok", "n86_refusal_ok",
+              "n22_stand_ok", "n22_stand_admm_ok",
               "n30_stand_ok"):
         check(q[k], f"quality gate {k} failed: {q}")
     for k in kernels:

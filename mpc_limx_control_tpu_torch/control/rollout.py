@@ -23,9 +23,10 @@ Dispatch of :func:`plant_step`:
   composition for such configs on the TPU; its dense QP solves launch the
   batched Cholesky / SPD-solve kernels of ``ops/chol_cuda.py``, its warm
   fused solves the MPC kernels where they apply;
-* CUDA tensors with an unknown value, a horizon past the 21 steps of the
-  MPC kernel the tick would launch, or a dense QP past the Cholesky
-  kernels' order: NotImplementedError naming it, before the tick;
+* CUDA tensors with an unknown value, a horizon past what the MPC kernel
+  the tick would launch takes (85 steps walking, 42 standing), or a dense
+  QP past the Cholesky kernels' order: NotImplementedError naming it,
+  before the tick;
 * CPU tensors: :func:`_plant_step_ref`, the plain composition, as the JAX
   package runs off the TPU.
 

@@ -1,6 +1,7 @@
 // chol_common: the device functions of the batched Cholesky factorization
 // and its two substitution sweeps, shared by csrc/chol.cu (the four K8
-// kernels) and csrc/pdip_fused.cu (the fused interior-point kernel).
+// kernels), csrc/pdip_fused.cu (the fused interior-point kernel) and the
+// MPC core of the walking and standing kernels (csrc/mpc_core.cuh).
 //
 // A panel is a matrix in shared memory in one of three layouts (see
 // chol.cu): ROWS, row-major with an odd leading dimension; COLS, the same

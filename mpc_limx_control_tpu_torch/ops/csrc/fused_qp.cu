@@ -17,11 +17,13 @@
 // dense Ad costs 13 multiply-adds where the closed form costs 1-3, in the
 // Gramian recursion (N x 169 elements) and the band emission's Ad' t
 // (169 per row and step): at nu = 6, ~0.5 M of the block's ~1.6 M flops.
-// Shared memory at N = 20: ~36 KB (nu = 3), 45.2 KB (nu = 6: packed K,
-// all N Bd blocks, S_k = W_k Bd_k instead of the Gramians, no arm sets;
-// five blocks an SM).  `fused_qp_nu3_inv` is the solve_form = "inv" instantiation
-// of the core (the factor inverted once, mat-vecs per z-update), same
-// shared memory.
+// Shared memory at N = 20: ~17 KB (nu = 3), 45.2 KB (nu = 6): packed K,
+// all N Bd blocks, S_k = W_k Bd_k instead of the Gramians, no arm sets.
+// Horizon 1 to 85 steps at nu = 3, 1 to 42 at nu = 6 (n <= 256), the
+// core's solve rows a lane chosen at launch (mpc::rpl).
+// `fused_qp_nu3_inv` is the solve_form = "inv" entry: the factor inverted
+// once, mat-vecs per z-update, where n <= 64 (its own packed region of
+// shared memory), the substitution kernel beyond, as the TPU kernel does.
 //
 // Plain C interface for ctypes: pointers and the stream arrive as void*,
 // the call returns cudaGetLastError() after the launch.
@@ -34,20 +36,21 @@ namespace {
 // after the core's layout (floats): Ad [13][13], then x_ref [N + 1][13]
 constexpr int AD_SIZE = 176;
 
-// the core's layout for N Bd blocks: at nu = 3 with N unused arm sets (the
-// layout of the prep kernel), at nu = 6 with none
+// the core's layout for N given Bd blocks and no arm sets; inv: with the
+// factor inverse where the core forms it
 template <int NU>
-__host__ __device__ inline mpc::Smem qp_layout(int N) {
-  return mpc::smem_layout<NU>(N, N, NU == 3 ? N : 0);
+__host__ __device__ inline mpc::Smem qp_layout(int N, bool inv) {
+  return mpc::smem_layout<NU>(N, N, 0, inv);
 }
 
 template <int NU>
-__host__ __device__ inline int qp_smem_floats(int N) {
-  return qp_layout<NU>(N).total + AD_SIZE + (N + 1) * mpc::NX;
+__host__ __device__ inline int qp_smem_floats(int N, bool inv) {
+  return qp_layout<NU>(N, inv).total + AD_SIZE + (N + 1) * mpc::NX;
 }
 
-// RPL: solve rows per lane of the nu = 6 sweeps, mpc::rpl6(N)
-template <int NU, bool INV, int RPL = mpc::Dim<NU>::RPL>
+// INV: the core's factor inverse (n <= 64 only); RPL: its solve rows a
+// lane, mpc::rpl<NU>(N)
+template <int NU, bool INV, int RPL>
 __global__ void __launch_bounds__(mpc::Dim<NU>::NT)
 fused_qp_kernel(const __grid_constant__ mpc::MpcParams P,
                 const float* __restrict__ Ad, const float* __restrict__ Bd_t,
@@ -60,7 +63,7 @@ fused_qp_kernel(const __grid_constant__ mpc::MpcParams P,
   const int b = blockIdx.x, tid = threadIdx.x;
   MPC_STAGE(mpc::ST_START);
   const int N = P.N, n = NU * N, m = mpc::Dim<NU>::MU * N;
-  const mpc::Smem L = qp_layout<NU>(N);
+  const mpc::Smem L = qp_layout<NU>(N, INV);
   float* ad_s = sm + L.total;
   float* xr_s = ad_s + AD_SIZE;
 
@@ -86,15 +89,22 @@ fused_qp_kernel(const __grid_constant__ mpc::MpcParams P,
   MPC_STAGE(mpc::ST_END);
 }
 
-// the kernel for horizon N (nu = 6: four solve rows per lane up to N = 21,
-// eight beyond)
-template <int NU, bool INV>
-auto qp_kernel(int N) {
-  if constexpr (NU == 6)
-    return mpc::rpl6(N) == 4 ? fused_qp_kernel<NU, INV, 4>
-                             : fused_qp_kernel<NU, INV, 8>;
-  else
-    return fused_qp_kernel<NU, INV>;
+// the kernel for horizon N: the factor-inverse instantiation where the
+// "inv" entry takes it (nu = 3, n <= 64), else the sweeps with
+// mpc::rpl<NU>(N) solve rows a lane
+template <int NU>
+auto qp_kernel(int N, bool inv) {
+  if constexpr (NU == 3) {
+    if (mpc::use_inv(inv, NU * N)) return fused_qp_kernel<3, true, 2>;
+    switch (mpc::rpl<NU>(N)) {
+      case 2: return fused_qp_kernel<3, false, 2>;
+      case 4: return fused_qp_kernel<3, false, 4>;
+      default: return fused_qp_kernel<3, false, 8>;
+    }
+  } else {
+    return mpc::rpl<NU>(N) == 4 ? fused_qp_kernel<6, false, 4>
+                                : fused_qp_kernel<6, false, 8>;
+  }
 }
 
 template <int NU, bool INV = false>
@@ -105,8 +115,8 @@ int launch(const mpc::MpcParams* prm, const void* Ad, const void* Bd_t,
   if (B <= 0) return 0;
   if (prm->N < 1 || prm->N > mpc::Dim<NU>::MAX_N)
     return (int)cudaErrorInvalidValue;
-  const int bytes = (int)(qp_smem_floats<NU>(prm->N) * sizeof(float));
-  const auto kernel = qp_kernel<NU, INV>(prm->N);
+  const int bytes = (int)(qp_smem_floats<NU>(prm->N, INV) * sizeof(float));
+  const auto kernel = qp_kernel<NU>(prm->N, INV);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -121,24 +131,19 @@ int launch(const mpc::MpcParams* prm, const void* Ad, const void* Bd_t,
 
 MPC_STAGE_READER(fused_qp_stage_clocks)
 
-extern "C" int fused_qp_nu3_smem_bytes(int N) {
-  return (int)(qp_smem_floats<3>(N) * sizeof(float));
-}
-
-extern "C" int fused_qp_nu6_smem_bytes(int N) {
-  return (int)(qp_smem_floats<6>(N) * sizeof(float));
-}
-
-// blocks an SM holds at horizon N
-extern "C" int fused_qp_nu3_blocks_per_sm(int N) {
-  return mpc::blocks_per_sm(qp_kernel<3, false>(N), mpc::Dim<3>::NT,
-                            fused_qp_nu3_smem_bytes(N));
-}
-
-extern "C" int fused_qp_nu6_blocks_per_sm(int N) {
-  return mpc::blocks_per_sm(qp_kernel<6, false>(N), mpc::Dim<6>::NT,
-                            fused_qp_nu6_smem_bytes(N));
-}
+// dynamic shared memory per block, and the blocks an SM holds, at
+// horizon N
+#define QP_SIZERS(name, nu, inv)                                       \
+  extern "C" int name##_smem_bytes(int N) {                            \
+    return (int)(qp_smem_floats<nu>(N, inv) * sizeof(float));          \
+  }                                                                    \
+  extern "C" int name##_blocks_per_sm(int N) {                         \
+    return mpc::blocks_per_sm(qp_kernel<nu>(N, inv), mpc::Dim<nu>::NT, \
+                              name##_smem_bytes(N));                   \
+  }
+QP_SIZERS(fused_qp_nu3, 3, false)
+QP_SIZERS(fused_qp_nu6, 6, false)
+QP_SIZERS(fused_qp_nu3_inv, 3, true)
 
 extern "C" int fused_qp_nu3(const mpc::MpcParams* prm, const void* Ad,
                             const void* Bd_t, const void* x_ref,

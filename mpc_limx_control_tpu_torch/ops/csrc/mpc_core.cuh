@@ -21,58 +21,64 @@
 //      the one-step prediction xi_pred = Ad x0 + Bd_0 u0.
 //
 // solve_form = "inv" (mpc_fused_pallas.py:230-263, :273-280) is the
-// compile-time flag INV of the core, at NU = 3 only (the TPU kernel guards
-// it to n <= 64 and runs the sweeps beyond; so does this core at NU = 6):
-// after step 5 the factor is inverted once, T = L^-1, and each z-update of
-// step 6 is the two dense triangular mat-vecs x = T'(T b) instead of two
-// substitution sweeps.  T is written as a packed lower triangle into the
-// Gramians' storage, which nothing reads after the band emission, one
-// thread per column (a forward substitution against e_j, no barrier); the
-// mat-vecs run in warp 0, a row (then a column) of T per lane.  Row i of the
-// packed triangle starts at i (i + 1) / 2, and the triangular numbers are a
-// complete residue system modulo 32, so 32 consecutive rows start in 32
-// different banks.  The INV = false instantiations are the code of the
-// substitution form, unchanged.
+// compile-time flag INV of the core, taken where the TPU kernel takes it,
+// n <= 64 (:249; past that it runs the sweeps, and so do the launchers,
+// which pick the INV instantiation only for n <= 64): after step 5 the
+// factor is inverted once, T = L^-1, and each z-update of step 6 is the
+// two dense triangular mat-vecs x = T'(T b) instead of two substitution
+// sweeps.  T is a packed lower triangle in a region of its own (the
+// layout's `inv` argument), one column a thread (a forward substitution
+// against e_j, no barrier); the mat-vecs run in warp 0, a row (then a
+// column) of T per lane.  Row i of a packed triangle starts at
+// i (i + 1) / 2, and the triangular numbers are a complete residue system
+// modulo 32, so 32 consecutive rows start in 32 different banks.
 //
-// The core is a template over NU and two policies: how Ad is applied (the
-// closed forms of the SRBD Ad, AdSrbd, or a dense 13 x 13 in shared memory,
-// AdDense) and where a reference row comes from (synthesized level-attitude
-// ramps, RefLevel, or rows read from shared memory, RefGiven).
+// The core is a template over NU, the solve rows a lane RPL and two
+// policies: how Ad is applied (the closed forms of the SRBD Ad, AdSrbd,
+// or a dense 13 x 13 in shared memory, AdDense) and where a reference row
+// comes from (synthesized level-attitude ramps, RefLevel, or rows read
+// from shared memory, RefGiven).
 //
-// Design: one thread block per scenario, the whole per-scenario working set
-// in dynamic shared memory sized from N; warp 0 runs the sequential sweeps
-// (the f sweeps and the ADMM), keeping each substitution's right-hand side
-// in registers (n / 32 rows per lane) and broadcasting each pivot with a
-// warp shuffle, so a substitution step costs no block barrier.
-//
-// NU = 3 (walking, n = 3 N <= 64 threads): K 60 x 61 with row stride
-// n + 1 and the N Gramians, ~34.6 KB at N = 20; thread (k, b) emits row
-// 3 k + b of K; the column Cholesky shares each pivot's trailing update
-// over the block (two barriers a column); two rows per lane.
-//
-// NU = 6 (standing, 128 threads, n = 6 N <= 256, N <= 42): K a packed
-// lower triangle; the Gramian recursion keeps one W_k and its scratch in
-// K's storage and leaves only S_k = W_k Bd_k per step, the emission's sole
-// read of the Gramians; the emission walks the rows tid, tid + 128; step 5
-// is the panel factorization of chol_common.cuh (factor<PACKED>: n + n / 8
-// barrier-separated steps, every element's fused multiply-add chain that
-// of the column loop, so the same factor bit for bit) and step 6 its two
-// warp sweeps with the reciprocal pivots in registers (RPL = 4 rows a lane
-// up to N = 21, 8 beyond; the same arithmetic as the NU = 3 sweeps); z, v
-// and y reuse S's storage once the emission is done, sqrt(d) and 1 /
-// sqrt(d) the f sweep's.  37.5 KB at N = 20 with one step-invariant Bd
-// (the standing tick: six blocks an SM), 45.2 KB with N Bd blocks and Ad
-// (fused_qp: five).  A standing block alone takes ~604k cycles, 175k of
-// them in the factorization and 273k in the ADMM, and B = 4096 standing
-// ticks 1.85 ms (NVIDIA H100 80GB HBM3; tools/time_mpc_kernels.py).
+// Design: one thread block per scenario (64 threads at NU = 3, 128 at
+// NU = 6), the whole per-scenario working set in dynamic shared memory
+// sized from N, one code path at both NU:
+//   - K a packed lower triangle; the Gramian recursion keeps one W_k and
+//     its scratch in K's storage and leaves only S_k = W_k Bd_k [13][NU]
+//     per step, the band emission's sole read of the Gramians;
+//   - the emission walks the rows tid, tid + NT, ..., so no row of K
+//     needs a thread of its own;
+//   - step 5 is the panel factorization of chol_common.cuh (factor<PACKED>:
+//     n + n / 8 barrier-separated steps, every element's fused
+//     multiply-add chain that of a column-by-column Cholesky, so the same
+//     factor bit for bit);
+//   - step 6 runs in warp 0: its two sweeps (sweep_forward /
+//     sweep_backward) with the right-hand side and the reciprocal pivots
+//     in registers, RPL rows a lane: 2 / 4 / 8 for n <= 64 / 128 / 256
+//     (rpl<NU>(N); at NU = 6 at least 4), so the horizon reaches n <= 256:
+//     N <= 85 walking, 42 standing;
+//   - z, v and y take S's storage once the emission is done (n + 2 m =
+//     5 NU N of 13 NU N floats), sqrt(d) and 1 / sqrt(d) the f sweep's.
+// Shared memory at N = 20: 15.4 KB walking (a square K and the N
+// Gramians took 34.6 KB: six blocks an SM, now fourteen), 37.5 KB
+// standing with one step-invariant Bd, 45.2 KB with N Bd blocks and Ad
+// (fused_qp nu = 6).  A walking block alone takes ~341k cycles, 70k of
+// them in the factorization and 101k in the ADMM, and B = 4096 walking
+// ticks 0.62 ms; a standing block ~604k cycles (175k, 273k), B = 4096
+// standing ticks 1.85 ms (NVIDIA H100 80GB HBM3, tools/time_mpc_kernels.py;
+// PERF.md section 6).
 //
 // What bounds it on this card: latency, not flops or bytes.  One scenario
 // is a chain of barrier-separated pivot steps plus 12 x n dependent
 // substitution steps (6 solves per tick, forward + backward), each a short
 // chain of shared-memory loads and FMAs; a solve moves ~20-40 KB of inputs
 // and outputs per scenario in total.  Throughput comes from many
-// independent scenario blocks resident per SM, not from the work inside
-// one block.
+// independent scenario blocks resident per SM, so the card's lever is the
+// shared memory and registers a block takes.  Hopper's asynchronous copies
+// (cp.async, TMA) have nothing to hide: a block stages ~200 floats of
+// inputs against ~300k cycles of dependent pivots.  Its tensor cores need
+// TF32 or lower for f32 inputs, which this controller cannot take (a
+// reduced-precision product once sent the KF to NaN and the walking height
+// to 0.56 m).
 //
 // Ported math only: no 128-lane batch layout, no symmetrization pass (the
 // Cholesky reads only the lower triangle, which the band emission writes
@@ -139,16 +145,24 @@ struct Dim {
   static_assert(NU == 3 || NU == 6, "one or two point feet");
   static constexpr int MU = 2 * NU;             // cone rows per step
   static constexpr int NF = NU / 3;             // feet per step
-  static constexpr int NT = NU == 3 ? 64 : 128; // threads a block
-  static constexpr int RPL = NT / 32;           // solve rows per lane
-  // the largest horizon: n = NU N <= NT at NU = 3 (a row of K a thread),
-  // n <= 32 MAX_RPL = 256 at NU = 6 (RPL = 8 rows a lane past N = 21)
-  static constexpr int MAX_N = NU == 3 ? NT / NU : 32 * MAX_RPL / NU;
+  static constexpr int NT = NU == 3 ? 64 : 128;  // threads a block
+  // the largest horizon: n = NU N <= 32 MAX_RPL = 256 (8 rows a lane)
+  static constexpr int MAX_N = 32 * MAX_RPL / NU;
 };
 
-// Solve rows per lane of the NU = 6 core at horizon N: 4 while n <= 128,
-// 8 beyond (n <= 256).
-__host__ __device__ inline int rpl6(int N) { return 6 * N <= 128 ? 4 : 8; }
+// Solve rows per lane at horizon N: the fewest of 2 (NU = 3 only), 4 and 8
+// with n = NU N <= 32 RPL.  The number changes no arithmetic.
+template <int NU>
+__host__ __device__ inline int rpl(int N) {
+  const int n = NU * N;
+  return (NU == 3 && n <= 64) ? 2 : n <= 128 ? 4 : 8;
+}
+
+// solve_form = "inv" forms the factor inverse only where n <= 64, as the
+// TPU kernel does (mpc_fused_pallas.py:249); beyond, the sweeps.
+__host__ __device__ inline bool use_inv(bool inv, int n) {
+  return inv && n <= 64;
+}
 
 // Host and device share this layout; the Python side mirrors it with a
 // ctypes.Structure (all fields 4 bytes, so no padding).  The per-foot
@@ -176,67 +190,51 @@ constexpr int AUX_XP = 43;    // xi_pred [13]
 constexpr int AUX_SIZE = 64;
 
 struct Smem {
-  int K, W, S, Bd, arms, qe, f, dg, dginv, z, v, y, x0, aux, total;
+  int K, S, Bd, arms, qe, f, T, dg, dginv, z, v, y, x0, aux, total;
 };
 
-// NU = 6: W_k and Ad' W_{k+1}, 176 floats apart, in K's storage while the
-// Gramian recursion runs
+// W_k and Ad' W_{k+1}, 176 floats apart, in K's storage while the Gramian
+// recursion runs
 constexpr int GRAM_PAIR = 2 * 176;
 
-// Row i of the lower factor starts here: row stride n + 1 at NU = 3, the
-// packed lower triangle at NU = 6.
-template <int NU>
-__host__ __device__ __forceinline__ int krow(int i, int n) {
-  if constexpr (NU == 3) return i * (n + 1);
-  else return (i * (i + 1)) / 2;
+// Start of row i of a packed lower triangle.
+__host__ __device__ __forceinline__ int tri(int i) {
+  return (i * (i + 1)) / 2;
 }
 
 // nbd: how many Bd blocks the kernel keeps: N when they differ over the
 // horizon, 1 when they are step-invariant (standing); narms: how many arm
-// sets (-1: nbd; 0 at NU = 6 where Bd is given, fused_qp.cu).
+// sets (-1: nbd; 0 where Bd is given, fused_qp.cu); inv: room for the
+// packed factor inverse T, taken only where the core forms it (use_inv).
 //
-// NU = 6 keeps no Gramians: the recursion runs on one W and one scratch
-// in K's storage and leaves S_k = W_k Bd_k [13][6] per step, all that the
+// No Gramians are kept: the recursion runs on one W and one scratch in
+// K's storage and leaves S_k = W_k Bd_k [13][NU] per step, all that the
 // band emission reads; once the emission is done S holds z, v and y, and
-// once the f sweeps are done qe holds the factor's sqrt(d) and 1 / sqrt(d).
+// once the f sweeps are done qe holds the factor's sqrt(d) and 1 / sqrt(d)
+// (and, INV, the mat-vecs' scratch row: 3 n <= 13 N at NU = 3).
 template <int NU>
-__host__ __device__ inline Smem smem_layout(int N, int nbd, int narms = -1) {
+__host__ __device__ inline Smem smem_layout(int N, int nbd, int narms = -1,
+                                            bool inv = false) {
   const int n = NU * N, m = Dim<NU>::MU * N;
   Smem s{};
   int o = 0;
-  const int ksize = krow<NU>(n, n);
+  const int ksize = tri(n);
   if (narms < 0) narms = nbd;
-  if constexpr (NU == 6) {
-    s.K = o;     o += ksize > GRAM_PAIR ? ksize : GRAM_PAIR;
-    s.W = s.K;
-    s.S = o;     o += N * NX * NU;     // S_k = W_k Bd_k, row-major [13][6]
-    s.Bd = o;    o += nbd * NX * NU;
-    s.arms = o;  o += narms * NU;      // both feet per step
-    s.qe = o;    o += N * NX;
-    s.f = o;     o += n;
-    s.x0 = o;    o += 16;
-    s.aux = o;   o += AUX_SIZE;
-    s.total = o;
-    s.z = s.S;                         // z [n], v [m], y [m]: 30 N <= 78 N
-    s.v = s.z + n;
-    s.y = s.v + m;
-    s.dg = s.qe;                       // dg [n], dginv [n]: 12 N <= 13 N
-    s.dginv = s.qe + n;
-    return s;
-  }
-  s.K = o;     o += ksize > 176 ? ksize : 176;  // also the Gramian scratch
-  s.W = o;     o += N * NX * NX;     // Gramians W_k
+  s.K = o;     o += ksize > GRAM_PAIR ? ksize : GRAM_PAIR;
+  s.S = o;     o += N * NX * NU;     // S_k = W_k Bd_k, row-major [13][NU]
   s.Bd = o;    o += nbd * NX * NU;   // Bd_k, row-major [13][NU]
-  s.arms = o;  o += nbd * NU;        // foot position(s) per step
+  s.arms = o;  o += narms * NU;      // foot position(s) per step
   s.qe = o;    o += N * NX;          // weighted errors of the f sweep
   s.f = o;     o += n;
-  s.dginv = o; o += n;               // 1 / diag(L)
-  s.z = o;     o += Dim<NU>::NT;
-  s.v = o;     o += m;
-  s.y = o;     o += m;
+  s.T = o;     o += use_inv(inv, n) ? ksize : 0;
   s.x0 = o;    o += 16;
   s.aux = o;   o += AUX_SIZE;
   s.total = o;
+  s.z = s.S;                         // z [n], v [m], y [m]: 5 NU N <= 13 NU N
+  s.v = s.z + n;
+  s.y = s.v + m;
+  s.dg = s.qe;                       // dg [n], dginv [n]: 2 NU N <= 13 N
+  s.dginv = s.qe + n;
   return s;
 }
 
@@ -401,51 +399,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// K z = b by forward then backward substitution; warp 0 only.  Lane l
-// holds rows l + 32 s of b in b[s] on entry and of z on exit.
-template <int NU>
-__device__ __forceinline__ void chol_solve_warp(
-    const float* K, const float* dginv, int n, int lane,
-    float (&b)[Dim<NU>::RPL]) {
-  constexpr int RPL = Dim<NU>::RPL;
-  // L y = b: column sweep, pivot broadcast from its owner lane
-#pragma unroll
-  for (int s = 0; s < RPL; ++s) {
-    for (int jj = 0; jj < 32; ++jj) {
-      const int j = 32 * s + jj;
-      if (j >= n) break;
-      const float yj = __shfl_sync(0xffffffffu, b[s], jj) * dginv[j];
-      if (lane == jj) b[s] = yj;
-#pragma unroll
-      for (int t = s; t < RPL; ++t) {
-        const int r = lane + 32 * t;
-        if (r > j && r < n) b[t] -= K[krow<NU>(r, n) + j] * yj;
-      }
-    }
-  }
-  // L' x = y: column sweep from the bottom, rows i < j take L[j][i] x_j
-#pragma unroll
-  for (int s = RPL - 1; s >= 0; --s) {
-    for (int jj = 31; jj >= 0; --jj) {
-      const int j = 32 * s + jj;
-      if (j >= n) continue;
-      const float xj = __shfl_sync(0xffffffffu, b[s], jj) * dginv[j];
-      if (lane == jj) b[s] = xj;
-      const float* Kj = K + krow<NU>(j, n);
-#pragma unroll
-      for (int t = 0; t <= s; ++t) {
-        const int r = lane + 32 * t;
-        if (r < j) b[t] -= Kj[r] * xj;
-      }
-    }
-  }
-}
-
-// Start of row i of a packed lower triangle.
-__host__ __device__ __forceinline__ int tri(int i) {
-  return (i * (i + 1)) / 2;
-}
-
 // b = -f + rho G'(v - y), rows lane + 32 s in b[s]; warp 0 only.
 template <int NU, int RPL>
 __device__ __forceinline__ void admm_rhs(const MpcParams& P, const float* f,
@@ -471,18 +424,19 @@ __device__ __forceinline__ void admm_rhs(const MpcParams& P, const float* f,
   }
 }
 
-// z = K^-1 (-f + rho G'(v - y)) into sm z; warp 0 only.  INV: K^-1 b as
-// T'(T b) with the packed factor inverse Tinv; z and tmp [n] are scratch.
-template <int NU, bool INV>
+// z = K^-1 (-f + rho G'(v - y)) into sm z; warp 0 only.  The two sweeps of
+// chol_common.cuh on the packed factor K, the reciprocal pivots dv of this
+// lane's rows in registers; INV: K^-1 b as T'(T b) with the packed factor
+// inverse T instead, z and tmp [n] as scratch.
+template <int NU, int RPL, bool INV>
 __device__ __forceinline__ void admm_z_update(const MpcParams& P,
                                               const float* K,
-                                              const float* dginv,
-                                              const float* Tinv, float* tmp,
+                                              const float (&dv)[RPL],
+                                              const float* T, float* tmp,
                                               const float* f,
                                               const float* v,
                                               const float* y, float* z,
                                               int n, int lane) {
-  constexpr int RPL = Dim<NU>::RPL;
   float b[RPL];
   admm_rhs<NU, RPL>(P, f, v, y, n, lane, b);
   if constexpr (INV) {
@@ -496,7 +450,7 @@ __device__ __forceinline__ void admm_z_update(const MpcParams& P,
       const int i = lane + 32 * s;
       float acc = 0.0f;
       if (i < n) {
-        const float* Ti = Tinv + tri(i);
+        const float* Ti = T + tri(i);
         for (int j = 0; j <= i; ++j) acc += Ti[j] * z[j];
       }
       b[s] = acc;
@@ -512,32 +466,14 @@ __device__ __forceinline__ void admm_z_update(const MpcParams& P,
       const int j = lane + 32 * s;
       float acc = 0.0f;
       if (j < n)
-        for (int i = j; i < n; ++i) acc += Tinv[tri(i) + j] * tmp[i];
+        for (int i = j; i < n; ++i) acc += T[tri(i) + j] * tmp[i];
       b[s] = acc;
     }
     __syncwarp();
   } else {
-    chol_solve_warp<NU>(K, dginv, n, lane, b);
+    sweep_forward<PACKED, RPL>(K, dv, n, 0, lane, b);
+    sweep_backward<PACKED, RPL>(K, dv, n, 0, lane, b);
   }
-#pragma unroll
-  for (int s = 0; s < RPL; ++s)
-    if (lane + 32 * s < n) z[lane + 32 * s] = b[s];
-}
-
-// The same z-update at NU = 6: the two sweeps of chol_common.cuh on the
-// packed factor, the reciprocal pivots dv of this lane's rows in registers.
-template <int RPL>
-__device__ __forceinline__ void admm_z_update6(const MpcParams& P,
-                                               const float* K,
-                                               const float (&dv)[RPL],
-                                               const float* f,
-                                               const float* v,
-                                               const float* y, float* z,
-                                               int n, int lane) {
-  float b[RPL];
-  admm_rhs<6, RPL>(P, f, v, y, n, lane, b);
-  sweep_forward<PACKED, RPL>(K, dv, n, 0, lane, b);
-  sweep_backward<PACKED, RPL>(K, dv, n, 0, lane, b);
 #pragma unroll
   for (int s = 0; s < RPL; ++s)
     if (lane + 32 * s < n) z[lane + 32 * s] = b[s];
@@ -553,20 +489,21 @@ __device__ __forceinline__ void admm_z_update6(const MpcParams& P,
 // at L.z, y [m] at L.y, the residual at aux[AUX_RES], xi_pred at
 // aux[AUX_XP].
 //
-// RPL: solve rows per lane of the NU = 6 sweeps (n <= 32 RPL; rpl6(N)).
-template <int NU, bool INV, int RPL = Dim<NU>::RPL, class AdP, class RefP>
+// RPL: solve rows per lane (n <= 32 RPL; rpl<NU>(N)).  INV: the factor
+// inverse (only where use_inv(true, n): the launchers pick the INV
+// instantiation there alone, with L laid out for it).
+template <int NU, bool INV, int RPL, class AdP, class RefP>
 __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
                                           const Smem& L, const AdP& ad,
                                           const RefP& ref, int bd_stride,
                                           const float* __restrict__ zw,
                                           const float* __restrict__ yw) {
   constexpr int MU = Dim<NU>::MU, NT = Dim<NU>::NT;
-  // the factor inverse only where the TPU kernel forms it (n <= 64)
-  constexpr bool USE_INV = INV && NU == 3;
+  static_assert(!INV || RPL == 2, "the factor inverse is formed for n <= 64");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int N = P.N, n = NU * N, m = MU * N;
   float* K = sm + L.K;
-  float* W = sm + L.W;
+  float* S = sm + L.S;
   const float* Bd = sm + L.Bd;
   float* qe = sm + L.qe;
   float* f = sm + L.f;
@@ -578,12 +515,11 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
   float* aux = sm + L.aux;
 
   // ---- 2. backward Gramian recursion (K's storage as scratch) ---------
-  if constexpr (NU == 6) {
-    // one W_k in K's storage, Ad' W_k beside it; each step leaves
-    // S_k = W_k Bd_k, summed in the order of the NU = 3 emission's
-    // t = W_k Bd_k column
+  // one W_k in K's storage, Ad' W_k beside it; each step leaves
+  // S_k = W_k Bd_k
+  {
+    float* W = K;
     float* Z = K + GRAM_PAIR / 2;
-    float* S = sm + L.S;
     for (int idx = tid; idx < NX * NX; idx += NT) {
       const int r = idx / NX, c = idx - NX * (idx / NX);
       W[idx] = (r == c) ? P.p[r] : 0.0f;
@@ -614,69 +550,19 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
       }
       __syncthreads();
     }
-  } else {
-    float* WN = W + (N - 1) * NX * NX;
-    for (int idx = tid; idx < NX * NX; idx += NT) {
-      const int r = idx / NX, c = idx - NX * (idx / NX);
-      WN[idx] = (r == c) ? P.p[r] : 0.0f;
-    }
-    __syncthreads();
-    float* Z = K;
-    for (int k = N - 2; k >= 0; --k) {
-      const float* Wn = W + (k + 1) * NX * NX;
-      for (int idx = tid; idx < NX * NX; idx += NT) {
-        const int r = idx / NX, c = idx - NX * (idx / NX);
-        Z[idx] = ad.tM(Wn, NX, r, c);
-      }
-      __syncthreads();
-      float* Wk = W + k * NX * NX;
-      for (int idx = tid; idx < NX * NX; idx += NT) {
-        const int r = idx / NX, c = idx - NX * (idx / NX);
-        Wk[idx] = ad.Mr(Z, r, c) + ((r == c) ? P.q[r] : 0.0f);
-      }
-      __syncthreads();
-    }
   }
   MPC_STAGE(ST_GRAM);
 
-  // ---- 3. band emission: thread (k, b) owns row NU k + b of the lower K
-  // K[NU k+b][NU j+a] = 2 Bd_j' (Ad')^{k-j} W_k Bd_k [a][b]
-  if constexpr (NU == 6) {
-    // rows tid, tid + NT, ... (n <= 2 NT), t = S_k column b
-    for (int row = tid; row < n; row += NT) {
-      const int k = row / NU, b = row - NU * (row / NU);
-      const float* Sk = sm + L.S + k * NX * NU;
-      float t[NX];
-#pragma unroll
-      for (int x = 0; x < NX; ++x) t[x] = Sk[x * NU + b];
-      float* Krow = K + krow<NU>(row, n);
-      for (int j = k; j >= 0; --j) {
-        const float* Bj = Bd + j * bd_stride;
-#pragma unroll
-        for (int a = 0; a < NU; ++a) {
-          float e = 0.0f;
-#pragma unroll
-          for (int x = 0; x < NX; ++x) e += t[x] * Bj[x * NU + a];
-          float val = 2.0f * e;
-          if (j == k && a / 3 == b / 3)
-            val += P.dblk[a / 3][(a % 3) * 3 + b % 3];
-          if (NU * j + a <= row) Krow[NU * j + a] = val;
-        }
-        if (j > 0) ad.tvec(t);
-      }
-    }
-  } else if (tid < n) {
-    const int k = tid / NU, b = tid - NU * (tid / NU);
-    const float* Wk = W + k * NX * NX;
-    const float* Bk = Bd + k * bd_stride;
+  // ---- 3. band emission of the lower K, rows tid, tid + NT, ...:
+  // K[NU k+b][NU j+a] = 2 Bd_j' (Ad')^{k-j} W_k Bd_k [a][b], t = S_k
+  // column b carried from j = k down
+  for (int row = tid; row < n; row += NT) {
+    const int k = row / NU, b = row - NU * (row / NU);
+    const float* Sk = S + k * NX * NU;
     float t[NX];
 #pragma unroll
-    for (int x = 0; x < NX; ++x) {
-      float acc = 0.0f;
-      for (int yy = 0; yy < NX; ++yy) acc += Wk[x * NX + yy] * Bk[yy * NU + b];
-      t[x] = acc;
-    }
-    float* Krow = K + krow<NU>(tid, n);
+    for (int x = 0; x < NX; ++x) t[x] = Sk[x * NU + b];
+    float* Krow = K + tri(row);
     for (int j = k; j >= 0; --j) {
       const float* Bj = Bd + j * bd_stride;
 #pragma unroll
@@ -688,7 +574,7 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
         if (j == k && a / 3 == b / 3)
           val += P.dblk[a / 3][(a % 3) * 3 + b % 3];
         // the factor reads the lower triangle only
-        if (NU * j + a <= tid) Krow[NU * j + a] = val;
+        if (NU * j + a <= row) Krow[NU * j + a] = val;
       }
       if (j > 0) ad.tvec(t);
     }
@@ -733,40 +619,20 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
   __syncthreads();
   MPC_STAGE(ST_BAND);
 
-  // ---- 5. in-place Cholesky of the lower triangle of K ----------------
-  // NU = 6: the K8 panel factorization of chol_common.cuh on the packed
-  // triangle (the same chain of fused multiply-adds for every element as
-  // the column loop below, so the same factor)
-  if constexpr (NU == 6) {
-    factor<PACKED>(K, sm + L.dg, dginv, n, n, 0);
-  } else {
-    for (int j = 0; j < n; ++j) {
-      const float d = fmaxf(K[krow<NU>(j, n) + j], 1e-30f);
-      const float inv = 1.0f / sqrtf(d);
-      for (int i = j + 1 + tid; i < n; i += NT) K[krow<NU>(i, n) + j] *= inv;
-      if (tid == 0) dginv[j] = inv;
-      __syncthreads();
-      for (int i = j + 1 + tid; i < n; i += NT) {
-        float* Ki = K + krow<NU>(i, n);
-        const float lij = Ki[j];
-        for (int l = j + 1; l <= i; ++l) Ki[l] -= lij * K[krow<NU>(l, n) + j];
-      }
-      __syncthreads();
-    }
-  }
+  // ---- 5. in-place Cholesky of the packed lower triangle of K ---------
+  factor<PACKED>(K, sm + L.dg, dginv, n, n, 0);
 
-  // ---- 5b. T = L^-1 into the Gramians' storage (packed lower triangle):
-  // thread j solves L t = e_j down its column, T_ij = -(sum_{l=j}^{i-1}
-  // L_il T_lj) / L_ii
-  if constexpr (USE_INV) {
-    if (tid < n) {
-      const int j = tid;
-      W[tri(j) + j] = dginv[j];
+  // ---- 5b. INV: T = L^-1, packed lower: thread j solves L t = e_j down
+  // its column, T_ij = -(sum_{l=j}^{i-1} L_il T_lj) / L_ii
+  float* T = sm + L.T;
+  if constexpr (INV) {
+    for (int j = tid; j < n; j += NT) {
+      T[tri(j) + j] = dginv[j];
       for (int i = j + 1; i < n; ++i) {
-        const float* Li = K + krow<NU>(i, n);
+        const float* Li = K + tri(i);
         float acc = 0.0f;
-        for (int l = j; l < i; ++l) acc += Li[l] * W[tri(l) + j];
-        W[tri(i) + j] = -acc * dginv[i];
+        for (int l = j; l < i; ++l) acc += Li[l] * T[tri(l) + j];
+        T[tri(i) + j] = -acc * dginv[i];
       }
     }
     __syncthreads();
@@ -783,14 +649,13 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
     }
     __syncwarp();
     const float alpha = P.alpha, beta = 1.0f - P.alpha;
-    // NU = 6: the reciprocal pivots of this lane's rows, once per solve
+    // the reciprocal pivots of this lane's rows, once per solve; INV: the
+    // mat-vecs' scratch row after dg and dginv
     float dv[RPL];
-    if constexpr (NU == 6) load_dinv<RPL>(dginv, n, lane, dv);
+    load_dinv<RPL>(dginv, n, lane, dv);
+    float* tmp = qe + 2 * n;
     for (int it = 0; it < P.iters; ++it) {
-      if constexpr (NU == 6)
-        admm_z_update6<RPL>(P, K, dv, f, v, y, z, n, lane);
-      else
-        admm_z_update<NU, USE_INV>(P, K, dginv, W, qe, f, v, y, z, n, lane);
+      admm_z_update<NU, RPL, INV>(P, K, dv, T, tmp, f, v, y, z, n, lane);
       __syncwarp();
       for (int r = lane; r < m; r += 32) {
         const float gzr = alpha * g_row<NU>(P, z, r) + beta * v[r];
@@ -800,10 +665,7 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
       }
       __syncwarp();
     }
-    if constexpr (NU == 6)
-      admm_z_update6<RPL>(P, K, dv, f, v, y, z, n, lane);
-    else
-      admm_z_update<NU, USE_INV>(P, K, dginv, W, qe, f, v, y, z, n, lane);
+    admm_z_update<NU, RPL, INV>(P, K, dv, T, tmp, f, v, y, z, n, lane);
     __syncwarp();
 
     float rp = 0.0f, fm = 0.0f;
@@ -814,12 +676,9 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
     fm = warp_max(fm);
     if (lane == 0) aux[AUX_RES] = rp / (1.0f + fm);
     if (lane < NX) {
-      float xp = ad.row(x0, lane)
-          + Bd[lane * NU] * z[0] + Bd[lane * NU + 1] * z[1]
-          + Bd[lane * NU + 2] * z[2];
-      if constexpr (NU == 6)
-        xp = xp + Bd[lane * NU + 3] * z[3] + Bd[lane * NU + 4] * z[4]
-            + Bd[lane * NU + 5] * z[5];
+      float xp = ad.row(x0, lane);
+#pragma unroll
+      for (int a = 0; a < NU; ++a) xp = xp + Bd[lane * NU + a] * z[a];
       aux[AUX_XP + lane] = xp;
     }
   }
@@ -836,7 +695,7 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
 // from at L.arms, [nbd][NF][3] (nbd = N, or 1 when the arms do not change
 // over the horizon); v_des / yaw rate / anchor in the aux area.  Results as
 // mpc_condense_solve.
-template <int NU, bool INV = false, int RPL = Dim<NU>::RPL>
+template <int NU, bool INV, int RPL>
 __device__ inline void mpc_prep_solve(const MpcParams& P, float* sm,
                                       const Smem& L, int nbd,
                                       const float* __restrict__ zw,

@@ -37,7 +37,7 @@ constexpr int NU = 6;
 constexpr int NT = mpc::Dim<NU>::NT;
 
 // ---- the solving forms: one block of NT threads per scenario ------------
-// RPL: solve rows per lane, mpc::rpl6(N)
+// RPL: solve rows per lane, mpc::rpl<6>(N)
 template <bool KF, int RPL>
 __global__ void __launch_bounds__(NT)
 standing_tick_kernel(const __grid_constant__ TickParams T,
@@ -165,8 +165,8 @@ __host__ __device__ inline int solve_smem_floats(int N, bool kf) {
 // N = 21, eight beyond
 template <bool KF>
 auto solve_kernel(int N) {
-  return mpc::rpl6(N) == 4 ? standing_tick_kernel<KF, 4>
-                           : standing_tick_kernel<KF, 8>;
+  return mpc::rpl<NU>(N) == 4 ? standing_tick_kernel<KF, 4>
+                               : standing_tick_kernel<KF, 8>;
 }
 
 template <bool KF>

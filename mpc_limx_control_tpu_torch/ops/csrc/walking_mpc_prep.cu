@@ -6,11 +6,14 @@
 // anchor) it linearizes the SRBD in-kernel, condenses the level-attitude
 // walking QP, factors it and runs the warm ADMM (mpc_core.cuh).
 //
-// Bound on this card: the sequential pivot and substitution steps (~60
+// Bound on this card: the sequential pivot and substitution steps (~70
 // barrier-separated Cholesky steps + 12 x 60 warp-shuffle substitution
-// steps per solve), i.e. latency per scenario; the design answers with one
-// small block per scenario so that several scenarios share each SM, and
-// with warp-only synchronization in the substitutions.
+// steps per solve at N = 20), i.e. latency per scenario; the design answers
+// with one small block per scenario (64 threads, ~15.4 KB of shared memory
+// at N = 20) so that many scenarios share each SM, and with warp-only
+// synchronization in the substitutions.  Horizon 1 to 85 steps (n = 3 N
+// <= 256); the "inv" entry takes the factor inverse up to n = 64 and the
+// substitution kernel beyond, as the TPU kernel does.
 //
 // Plain C interface for ctypes: pointers and the stream arrive as void*,
 // the call returns cudaGetLastError() after the launch.
@@ -23,7 +26,9 @@ namespace {
 constexpr int NU = 3;
 constexpr int NT = mpc::Dim<NU>::NT;
 
-template <bool INV>
+// INV: the core's factor inverse (n <= 64 only); RPL: its solve rows a
+// lane, mpc::rpl<3>(N)
+template <bool INV, int RPL>
 __global__ void __launch_bounds__(NT)
 walking_mpc_prep_kernel(const __grid_constant__ mpc::MpcParams P,
                         const float* __restrict__ x0,
@@ -41,7 +46,7 @@ walking_mpc_prep_kernel(const __grid_constant__ mpc::MpcParams P,
   const int b = blockIdx.x, tid = threadIdx.x;
   MPC_STAGE(mpc::ST_START);
   const int N = P.N, n = NU * N, m = mpc::Dim<NU>::MU * N;
-  const mpc::Smem L = mpc::smem_layout<NU>(N, N);
+  const mpc::Smem L = mpc::smem_layout<NU>(N, N, -1, INV);
   float* aux = sm + L.aux;
 
   for (int i = tid; i < mpc::NX; i += NT)
@@ -56,8 +61,8 @@ walking_mpc_prep_kernel(const __grid_constant__ mpc::MpcParams P,
   __syncthreads();
   MPC_STAGE(mpc::ST_PRE);
 
-  mpc::mpc_prep_solve<NU, INV>(P, sm, L, N, z_warm + (size_t)b * n,
-                               y_warm + (size_t)b * m);
+  mpc::mpc_prep_solve<NU, INV, RPL>(P, sm, L, N, z_warm + (size_t)b * n,
+                                    y_warm + (size_t)b * m);
 
   for (int c = tid; c < n; c += NT) z_out[(size_t)b * n + c] = sm[L.z + c];
   for (int r = tid; r < m; r += NT) y_out[(size_t)b * m + r] = sm[L.y + r];
@@ -66,19 +71,36 @@ walking_mpc_prep_kernel(const __grid_constant__ mpc::MpcParams P,
   MPC_STAGE(mpc::ST_END);
 }
 
+__host__ __device__ inline int smem_floats(int N, bool inv) {
+  return mpc::smem_layout<NU>(N, N, -1, inv).total;
+}
+
+// the kernel for horizon N: the factor-inverse instantiation where the
+// "inv" entry takes it (n <= 64), else the sweeps with mpc::rpl<3>(N)
+// solve rows a lane
+auto prep_kernel(int N, bool inv) {
+  if (mpc::use_inv(inv, NU * N)) return walking_mpc_prep_kernel<true, 2>;
+  switch (mpc::rpl<NU>(N)) {
+    case 2: return walking_mpc_prep_kernel<false, 2>;
+    case 4: return walking_mpc_prep_kernel<false, 4>;
+    default: return walking_mpc_prep_kernel<false, 8>;
+  }
+}
+
 template <bool INV>
 int launch(const mpc::MpcParams* prm, const void* x0, const void* arms,
            const void* v_des, const void* yaw_rate, const void* z_warm,
            const void* y_warm, const void* anchor, void* z_out, void* y_out,
            void* res_out, void* xp_out, int B, void* stream) {
   if (B <= 0) return 0;
-  const int bytes =
-      (int)(mpc::smem_layout<NU>(prm->N, prm->N).total * sizeof(float));
+  if (prm->N < 1 || prm->N > mpc::Dim<NU>::MAX_N)
+    return (int)cudaErrorInvalidValue;
+  const int bytes = (int)(smem_floats(prm->N, INV) * sizeof(float));
+  const auto kernel = prep_kernel(prm->N, INV);
   cudaError_t err = cudaFuncSetAttribute(
-      walking_mpc_prep_kernel<INV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  walking_mpc_prep_kernel<INV><<<B, NT, bytes, (cudaStream_t)stream>>>(
+  kernel<<<B, NT, bytes, (cudaStream_t)stream>>>(
       *prm, (const float*)x0, (const float*)arms, (const float*)v_des,
       (const float*)yaw_rate, (const float*)z_warm, (const float*)y_warm,
       (const float*)anchor, (float*)z_out, (float*)y_out, (float*)res_out,
@@ -90,13 +112,24 @@ int launch(const mpc::MpcParams* prm, const void* x0, const void* arms,
 
 MPC_STAGE_READER(walking_mpc_prep_stage_clocks)
 
+// dynamic shared memory per block, and the blocks an SM holds, at
+// horizon N
 extern "C" int walking_mpc_prep_smem_bytes(int N) {
-  return (int)(mpc::smem_layout<NU>(N, N).total * sizeof(float));
+  return (int)(smem_floats(N, false) * sizeof(float));
+}
+
+extern "C" int walking_mpc_prep_inv_smem_bytes(int N) {
+  return (int)(smem_floats(N, true) * sizeof(float));
 }
 
 extern "C" int walking_mpc_prep_blocks_per_sm(int N) {
-  return mpc::blocks_per_sm(walking_mpc_prep_kernel<false>, NT,
+  return mpc::blocks_per_sm(prep_kernel(N, false), NT,
                             walking_mpc_prep_smem_bytes(N));
+}
+
+extern "C" int walking_mpc_prep_inv_blocks_per_sm(int N) {
+  return mpc::blocks_per_sm(prep_kernel(N, true), NT,
+                            walking_mpc_prep_inv_smem_bytes(N));
 }
 
 extern "C" int walking_mpc_params_bytes() {

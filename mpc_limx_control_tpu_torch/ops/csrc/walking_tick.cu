@@ -30,18 +30,24 @@
 //
 // Bound on this card: latency.  The scalar prologue and epilogue (a few
 // hundred flops and ~30 transcendentals) run on one thread; the MPC core
-// in the middle is ~60 barrier-separated Cholesky steps + 12 x 60
-// warp-shuffle substitution steps.  One small block per scenario keeps
-// several scenarios resident per SM to hide that latency.  The filter
-// (~6k flops: 14 x 14 Cholesky and 13 right-hand sides) runs in warp 0 of
-// that block before the prologue, its scratch in the MPC's K area, which
-// is free until the solve: the covariance entries are shared out over the
-// lanes, the 13 right-hand sides one per lane.  The hold forms need none
-// of the MPC's ~34.6 KB of shared memory: the truth form runs one thread
-// per scenario, the KF form one warp per scenario (the filter as above,
-// its ~3 KB of scratch in static shared memory, four scenarios a block):
-// on one thread, with the scratch in local memory, the filter alone is a
-// ~0.2 ms chain of dependent loads (measured on the H100).
+// in the middle is ~70 barrier-separated Cholesky steps + 12 x 60
+// warp-shuffle substitution steps at N = 20.  One small block (64
+// threads, ~15.5 KB of shared memory at N = 20) per scenario keeps many
+// scenarios resident per SM to hide that latency.  The filter (~6k flops:
+// 14 x 14 Cholesky and 13 right-hand sides) runs in warp 0 of that block
+// before the prologue, its scratch in the MPC's K area, which is free
+// until the solve: the covariance entries are shared out over the lanes,
+// the 13 right-hand sides one per lane.  The hold forms need none of the
+// MPC's shared memory: the truth form runs one thread per scenario, the
+// KF form one warp per scenario (the filter as above, its ~3 KB of scratch
+// in static shared memory, four scenarios a block): on one thread, with
+// the scratch in local memory, the filter alone is a ~0.2 ms chain of
+// dependent loads (measured on the H100).
+//
+// Horizon: 1 to 85 steps (n = 3 N <= 256), the solve rows a lane of the
+// core chosen at launch (mpc::rpl: 2 / 4 / 8); the "inv" forms take the
+// factor inverse up to n = 64 and the substitution kernels beyond, as the
+// TPU kernel does.
 //
 // The gait-clock times are formed with __fmul_rn / __fadd_rn so that no
 // fused multiply-add changes their rounding: phase switches then land on
@@ -62,8 +68,9 @@ constexpr int TK_SWQ = 8;      // swing_q [3]
 constexpr int TK_SIZE = 16;
 
 // ---- the solving forms: one block of NT threads per scenario ------------
-// INV: the MPC core's solve_form = "inv" (mpc_core.cuh)
-template <bool KF, bool INV>
+// INV: the MPC core's solve_form = "inv" (mpc_core.cuh, n <= 64 only);
+// RPL: its solve rows a lane, mpc::rpl<3>(N)
+template <bool KF, bool INV, int RPL>
 __global__ void __launch_bounds__(NT)
 walking_tick_kernel(const __grid_constant__ TickParams T,
                     const __grid_constant__ TickIO io) {
@@ -72,7 +79,7 @@ walking_tick_kernel(const __grid_constant__ TickParams T,
   const int b = blockIdx.x, tid = threadIdx.x;
   MPC_STAGE(mpc::ST_START);
   const int N = P.N, n = NU * N, m = mpc::Dim<NU>::MU * N;
-  const mpc::Smem L = mpc::smem_layout<NU>(N, N);
+  const mpc::Smem L = mpc::smem_layout<NU>(N, N, -1, INV);
   float* aux = sm + L.aux;
   float* tk = sm + L.total;
   const Leg g = load_leg(T);
@@ -137,8 +144,8 @@ walking_tick_kernel(const __grid_constant__ TickParams T,
   MPC_STAGE(mpc::ST_PRE);
 
   // ---- the prep-fused MPC solve ---------------------------------------
-  mpc::mpc_prep_solve<NU, INV>(P, sm, L, N, io.zw + (size_t)b * n,
-                               io.yw + (size_t)b * m);
+  mpc::mpc_prep_solve<NU, INV, RPL>(P, sm, L, N, io.zw + (size_t)b * n,
+                                    io.yw + (size_t)b * m);
 
   for (int c = tid; c < n; c += NT) io.z_o[(size_t)b * n + c] = sm[L.z + c];
   for (int r = tid; r < m; r += NT) io.y_o[(size_t)b * m + r] = sm[L.y + r];
@@ -214,25 +221,40 @@ walking_tick_hold_kernel(const __grid_constant__ TickParams T,
   }
 }
 
-// dynamic shared memory of the solving forms: the MPC layout, the tick
-// scratch, and room for the filter's scratch from the K area at any N
-__host__ __device__ inline int solve_smem_floats(int N, bool kf) {
-  const mpc::Smem L = mpc::smem_layout<NU>(N, N);
+// dynamic shared memory of the solving forms: the MPC layout (with the
+// factor inverse where an "inv" form takes it), the tick scratch, and room
+// for the filter's scratch from the K area at any N
+__host__ __device__ inline int solve_smem_floats(int N, bool kf, bool inv) {
+  const mpc::Smem L = mpc::smem_layout<NU>(N, N, -1, inv);
   const int need = L.total + TK_SIZE;
   return (kf && L.K + KW_SIZE > need) ? L.K + KW_SIZE : need;
+}
+
+// the solving kernel for horizon N: the factor-inverse instantiation where
+// an "inv" form takes it (n <= 64), else the sweeps with mpc::rpl<3>(N)
+// solve rows a lane
+template <bool KF>
+auto solve_kernel(int N, bool inv) {
+  if (mpc::use_inv(inv, NU * N)) return walking_tick_kernel<KF, true, 2>;
+  switch (mpc::rpl<NU>(N)) {
+    case 2: return walking_tick_kernel<KF, false, 2>;
+    case 4: return walking_tick_kernel<KF, false, 4>;
+    default: return walking_tick_kernel<KF, false, 8>;
+  }
 }
 
 template <bool KF, bool INV = false>
 int launch_solve(const TickParams* prm, const TickIO& io, int B,
                  void* stream) {
   if (B <= 0) return 0;
-  const int bytes = (int)(solve_smem_floats(prm->mpc.N, KF) * sizeof(float));
+  const int N = prm->mpc.N;
+  if (N < 1 || N > mpc::Dim<NU>::MAX_N) return (int)cudaErrorInvalidValue;
+  const int bytes = (int)(solve_smem_floats(N, KF, INV) * sizeof(float));
+  const auto kernel = solve_kernel<KF>(N, INV);
   cudaError_t err = cudaFuncSetAttribute(
-      walking_tick_kernel<KF, INV>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  walking_tick_kernel<KF, INV>
-      <<<B, NT, bytes, (cudaStream_t)stream>>>(*prm, io);
+  kernel<<<B, NT, bytes, (cudaStream_t)stream>>>(*prm, io);
   return (int)cudaGetLastError();
 }
 
@@ -249,28 +271,22 @@ int launch_hold(const TickParams* prm, const TickIO& io, int B,
 
 }  // namespace
 
-// dynamic shared memory per block of the solving forms (the hold forms
-// use none)
 MPC_STAGE_READER(walking_tick_stage_clocks)
 
-extern "C" int walking_tick_smem_bytes(int N) {
-  return (int)(solve_smem_floats(N, false) * sizeof(float));
-}
-
-extern "C" int walking_tick_kf_smem_bytes(int N) {
-  return (int)(solve_smem_floats(N, true) * sizeof(float));
-}
-
-// blocks of the solving forms an SM holds at horizon N
-extern "C" int walking_tick_blocks_per_sm(int N) {
-  return mpc::blocks_per_sm(walking_tick_kernel<false, false>, NT,
-                            walking_tick_smem_bytes(N));
-}
-
-extern "C" int walking_tick_kf_blocks_per_sm(int N) {
-  return mpc::blocks_per_sm(walking_tick_kernel<true, false>, NT,
-                            walking_tick_kf_smem_bytes(N));
-}
+// dynamic shared memory per block of the solving forms (the hold forms use
+// none), and the blocks of them an SM holds, at horizon N
+#define SOLVE_SIZERS(name, kf, inv)                                    \
+  extern "C" int name##_smem_bytes(int N) {                            \
+    return (int)(solve_smem_floats(N, kf, inv) * sizeof(float));       \
+  }                                                                    \
+  extern "C" int name##_blocks_per_sm(int N) {                         \
+    return mpc::blocks_per_sm(solve_kernel<kf>(N, inv), NT,            \
+                              name##_smem_bytes(N));                   \
+  }
+SOLVE_SIZERS(walking_tick, false, false)
+SOLVE_SIZERS(walking_tick_kf, true, false)
+SOLVE_SIZERS(walking_tick_inv, false, true)
+SOLVE_SIZERS(walking_tick_kf_inv, true, true)
 
 extern "C" int walking_tick_params_bytes() { return (int)sizeof(TickParams); }
 

@@ -20,13 +20,14 @@ condensation, Cholesky, warm ADMM with exact triangular solves):
 Each kernel has a second entry point for ``SolverConfig.solve_form="inv"``
 at nu = 3 (``walking_mpc_prep_inv``, ``fused_qp_nu3_inv``): the Cholesky
 factor inverted once per solve, mat-vecs per ADMM step
-(mpc_fused_pallas.py:230-263). At nu = 6 (n = 120 > 64) the TPU kernel
-keeps the substitution sweeps whatever the form (:249), and so does the
-port.
+(mpc_fused_pallas.py:230-263), where n = 3 N <= 64; past that the TPU
+kernel keeps the substitution sweeps (:249), and so do these entries. The
+nu = 6 kernels run the sweeps whatever the form.
 
 A wrapper launches its kernel for CUDA tensors and runs the kernel's plain
 version (exact triangular solves, ``solve_form="subst"``; the explicit
-factor inverse, ``"linv"``, for the ``inv`` kernels) for CPU tensors.
+factor inverse, ``"linv"``, for the ``inv`` kernels where n <= 64) for
+CPU tensors.
 The ``make_*`` entry points run the kernel for CUDA tensors and, for CPU
 tensors, the plain composition with the JAX CPU path's explicit f32 K^-1
 (``"kinv"``).
@@ -48,8 +49,9 @@ from mpc_limx_control_tpu_torch.ops import qp as qps
 from mpc_limx_control_tpu_torch.ops.chol_cuda import SMEM_LIMIT_BYTES
 
 NX = 13
-MAX_HORIZON = 21          # nu = 3: n = 3 N <= the block's 64 threads
+MAX_HORIZON = 85          # nu = 3: n = 3 N <= 256, eight solve rows a lane
 MAX_HORIZON_STAND = 42    # nu = 6: n = 6 N <= 256, eight solve rows a lane
+INV_MAX_N = 64            # "inv" forms the factor inverse up to this n
 REG = 1e-6                # added to K's diagonal (f32)
 
 # The kernels and their launch counters (see ops/_build.py).
@@ -86,50 +88,52 @@ def max_horizon(nu: int) -> int:
     return MAX_HORIZON if nu == 3 else MAX_HORIZON_STAND
 
 
-def _layout_floats(nu: int, N: int, nbd: int, narms: int) -> int:
-    """Floats of mpc::smem_layout<nu>(N, nbd, narms): nu = 6 keeps K packed
-    and S_k = W_k Bd_k where nu = 3 keeps K with row stride n + 1 and the
-    N Gramians."""
-    n, m = nu * N, 2 * nu * N
-    if nu == 6:
-        return (max(n * (n + 1) // 2, 2 * 176) + N * NX * 6 + nbd * NX * 6
-                + narms * 6 + N * NX + n + 16 + _AUX_SIZE)
-    return (max(n * (n + 1), 176) + N * NX * NX + nbd * NX * 3 + narms * 3
-            + N * NX + 2 * n + 64 + 2 * m + 16 + _AUX_SIZE)
+def _layout_floats(nu: int, N: int, nbd: int, narms: int,
+                   inv: bool) -> int:
+    """Floats of mpc::smem_layout<nu>(N, nbd, narms, inv): K packed (at
+    least the Gramian recursion's W pair), S_k = W_k Bd_k, Bd, the arm
+    sets, the f sweep's errors and f, the packed factor inverse where the
+    core forms it, x0 and the aux area."""
+    n = nu * N
+    tri = n * (n + 1) // 2
+    T = tri if inv and n <= INV_MAX_N else 0
+    return (max(tri, 2 * 176) + N * NX * nu + nbd * NX * nu + narms * nu
+            + N * NX + n + T + 16 + _AUX_SIZE)
 
 
 def smem_bytes(entry: str, N: int) -> int:
     """Dynamic shared memory per block of `entry` at horizon N, as the
     library's ``<entry>_smem_bytes(N)`` computes it: the core's layout (N
-    Bd blocks and arm sets walking; one of each standing; N Bd blocks and,
-    at nu = 6, no arm sets in fused_qp), plus the walking tick's scratch,
-    fused_qp's Ad and reference rows, and room for the filter's scratch
-    from K's area in the KF forms."""
+    Bd blocks and arm sets walking; one of each standing; N Bd blocks and
+    no arm sets in fused_qp; the factor inverse in an ``_inv`` entry where
+    n <= 64), plus the walking tick's scratch, fused_qp's Ad and reference
+    rows, and room for the filter's scratch from K's area in the KF
+    forms."""
     nu = entry_nu(entry)
-    if entry.startswith("fused_qp"):
-        total = _layout_floats(nu, N, N, N if nu == 3 else 0)
+    inv = entry.endswith("_inv")
+    base = entry[:-len("_inv")] if inv else entry
+    if base.startswith("fused_qp"):
+        total = _layout_floats(nu, N, N, 0, inv)
         return 4 * (total + _AD_SIZE + (N + 1) * NX)
     sets = 1 if nu == 6 else N
-    total = _layout_floats(nu, N, sets, sets)
-    if entry.startswith("walking_tick"):
+    total = _layout_floats(nu, N, sets, sets, inv)
+    if base.startswith("walking_tick"):
         total += _TK_SIZE
-    if entry.endswith("_kf"):
+    if base.endswith("_kf"):
         total = max(total, _KW_SIZE)      # K's area starts at 0
     return 4 * total
 
 
 def size_reason(entry: str, N: int) -> str | None:
     """Why entry point `entry` cannot take horizon N (None: it can): nu = 3
-    takes 1 to 21 steps (a row of K per thread), nu = 6 1 to 42 (n <= 256),
-    each within a block's shared memory."""
+    takes 1 to 85 steps, nu = 6 1 to 42 (n = nu N <= 256, eight solve rows
+    a lane), each within a block's shared memory."""
     nu = entry_nu(entry)
-    if not 1 <= N <= max_horizon(nu):
-        if nu == 3:
-            return (f"horizon={N}: the MPC kernels take 1 to {MAX_HORIZON} "
-                    "steps (n = nu N within a block's threads)")
-        return (f"horizon={N}: the standing MPC kernels take 1 to "
-                f"{MAX_HORIZON_STAND} steps (n = 6 N <= 256, eight solve "
-                "rows a lane)")
+    top = max_horizon(nu)
+    if not 1 <= N <= top:
+        kind = "walking" if nu == 3 else "standing"
+        return (f"horizon={N}: the {kind} MPC kernels take 1 to {top} "
+                f"steps (n = {nu} N <= 256, eight solve rows a lane)")
     need = smem_bytes(entry, N)
     if need > SMEM_LIMIT_BYTES:
         return (f"horizon={N}: {entry} needs {need} bytes of shared memory "
@@ -137,14 +141,17 @@ def size_reason(entry: str, N: int) -> str | None:
     return None
 
 
-def plain_solve_form(solve_form: str, nu: int) -> str:
+def plain_solve_form(solve_form: str, nu: int, N: int) -> str:
     """The ``_batched_admm`` form that repeats what the kernels do for a
-    config's solve_form: the explicit factor inverse at nu = 3, the sweeps
-    at nu = 6 whatever the form."""
+    config's solve_form at nu forces a step and horizon N: "inv" is the
+    explicit factor inverse ("linv") at nu = 3 where n = 3 N <= 64, as the
+    TPU kernel forms it (mpc_fused_pallas.py:249); the sweeps ("subst")
+    past that and at nu = 6 whatever the form."""
     if solve_form not in KERNEL_SOLVE_FORMS:
         raise ValueError(f"solve_form must be one of {KERNEL_SOLVE_FORMS}, "
                          f"got {solve_form!r}")
-    return "linv" if solve_form == "inv" and nu == 3 else "subst"
+    inv = solve_form == "inv" and nu == 3 and nu * N <= INV_MAX_N
+    return "linv" if inv else "subst"
 
 
 class MpcParams(ctypes.Structure):
@@ -226,8 +233,8 @@ def mpc_params(cfg) -> MpcParams:
 def supports_fused_walking_qp(cfg) -> bool:
     """True when the in-kernel prep implements the config's QP: the
     level-attitude reference (the in-kernel reference rows are level only,
-    mpc_fused_pallas.py:913-916), a horizon of at most 21 steps and a
-    solve form the core runs ("subst" or "inv")."""
+    mpc_fused_pallas.py:913-916), a horizon of 1 to 85 steps and a solve
+    form the core runs ("subst" or "inv")."""
     return (cfg.srbd.attitude_ref == "level"
             and 1 <= cfg.srbd.horizon <= MAX_HORIZON
             and cfg.srbd.nu == 3
@@ -278,8 +285,8 @@ def fused_walking_qp_prep(arms, x0, v_des, yaw_rate, z_warm, y_warm,
     (z [B,3N], y [B,6N], residual [B], xi_pred [B,13]). CUDA tensors
     launch ``walking_mpc_prep`` (``walking_mpc_prep_inv`` when the config's
     solve_form is "inv"); CPU tensors run the plain version (exact
-    triangular solves, ``"subst"``, or the explicit factor inverse,
-    ``"linv"``).
+    triangular solves, ``"subst"``, or, "inv" with n = 3 N <= 64, the
+    explicit factor inverse, ``"linv"``).
     """
     if not supports_fused_walking_qp(cfg):
         raise ValueError(
@@ -292,7 +299,8 @@ def fused_walking_qp_prep(arms, x0, v_des, yaw_rate, z_warm, y_warm,
     if x0.device.type == "cpu":
         sol, xp, (z, y) = walking_qp_prep_plain(
             cfg, arms, x0, v_des, yaw_rate, z_warm, y_warm, anchor,
-            solve_form=plain_solve_form(cfg.srbd.solver.solve_form, 3))
+            solve_form=plain_solve_form(cfg.srbd.solver.solve_form, 3,
+                                        int(cfg.srbd.horizon)))
         return z, y, sol.residual, xp
     if x0.device.type != "cuda":
         raise ValueError(f"walking_mpc_prep runs on CUDA tensors, got "
@@ -427,7 +435,8 @@ def fused_walking_qp(Ad, Bd_t, x_ref, x0, z_warm, y_warm, *, N: int,
     CUDA tensors launch ``fused_qp_nu3`` / ``fused_qp_nu6``; CPU tensors
     run the plain version with exact triangular solves (``"subst"``).
     solve_form="inv" (the SolverConfig value) launches ``fused_qp_nu3_inv``
-    at nu = 3 (plain: ``"linv"``) and changes nothing at nu = 6.
+    at nu = 3 (plain: ``"linv"`` where n <= 64, ``"subst"`` beyond) and
+    changes nothing at nu = 6.
     """
     nu = Bd_t.shape[-1]
     if nu not in FUSED_QP:
@@ -441,7 +450,7 @@ def fused_walking_qp(Ad, Bd_t, x_ref, x0, z_warm, y_warm, *, N: int,
     prm = _qp_params(nu, N, iters, float(rho), float(alpha), float(reg),
                      tuple(q_diag), tuple(r_diag), tuple(p_diag),
                      tuple(map(tuple, Gu)), tuple(h))
-    form = plain_solve_form(solve_form, nu)
+    form = plain_solve_form(solve_form, nu, N)
     if x0.device.type == "cpu":
         sol, (z, y) = fused_qp_plain(Ad, Bd_t, x_ref, x0, z_warm, y_warm,
                                      solve_form=form, **consts)
@@ -459,7 +468,8 @@ def fused_walking_qp(Ad, Bd_t, x_ref, x0, z_warm, y_warm, *, N: int,
     z = torch.empty((B, N * nu), dtype=torch.float32, device=dev)
     y = torch.empty((B, 2 * N * nu), dtype=torch.float32, device=dev)
     res = torch.empty((B,), dtype=torch.float32, device=dev)
-    (FUSED_QP_NU3_INV if form == "linv" else FUSED_QP[nu]).launch(
+    inv = solve_form == "inv" and nu == 3
+    (FUSED_QP_NU3_INV if inv else FUSED_QP[nu]).launch(
         prm, [t.data_ptr() for _, t, _ in ins]
         + [t.data_ptr() for t in (z, y, res)], B,
         torch.cuda.current_stream(dev).cuda_stream)

@@ -26,9 +26,9 @@ Eight entry points, one per mode and variant of the TPU kernel's
 The two solving walking forms have a second entry point each for
 ``SolverConfig.solve_form="inv"`` (``walking_tick_inv``,
 ``walking_tick_kf_inv``: the MPC core with the explicit factor inverse,
-csrc/mpc_core.cuh). The standing forms (n = 120 > 64) run the substitution
-sweeps whatever the form, as the TPU kernel does
-(mpc_fused_pallas.py:249); hold ticks run no solve.
+csrc/mpc_core.cuh, where n = 3 N <= 64; the substitution sweeps beyond,
+as the TPU kernel does, mpc_fused_pallas.py:249). The standing forms run
+the sweeps whatever the form; hold ticks run no solve.
 
 :func:`supports_fused_tick` accepts only what these kernels run.
 """
@@ -164,7 +164,7 @@ def supports_fused_tick(cfg) -> bool:
     the config's tick: walk or stand mode, truth or KF odometry, analytic
     IK, the warm ``admm_fused`` solver (solve_form "subst" or "inv"),
     capture or reference placement, and a QP the MPC core implements
-    (level attitude; a horizon of 1 to 21 steps walking, 1 to 42
+    (level attitude; a horizon of 1 to 85 steps walking, 1 to 42
     standing)."""
     return _config_reason(cfg) is None
 
@@ -200,7 +200,7 @@ def runs_as_composition(cfg) -> bool:
     ``ops/chol_cuda.py`` kernels, its warm admm_fused solves the fused MPC
     kernels where they apply (level attitude walking, any standing). The
     horizon is bounded only where the composition launches an MPC kernel
-    (21 steps walking, 42 standing) or a Cholesky kernel
+    (85 steps walking, 42 standing) or a Cholesky kernel
     (``chol_cuda.MAX_N`` within a block's shared memory)."""
     return (_other_reason(cfg) is None
             and (_variant_reason(cfg) or _solver_reason(cfg)) is not None
@@ -238,7 +238,7 @@ def _other_reason(cfg) -> str | None:
 def _horizon_reason(cfg, entry: str | None = None) -> str | None:
     """Why the MPC kernel `entry` (default: the config's solving tick
     kernel; ``walking_mpc_prep`` or ``fused_qp_nu6`` for a composition)
-    cannot take the config's horizon (None: it can): walking 1 to 21
+    cannot take the config's horizon (None: it can): walking 1 to 85
     steps, standing 1 to 42, within a block's shared memory."""
     if entry is None:
         entry = ("standing_tick" if cfg.mode == "stand" else "walking_tick")
@@ -346,7 +346,8 @@ def fused_walking_tick(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
                                     v_des=v_des, yaw_rate_des=yaw_rate,
                                     solve_form=plain_solve_form(
                                         cfg.srbd.solver.solve_form,
-                                        6 if cfg.mode == "stand" else 3))
+                                        6 if cfg.mode == "stand" else 3,
+                                        int(cfg.srbd.horizon)))
         outs = (st2.xi, st2.q, st2.foot_l, st2.foot_r, st2.qp_z,
                 st2.qp_lam, st2.ref_anchor, m["qp_residual"], m["grf"],
                 m["foot_target"])
@@ -362,13 +363,16 @@ def fused_walking_tick(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
 class TickLaunch(NamedTuple):
     """One launch of a tick kernel, ready to go: the kernel,
     its constants, its device pointers (inputs then outputs), the batch,
-    and what :func:`fused_walking_tick` returns once it has run."""
+    what :func:`fused_walking_tick` returns once it has run, and the input
+    tensors behind the pointers (held so that a plan launched later, or
+    replayed from a CUDA graph, never reads freed memory)."""
 
     kernel: _build.Kernel
     params: TickParams
     ptrs: list
     batch: int
     results: tuple
+    inputs: tuple
 
 
 def prepare_tick_launch(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
@@ -417,4 +421,5 @@ def prepare_tick_launch(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
                else outs)
     return TickLaunch(tick_kernels(cfg)[(est_kf, hold)], tick_params(cfg),
                       [t.data_ptr() for _, t, _ in ins]
-                      + [t.data_ptr() for t in outs], B, results)
+                      + [t.data_ptr() for t in outs], B, results,
+                      tuple(t for _, t, _ in ins))

@@ -81,8 +81,12 @@ def _states(cfg, B, seed, device, yaw=0.1):
     return s0.replace(xi=xi)
 
 
-@pytest.mark.parametrize("N", [20, 8])
+@pytest.mark.parametrize("N", [20, 8, 22, 42, 85])
 def test_prep_kernel_matches_plain(cuda_device, N):
+    """walking_mpc_prep against the plain composition with exact solves at
+    B = 257, at the walking tuning's N = 20, a short horizon and past the
+    21 steps the nu = 3 core once took (n = 66, 126, 255: two, four and
+    eight solve rows a lane)."""
     cfg = _cfg(N)
     args = _prep_inputs(cfg, 257, 21 + N, cuda_device)
     before = mfc.WALKING_MPC_PREP.launches
@@ -121,6 +125,37 @@ def test_tick_kernel_matches_plain(cuda_device):
     torch.testing.assert_close(s_k.xi, s_p.xi, atol=5e-4, rtol=0)
     torch.testing.assert_close(s_k.q, s_p.q, atol=1e-3, rtol=0)
     torch.testing.assert_close(m_k["grf"], m_p["grf"], atol=2e-1, rtol=0)
+
+
+@pytest.mark.parametrize("N", [22, 42, 85])
+@pytest.mark.parametrize("est_kf", [False, True])
+def test_walking_tick_past_21_steps_matches_plain(cuda_device, est_kf, N):
+    """walking_tick / walking_tick_kf past the 21 steps the nu = 3 core
+    once took, one tick through plant_step against the plain tick at
+    B = 257 from states three plain ticks in, with the N = 20 bands."""
+    base = ControllerConfig.walking()
+    if est_kf:
+        base = dataclasses.replace(base, estimator_mode="kf")
+    cfg = _horizon(base, N)
+    B = 257
+    s0 = _states(cfg, B, 5, cuda_device, yaw=0.0 if est_kf else 0.1)
+    its = _staggered(B, cuda_device)
+    for j in range(3):
+        s0, _ = ro._plant_step_ref(cfg, s0, its + j, solve_form="subst")
+    its = its + 3.0
+    kern = tfc.TICK_KERNELS[(est_kf, False)]
+    before = kern.launches
+    s_k, m_k = ro.plant_step(cfg, s0, its)
+    assert kern.launches == before + 1
+    s_p, m_p = ro._plant_step_ref(cfg, s0, its, solve_form="subst")
+    for k, a in (("xi", 3e-4), ("q", 5e-4), ("foot_l", 5e-4),
+                 ("foot_r", 5e-4), ("ref_anchor", 1e-5)):
+        torch.testing.assert_close(getattr(s_k, k), getattr(s_p, k),
+                                   atol=a, rtol=0)
+    torch.testing.assert_close(m_k["grf"], m_p["grf"], atol=5e-2, rtol=0)
+    torch.testing.assert_close(s_k.qp_z[:, :9], s_p.qp_z[:, :9], atol=5e-2,
+                               rtol=0)
+    assert s_k.qp_z.shape == (B, 3 * N)
 
 
 def _staggered(B, device):
@@ -387,11 +422,46 @@ def test_fused_qp_matches_plain(cuda_device, nu, N):
 
 def test_fused_qp_nu6_past_21_steps_matches_plain(cuda_device):
     """fused_qp_nu6 at N = 30 (n = 180, eight solve rows a lane), the bands
-    above; nu = 3 still refuses past 21 steps."""
+    above; nu = 6 refuses past 42 steps and nu = 3 past 85."""
     _fused_qp_vs_plain(cuda_device, 6, 30)
-    args = _qp_inputs(_cfg(22), 3, 2, 1, cuda_device)
-    with pytest.raises(ValueError, match="1 to 21 steps"):
-        mfc.make_admm_fused(_cfg(22).srbd)(*args)
+    args = _qp_inputs(_cfg(43), 6, 2, 1, cuda_device)
+    with pytest.raises(ValueError, match="1 to 42 steps"):
+        mfc.make_admm_fused(_cfg(43).srbd, two_feet=True)(*args)
+    args = _qp_inputs(_cfg(86), 3, 2, 1, cuda_device)
+    with pytest.raises(ValueError, match="1 to 85 steps"):
+        mfc.make_admm_fused(_cfg(86).srbd)(*args)
+
+
+@pytest.mark.parametrize("N", [22, 42])
+def test_fused_qp_nu3_past_21_steps_matches_plain(cuda_device, N):
+    """fused_qp_nu3 past the 21 steps the nu = 3 core once took (n = 66,
+    126: two and four solve rows a lane), the bands above."""
+    _fused_qp_vs_plain(cuda_device, 3, N)
+
+
+def test_fused_qp_nu3_at_85_steps_against_f64(cuda_device):
+    """fused_qp_nu3 at its longest horizon, N = 85 (n = 255, eight solve
+    rows a lane), where over 85 steps of the perturbed dense Ad the kernel
+    and the plain f32 version part by more than the shorter horizons' 1e-4
+    of the solution scale: each output held against the plain version in
+    float64 on the CPU, the kernel's error at most twice the plain f32
+    version's (an f32 route no worse than the reference route)."""
+    nu, N = 3, 85
+    cfg = _cfg(N)
+    args = _qp_inputs(cfg, nu, 257, 40 + nu + N, cuda_device)
+    solve = mfc.make_admm_fused(cfg.srbd)
+    plain = mfc.make_admm_fused(cfg.srbd, solve_form="subst")
+    before = mfc.FUSED_QP[nu].launches
+    sol, zy = solve(*args)
+    assert mfc.FUSED_QP[nu].launches == before + 1
+    sol_p, zy_p = plain(*args)
+    sol_d, zy_d = plain(*[a.cpu().double() for a in args])
+    for k, a, p_, d in zip(("z", "y", "res"), zy + (sol.residual,),
+                           zy_p + (sol_p.residual,),
+                           zy_d + (sol_d.residual,)):
+        err_k = float((a.cpu().double() - d).abs().max())
+        err_p = float((p_.cpu().double() - d).abs().max())
+        assert err_k <= 2.0 * err_p, (k, err_k, err_p)
 
 
 def test_fused_qp_nu6_at_42_steps_matches_f64(cuda_device):
@@ -577,9 +647,12 @@ def test_chol_smem_mirror_matches_library(cuda_device):
 
 def test_mpc_smem_mirror_matches_library(cuda_device):
     """mpc_fused_cuda.smem_bytes (the wrappers' size rule) equals the
-    library's *_smem_bytes for every entry point on the MPC core at every
-    horizon it takes; at N = 20 the standing solving forms hold at least
-    five blocks an SM, fused_qp_nu6 at least four."""
+    library's *_smem_bytes for every entry point on the MPC core (the
+    ``_inv`` ones too) at every horizon it takes (N = 1, 8, 20, 21, 22, 64
+    and 85 among them); at N = 20 the standing solving forms hold at least
+    five blocks an SM, fused_qp_nu6 at least four, and the walking solving
+    forms and the prep kernel more than the six of the nu = 3 core before
+    its redesign."""
     lib = chol_cuda._build.build_library()["lib"]
     for name in mfc.MPC_ENTRIES:
         for N in range(1, mfc.max_horizon(mfc.entry_nu(name)) + 1):
@@ -589,6 +662,8 @@ def test_mpc_smem_mirror_matches_library(cuda_device):
               for name in mfc.MPC_ENTRIES}
     assert min(per_sm["standing_tick"], per_sm["standing_tick_kf"]) >= 5
     assert per_sm["fused_qp_nu6"] >= 4
+    assert min(per_sm[e] for e in ("walking_tick", "walking_tick_kf",
+                                   "walking_mpc_prep")) > 6, per_sm
 
 
 def test_chol_kernels_on_late_pdip_matrices(cuda_device):
@@ -823,6 +898,42 @@ def test_tick_inv_kernels_match_twin_and_subst(cuda_device, est_kf):
     assert hold.launches == before + 1
 
 
+def test_inv_entries_equal_subst_past_n64(cuda_device):
+    """Past n = 64 the TPU kernel runs the substitution sweeps whatever the
+    form (mpc_fused_pallas.py:249): at N = 22 (n = 66) every inv entry
+    launches and gives its subst entry's outputs bit for bit."""
+    cfg, icfg = _cfg(22), _inv(_cfg(22))
+    args = _prep_inputs(cfg, 33, 5, cuda_device)
+    before = mfc.WALKING_MPC_PREP_INV.launches
+    outs = mfc.fused_walking_qp_prep(*args, cfg=icfg)
+    assert mfc.WALKING_MPC_PREP_INV.launches == before + 1
+    for a, b in zip(outs, mfc.fused_walking_qp_prep(*args, cfg=cfg)):
+        assert torch.equal(a, b)
+    qargs = _qp_inputs(cfg, 3, 33, 6, cuda_device)
+    before = mfc.FUSED_QP_NU3_INV.launches
+    sol_i, zy_i = mfc.make_admm_fused(icfg.srbd)(*qargs)
+    assert mfc.FUSED_QP_NU3_INV.launches == before + 1
+    sol_s, zy_s = mfc.make_admm_fused(cfg.srbd)(*qargs)
+    for a, b in zip(zy_i + (sol_i.residual,), zy_s + (sol_s.residual,)):
+        assert torch.equal(a, b)
+    for est_kf in (False, True):
+        base = dataclasses.replace(cfg, estimator_mode="kf") if est_kf \
+            else cfg
+        s0 = _states(base, 33, 7, cuda_device, yaw=0.0 if est_kf else 0.1)
+        its = _staggered(33, cuda_device)
+        kern = tfc.TICK_KERNELS_INV[(est_kf, False)]
+        before = kern.launches
+        s_i, m_i = ro.plant_step(_inv(base), s0, its)
+        assert kern.launches == before + 1
+        s_s, m_s = ro.plant_step(base, s0, its)
+        for k in ("xi", "q", "foot_l", "foot_r", "qp_z", "qp_lam",
+                  "ref_anchor"):
+            assert torch.equal(getattr(s_i, k), getattr(s_s, k)), k
+        assert torch.equal(m_i["grf"], m_s["grf"])
+        if est_kf:
+            assert torch.equal(s_i.kf.p_cov, s_s.kf.p_cov)
+
+
 # ---- the fused interior point (K9) and the controller variants -----------
 
 def _standing_qp(B, seed, device):
@@ -995,13 +1106,14 @@ def _horizon(cfg, N):
 
 
 def test_composition_runs_past_the_mpc_horizon(cuda_device):
-    """A horizon of 22 steps (past the MPC kernels' 21): the warm PDIP
-    walking composition runs through plant_step on the card, one cholesky
-    and two chol_solve launches per Newton step and tick (n = 66), its
-    first tick within the bands of the variant ticks above against the
-    same tick on CPU tensors; the warm fused walking QP and the warm
-    standing ADMM, which would launch an MPC kernel, raise naming the
-    limit."""
+    """A horizon of 22 steps (past the 21 the MPC kernels once took): the
+    warm PDIP walking composition runs through plant_step on the card, one
+    cholesky and two chol_solve launches per Newton step and tick
+    (n = 66), its first tick within the bands of the variant ticks above
+    against the same tick on CPU tensors; the fused walking and standing
+    ticks and the warm standing ADMM run their MPC kernels at N = 22, and
+    a horizon past what those take (86 walking, 43 standing) raises,
+    naming the limit."""
     base = ControllerConfig.walking()
     cfg = _horizon(dataclasses.replace(base, srbd=dataclasses.replace(
         base.srbd, solver=dataclasses.replace(base.srbd.solver,
@@ -1030,24 +1142,28 @@ def test_composition_runs_past_the_mpc_horizon(cuda_device):
     assert got == dict(cholesky=iters * ticks, chol_solve=2 * iters * ticks,
                        posdef_solve=0, posdef_solve_fast=0)
     assert bool(torch.isfinite(st.xi).all()) and st.qp_z.shape == (B, 66)
-    for bad in (_horizon(base, 22),
-                _horizon(dataclasses.replace(base, estimator_mode="kf"), 22)):
+    kf = dataclasses.replace(base, estimator_mode="kf")
+    for bad in (_horizon(base, 86), _horizon(kf, 86)):
         sb = ro.initial_plant_state(bad, batch=(2,), device=cuda_device)
-        with pytest.raises(NotImplementedError, match="1 to 21 steps"):
+        with pytest.raises(NotImplementedError, match="1 to 85 steps"):
             ro.plant_step(bad, sb, torch.zeros(2, device=cuda_device))
-    # the standing MPC kernels take 1 to 42 steps: the fused standing tick
-    # and the warm standing ADMM (fused_qp_nu6) run at N = 22
+    # the walking MPC kernels take 1 to 85 steps, the standing ones 1 to
+    # 42: the fused walking and standing ticks and the warm standing ADMM
+    # (fused_qp_nu6) run at N = 22
     stand = ControllerConfig.standing()
     admm = dataclasses.replace(stand, srbd=dataclasses.replace(
         stand.srbd, solver=dataclasses.replace(stand.srbd.solver,
                                                method="admm")))
-    for c, kern in ((_horizon(stand, 22), tfc.STAND_KERNELS[(False, False)]),
-                    (_horizon(admm, 22), mfc.FUSED_QP[6])):
+    for c, kern, n in (
+            (_horizon(base, 22), tfc.TICK_KERNELS[(False, False)], 66),
+            (_horizon(kf, 22), tfc.TICK_KERNELS[(True, False)], 66),
+            (_horizon(stand, 22), tfc.STAND_KERNELS[(False, False)], 132),
+            (_horizon(admm, 22), mfc.FUSED_QP[6], 132)):
         sb = ro.initial_plant_state(c, batch=(2,), device=cuda_device)
         before = kern.launches
         s2, m2 = ro.plant_step(c, sb, torch.zeros(2, device=cuda_device))
         assert kern.launches == before + 1
-        assert s2.qp_z.shape == (2, 132) and bool(
+        assert s2.qp_z.shape == (2, n) and bool(
             torch.isfinite(m2["grf"]).all())
     s43 = ro.initial_plant_state(_horizon(stand, 43), batch=(2,),
                                  device=cuda_device)

@@ -33,6 +33,7 @@ from mpc_limx_control_tpu_torch.control import controller as tctrl
 from mpc_limx_control_tpu_torch.control import linear_mpc as tlin
 from mpc_limx_control_tpu_torch.control import rollout as tro
 from mpc_limx_control_tpu_torch.core import types as ttypes
+from mpc_limx_control_tpu_torch.core.config import ControllerConfig as TCfg
 from mpc_limx_control_tpu_torch.core.config import MPCConfig as TMPC
 from mpc_limx_control_tpu_torch.core.config import SolverConfig as TSolver
 from mpc_limx_control_tpu_torch.models import double_integrator as tdi
@@ -298,17 +299,10 @@ def _small_inv(cfg):
             cfg.srbd.solver, solve_form="inv")))
 
 
-def test_linv_twin_matches_jax_inv_kernel_interpret():
-    """walking_mpc_prep_inv's plain twin ("linv") against JAX
-    make_walking_fused(use_pallas="interpret") with solve_form="inv" at
-    horizon 8, B = 3: the bands of the "subst" twin (u, y within 2e-3 of
-    the solution scale, xi_pred within 1e-3 of it,
-    tests/test_mpc_fused.py:257-260); the wrapper's CPU branch is the
-    twin."""
-    jcfg = _small_inv(JCfg.walking())
-    tcfg = convert.config_from_dict(jcfg)
-    B, N = 3, 8
-    rng = np.random.default_rng(21)
+def _prep_ins(B, N, seed):
+    """numpy-seeded f32 inputs of the walking prep QP: perturbed poses, arms
+    under the hips, commands, a warm state and the anchor."""
+    rng = np.random.default_rng(seed)
     pos = np.array([0.0, 0.0, 0.65]) + 0.02 * rng.standard_normal((B, 3))
     yaw = 0.1 * rng.standard_normal(B)
     arms = (pos[:, None, :] + np.array([0.02, 0.1, -0.65])
@@ -322,7 +316,20 @@ def test_linv_twin_matches_jax_inv_kernel_interpret():
     z_w = 5.0 * rng.standard_normal((B, 3 * N))
     y_w = np.abs(rng.standard_normal((B, 6 * N)))
     anc = np.concatenate([x0[:, 3:5], x0[:, 2:3]], -1)
-    ins = [a.astype(np.float32) for a in (arms, x0, v_des, w, z_w, y_w, anc)]
+    return [a.astype(np.float32) for a in (arms, x0, v_des, w, z_w, y_w,
+                                           anc)]
+
+
+def test_linv_twin_matches_jax_inv_kernel_interpret():
+    """walking_mpc_prep_inv's plain twin ("linv") against JAX
+    make_walking_fused(use_pallas="interpret") with solve_form="inv" at
+    horizon 8, B = 3: the bands of the "subst" twin (u, y within 2e-3 of
+    the solution scale, xi_pred within 1e-3 of it,
+    tests/test_mpc_fused.py:257-260); the wrapper's CPU branch is the
+    twin."""
+    jcfg = _small_inv(JCfg.walking())
+    tcfg = convert.config_from_dict(jcfg)
+    ins = _prep_ins(3, 8, 21)
     solver_k = jfused.make_walking_fused(jcfg, use_pallas="interpret")
     with pltpu.force_tpu_interpret_mode():
         _, xp_j, (z_j, y_j) = jax.vmap(solver_k)(
@@ -360,11 +367,11 @@ def test_inv_dispatch_walking_and_standing():
                      (True, False): "walking_tick_kf_inv",
                      (True, True): "walking_tick_kf_hold"}
     assert ttfc.tick_kernels(sinv) is ttfc.STAND_KERNELS
-    assert tmfc.plain_solve_form("inv", 3) == "linv"
-    assert tmfc.plain_solve_form("inv", 6) == "subst"
-    assert tmfc.plain_solve_form("subst", 3) == "subst"
+    assert tmfc.plain_solve_form("inv", 3, 20) == "linv"
+    assert tmfc.plain_solve_form("inv", 6, 20) == "subst"
+    assert tmfc.plain_solve_form("subst", 3, 20) == "subst"
     with pytest.raises(ValueError, match="solve_form"):
-        tmfc.plain_solve_form("kinv", 3)
+        tmfc.plain_solve_form("kinv", 3, 20)
     # the wrappers' CPU branches: walking = the "linv" tick, standing = the
     # "subst" tick, bit for bit
     for cfg, form in ((winv, "linv"), (sinv, "subst")):
@@ -380,3 +387,36 @@ def test_inv_dispatch_walking_and_standing():
             v_des=torch.tensor([[0.3, 0.0, 0.0]] * 2),
             yaw_rate_des=torch.zeros(2), solve_form=form)
         assert torch.equal(outs[0], s2.xi) and torch.equal(outs[4], s2.qp_z)
+
+
+@pytest.mark.parametrize("N", [21, 22])
+def test_inv_twin_switches_to_subst_past_n64(N):
+    """solve_form="inv" forms the factor inverse only where n <= 64, as
+    the TPU kernel does (mpc_fused_pallas.py:249): the plain form of the
+    inv kernels is "linv" at N = 21 (n = 63) and "subst" at N = 22
+    (n = 66), and the walking prep wrapper's and the tick wrapper's CPU
+    branches of an inv config are that twin bit for bit (at N = 22 the
+    subst twin exactly; at N = 21 not the subst twin)."""
+    form = tmfc.plain_solve_form("inv", 3, N)
+    assert form == ("linv" if N == 21 else "subst")
+    base = TCfg.walking()
+    cfg = dataclasses.replace(base, srbd=dataclasses.replace(
+        base.srbd, horizon=N, solver=dataclasses.replace(
+            base.srbd.solver, solve_form="inv")))
+    tins = [torch.from_numpy(a) for a in _prep_ins(3, N, 40 + N)]
+    z, y, res, xp = tmfc.fused_walking_qp_prep(*tins, cfg=cfg)
+    sol_f, xp_f, (z_f, y_f) = tmfc.walking_qp_prep_plain(cfg, *tins,
+                                                         solve_form=form)
+    assert torch.equal(z, z_f) and torch.equal(y, y_f)
+    assert torch.equal(xp, xp_f) and torch.equal(res, sol_f.residual)
+    z_s = tmfc.walking_qp_prep_plain(cfg, *tins, solve_form="subst")[2][0]
+    assert torch.equal(z, z_s) == (N == 22)
+    s = tro.initial_plant_state(cfg, batch=(2,), device="cpu")
+    its = torch.tensor([5.0, 320.0])
+    outs = ttfc.fused_walking_tick(
+        s.xi, s.q, s.foot_l, s.foot_r, s.qp_z, s.qp_lam, s.ref_anchor, its,
+        torch.tensor([[0.3, 0.0, 0.0]] * 2), torch.zeros(2), cfg=cfg)
+    s2, _ = tro._plant_step_ref(
+        cfg, s, its, v_des=torch.tensor([[0.3, 0.0, 0.0]] * 2),
+        yaw_rate_des=torch.zeros(2), solve_form=form)
+    assert torch.equal(outs[0], s2.xi) and torch.equal(outs[4], s2.qp_z)

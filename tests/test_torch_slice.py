@@ -117,6 +117,32 @@ def test_plant_step_ref_matches_jax_f64():
         assert torch.equal(getattr(st3, k), getattr(st2, k))
 
 
+def test_plant_step_ref_n40_matches_jax_f64():
+    """The walking tick past the 21 steps the nu = 3 core once took: N = 40
+    (n = 120, what the walking kernels run with four solve rows a lane),
+    B = 3, two threaded full-width ticks against JAX _plant_step_ref in
+    float64, 1e-8 on the state, the warm QP state and every metric."""
+    def n40(c):
+        return dataclasses.replace(c, srbd=dataclasses.replace(c.srbd,
+                                                               horizon=40))
+
+    jcfg, tcfg = n40(JCfg.walking()), n40(TCfg.walking())
+    assert ttfc.supports_fused_tick(tcfg)
+    sj = _perturbed(jcfg, 3, 5, np.float64)
+    st = _port_state(sj, torch.float64)
+    its = np.asarray([0.0, 180.0, 299.0])
+    for j in range(2):
+        sj, mj = jax.vmap(lambda s, it: jro._plant_step_ref(jcfg, s, it))(
+            sj, jnp.asarray(its + j))
+        st, mt = tro._plant_step_ref(tcfg, st, torch.tensor(its + j))
+        _assert_states(st, sj, {k: 1e-8 for k in FIELDS})
+        assert set(mt) == set(mj)
+        for k, v in mt.items():
+            np.testing.assert_allclose(v.numpy(), np.asarray(mj[k]),
+                                       atol=1e-8, rtol=0, err_msg=k)
+    assert st.qp_z.shape == (3, 120) and st.qp_lam.shape == (3, 240)
+
+
 def test_hold_tick_matches_jax_f64():
     """The dtMPC held-force tick (grf_override) of the plain composition."""
     jcfg, tcfg = JCfg.walking(), TCfg.walking()
@@ -343,10 +369,11 @@ def test_unsupported_configs_refuse():
                     cfg.srbd, attitude_ref="x"))):
         assert not ttfc.supports_fused_tick(bad)
         assert not ttfc.runs_as_composition(bad)
-    # a horizon past the walking MPC kernels' 21 steps: the compositions
-    # that launch no MPC kernel run it; the warm fused walking QP
-    # (walking_mpc_prep) is refused, naming the limit; the standing kernels
-    # (standing_tick, fused_qp_nu6) take 1 to 42 steps (n = 6 N <= 256)
+    # a horizon past the 21 steps the walking MPC kernels once took: the
+    # compositions that launch no MPC kernel run it; the walking kernels
+    # (walking_tick, walking_mpc_prep) take 1 to 85 steps (n = 3 N <= 256),
+    # the standing ones (standing_tick, fused_qp_nu6) 1 to 42 (n = 6 N <=
+    # 256); past that the fused QP is refused, naming the limit
     def n22(c, N=22):
         return dataclasses.replace(c, srbd=dataclasses.replace(
             c.srbd, horizon=N))
@@ -357,10 +384,18 @@ def test_unsupported_configs_refuse():
         assert not ttfc.supports_fused_tick(n22(other))
         assert ttfc.runs_as_composition(n22(other))
     s22 = tro.initial_plant_state(n22(cfg), batch=(1,), device="cpu")
-    for bad in (cfg, kf, dataclasses.replace(cfg, ik_method="damped_ls")):
-        assert not ttfc.supports_fused_tick(n22(bad))
-        assert not ttfc.runs_as_composition(n22(bad))
-        assert "1 to 21 steps" in ttfc.unsupported_reason(n22(bad), s22)
+    dls = dataclasses.replace(cfg, ik_method="damped_ls")
+    for N in (22, 85):
+        s_n = tro.initial_plant_state(n22(cfg, N), batch=(1,), device="cpu")
+        for ok in (cfg, kf, inv):
+            assert ttfc.supports_fused_tick(n22(ok, N))
+        assert ttfc.unsupported_reason(n22(cfg, N), s_n) is None
+        assert ttfc.runs_as_composition(n22(dls, N))
+    s86 = tro.initial_plant_state(n22(cfg, 86), batch=(1,), device="cpu")
+    for bad in (cfg, kf, dls):
+        assert not ttfc.supports_fused_tick(n22(bad, 86))
+        assert not ttfc.runs_as_composition(n22(bad, 86))
+        assert "1 to 85 steps" in ttfc.unsupported_reason(n22(bad, 86), s86)
     for N in (22, 42):
         s_n = tro.initial_plant_state(n22(stand, N), batch=(1,),
                                       device="cpu")

@@ -387,24 +387,34 @@ def test_core_layout_fits_the_blocks_an_sm(monkeypatch):
     """The Python mirror of the MPC core's shared-memory layout
     (mpc_fused_cuda.smem_bytes): at N = 20 the standing solving forms fit
     at least five blocks in an SM's 233,472 bytes with 1 KB reserved a
-    block and fused_qp_nu6 at least four; the walking (nu = 3) layouts are
-    those of the core before the nu = 6 redesign; every horizon the
-    kernels take fits a block; the refusals name the horizon and the
+    block, fused_qp_nu6 at least four, and the walking solving forms and
+    the prep kernel (the nu = 3 core, packed K and S_k instead of the N
+    Gramians) at least ten; an ``_inv`` entry adds the packed factor
+    inverse where n <= 64 (nine blocks of the ``inv`` ticks) and nothing
+    beyond; every horizon the kernels take fits a block (walking
+    1 to 85, standing 1 to 42); the refusals name the horizon and the
     shared-memory limits."""
     def per_sm(entry):
         return 233472 // (tmfc.smem_bytes(entry, 20) + 1024)
 
     assert min(per_sm("standing_tick"), per_sm("standing_tick_kf")) >= 5
     assert per_sm("fused_qp_nu6") >= 4
+    assert min(per_sm(e) for e in ("walking_tick", "walking_tick_kf",
+                                   "walking_mpc_prep")) >= 10
+    assert min(per_sm("walking_tick_inv"), per_sm("walking_tick_kf_inv")) >= 9
     assert tmfc.smem_bytes("standing_tick", 20) == 37456
     assert tmfc.smem_bytes("standing_tick_kf", 20) == 37456
     assert tmfc.smem_bytes("fused_qp_nu6", 20) == 45156
-    for entry, was in (("walking_mpc_prep", 34576), ("walking_tick", 34640),
-                       ("walking_tick_kf", 34640), ("fused_qp_nu3", 36372)):
-        assert tmfc.smem_bytes(entry, 20) == was, entry
+    for entry, now in (("walking_mpc_prep", 15400), ("walking_tick", 15464),
+                       ("walking_tick_kf", 15464), ("fused_qp_nu3", 16956)):
+        assert tmfc.smem_bytes(entry, 20) == now, entry
+        # the factor inverse, 60 x 61 / 2 floats, up to n = 64 only
+        assert tmfc.smem_bytes(entry + "_inv", 20) == now + 4 * 1830
+        assert (tmfc.smem_bytes(entry + "_inv", 22)
+                == tmfc.smem_bytes(entry, 22))
     for entry in tmfc.MPC_ENTRIES:
         top = tmfc.max_horizon(tmfc.entry_nu(entry))
-        assert top == (42 if tmfc.entry_nu(entry) == 6 else 21)
+        assert top == (42 if tmfc.entry_nu(entry) == 6 else 85)
         for N in range(1, top + 1):
             assert tmfc.size_reason(entry, N) is None, (entry, N)
         assert f"1 to {top} steps" in tmfc.size_reason(entry, top + 1)

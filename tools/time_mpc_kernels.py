@@ -5,19 +5,23 @@ outputs exactly.
 Run on a machine with a CUDA card:
 
     python3 tools/time_mpc_kernels.py [--root CHECKOUT] [--dump DIR]
-    python3 tools/time_mpc_kernels.py --stages
+                                      [--horizon N] [--entries E ...]
+    python3 tools/time_mpc_kernels.py --stages [--horizon N]
     python3 tools/time_mpc_kernels.py --compare DIR_A DIR_B
 
 ``--root`` is the checkout whose ``mpc_limx_control_tpu_torch`` is
 imported (default: the one holding this script); its kernels are built
 there at first use. Prints one JSON line: the card's name and power limit
-and, per entry point (``standing_tick``, ``standing_tick_kf``,
-``fused_qp_nu6`` and, as controls, ``walking_tick``, ``walking_tick_kf``,
-``walking_mpc_prep``, ``fused_qp_nu3``) at N = 20 and B = 1 and 4096, the
-device time per launch over launches replayed from a CUDA graph on fixed
-numpy-seeded inputs, its dynamic shared memory and, where the library
-exports it, the blocks an SM holds. Two checkouts are compared by running
-this once per checkout, in turns, inside one call on one card.
+and, per entry point on the core (the walking ``walking_tick``,
+``walking_tick_kf``, ``walking_mpc_prep``, ``fused_qp_nu3`` and their four
+``_inv`` forms; the standing ``standing_tick``, ``standing_tick_kf`` and
+``fused_qp_nu6``) at horizon N (``--horizon``, default 20) and B = 1 and
+4096, the device time per launch over launches replayed from a CUDA graph
+on fixed numpy-seeded inputs, its dynamic shared memory and, where the
+library exports them, the blocks an SM holds; an entry the checkout
+refuses at that horizon is reported with its reason. Two checkouts are
+compared by running this once per checkout, in turns, inside one call on
+one card.
 
 ``--dump DIR`` also saves every output of those launches to
 ``DIR/outputs.npz`` (~15 MB: keep DIR out of the files a call brings
@@ -50,10 +54,10 @@ import torch
 from time_chol_kernels import compare, cuda_ms
 
 BATCHES = {1: 200, 4096: 20}     # batch -> graph-replayed launches
-N = 20
-ENTRIES = ("standing_tick", "standing_tick_kf", "fused_qp_nu6",
-           "walking_tick", "walking_tick_kf", "walking_mpc_prep",
-           "fused_qp_nu3")
+ENTRIES = ("walking_tick", "walking_tick_kf", "walking_tick_inv",
+           "walking_tick_kf_inv", "walking_mpc_prep", "walking_mpc_prep_inv",
+           "fused_qp_nu3", "fused_qp_nu3_inv", "standing_tick",
+           "standing_tick_kf", "fused_qp_nu6")
 TICK_FIELDS = ("xi", "q", "foot_l", "foot_r", "z", "y", "anchor",
                "residual", "grf", "target", "kf_x", "kf_p")
 STAGE_READER = {"standing_tick": "standing_tick_stage_clocks",
@@ -63,6 +67,8 @@ STAGE_READER = {"standing_tick": "standing_tick_stage_clocks",
                 "walking_tick": "walking_tick_stage_clocks",
                 "walking_tick_kf": "walking_tick_stage_clocks",
                 "walking_mpc_prep": "walking_mpc_prep_stage_clocks"}
+STAGE_READER.update({f"{e}_inv": STAGE_READER[e] for e in (
+    "walking_tick", "walking_tick_kf", "walking_mpc_prep", "fused_qp_nu3")})
 
 
 def _t(a, dev):
@@ -78,7 +84,7 @@ def tick_call(cfg, B: int, seed: int, dev):
     from mpc_limx_control_tpu_torch.ops import tick_fused_cuda as tfc
 
     kf = cfg.estimator_mode == "kf"
-    n = (6 if cfg.mode == "stand" else 3) * N
+    n = (6 if cfg.mode == "stand" else 3) * cfg.srbd.horizon
     s = ro.initial_plant_state(cfg, batch=(B,), device=dev)
     rng = np.random.default_rng(seed)
     xi = s.xi.clone()
@@ -93,13 +99,17 @@ def tick_call(cfg, B: int, seed: int, dev):
     anc = torch.cat([xi[:, 3:5], xi[:, 2:3]], -1).contiguous()
     kf_args = dict(kf_x=s.kf.x_hat, kf_p=s.kf.p_cov, prev_v=s.prev_v,
                    prev_q=s.prev_q) if kf else {}
-    plan = tfc.prepare_tick_launch(
-        xi.contiguous(), s.q, s.foot_l, s.foot_r, z, y, anc, it, vd,
-        torch.zeros(B, device=dev), cfg=cfg, **kf_args)
+    inputs = (xi.contiguous(), s.q, s.foot_l, s.foot_r, z, y, anc, it, vd,
+              torch.zeros(B, device=dev))
+    plan = tfc.prepare_tick_launch(*inputs, cfg=cfg, **kf_args)
 
     def launch():
+        # the plan carries raw pointers: `inputs` (and `s`, which holds the
+        # filter state) stay referenced here for as long as it is launched,
+        # whatever the checkout's plan keeps
         plan.kernel.launch(plan.params, plan.ptrs, plan.batch,
                            torch.cuda.current_stream(dev).cuda_stream)
+        return inputs, s
 
     return launch, TICK_FIELDS[:len(plan.results)], plan.results
 
@@ -110,6 +120,7 @@ def prep_call(cfg, B: int, seed: int, dev):
     from mpc_limx_control_tpu_torch.models import srbd
     from mpc_limx_control_tpu_torch.ops import mpc_fused_cuda as mfc
 
+    N = cfg.srbd.horizon
     rng = np.random.default_rng(seed)
     pos = np.array([0.0, 0.0, 0.65]) + 0.02 * rng.standard_normal((B, 3))
     yaw = 0.1 * rng.standard_normal(B)
@@ -142,6 +153,7 @@ def qp_call(cfg, nu: int, B: int, seed: int, dev):
     from mpc_limx_control_tpu_torch.models import srbd
     from mpc_limx_control_tpu_torch.ops import mpc_fused_cuda as mfc
 
+    N = cfg.srbd.horizon
     rng = np.random.default_rng(seed)
     feet = nu // 3
     pos = np.array([0.0, 0.0, 0.65]) + 0.02 * rng.standard_normal((B, 3))
@@ -177,10 +189,22 @@ def qp_call(cfg, nu: int, B: int, seed: int, dev):
     return launch, ("z", "y", "residual"), out
 
 
-def entry_call(name: str, B: int, dev):
+def entry_call(name: str, B: int, dev, N: int):
+    """(launch, output names, outputs) of entry `name` at horizon N on the
+    walking (or standing) tuning; an ``_inv`` entry through its config's
+    solve_form="inv"."""
     from mpc_limx_control_tpu_torch.core.config import ControllerConfig
 
-    walk, stand = ControllerConfig.walking(), ControllerConfig.standing()
+    def horizon(c):
+        solver = dataclasses.replace(
+            c.srbd.solver, solve_form="inv" if inv else "subst")
+        return dataclasses.replace(c, srbd=dataclasses.replace(
+            c.srbd, horizon=N, solver=solver))
+
+    inv = name.endswith("_inv")
+    name = name[:-len("_inv")] if inv else name
+    walk = horizon(ControllerConfig.walking())
+    stand = horizon(ControllerConfig.standing())
     kf = name.endswith("_kf")
     if name.startswith(("standing_tick", "walking_tick")):
         cfg = stand if name.startswith("standing") else walk
@@ -209,19 +233,41 @@ def _import(root: str):
     return _build
 
 
-def measure(root: str, dump: str | None) -> dict:
+def library_sizes(lib, name: str, N: int) -> dict:
+    """What the library says of entry `name` at horizon N: its dynamic
+    shared memory and the blocks an SM holds, where it exports them."""
+    row = {}
+    for key in ("smem_bytes", "blocks_per_sm"):
+        if hasattr(lib, f"{name}_{key}"):
+            row[key] = getattr(lib, f"{name}_{key}")(N)
+    return row
+
+
+def refusal(name: str, dev, N: int) -> str | None:
+    """Why the checkout refuses entry `name` at horizon N (None: it runs)."""
+    try:
+        entry_call(name, 1, dev, N)
+    except (ValueError, NotImplementedError) as exc:
+        return str(exc)
+    return None
+
+
+def measure(root: str, dump: str | None, N: int, entries) -> dict:
     _build = _import(root)
     dev = torch.device("cuda", 0)
-    lib = _build.build_library()["lib"]
+    info = _build.build_library()
+    lib = info["lib"]
     out = {"root": root, "card": card(), "N": N,
-           "library": str(_build.build_library()["path"])}
+           "library": str(info["path"])}
     saved = {}
-    for name in ENTRIES:
-        row = {"smem_bytes": getattr(lib, f"{name}_smem_bytes")(N)}
-        if hasattr(lib, f"{name}_blocks_per_sm"):
-            row["blocks_per_sm"] = getattr(lib, f"{name}_blocks_per_sm")(N)
+    for name in entries:
+        row = library_sizes(lib, name, N)
+        reason = refusal(name, dev, N)
+        if reason is not None:
+            out[name] = dict(row, refused=reason)
+            continue
         for B, reps in BATCHES.items():
-            launch, fields, results = entry_call(name, B, dev)
+            launch, fields, results = entry_call(name, B, dev, N)
             row[f"B{B}_ms"] = cuda_ms(launch, reps)
             launch()
             torch.cuda.synchronize()
@@ -234,7 +280,7 @@ def measure(root: str, dump: str | None) -> dict:
     return out
 
 
-def stages(root: str) -> dict:
+def stages(root: str, N: int, entries) -> dict:
     """Per entry and batch, the mean cycles a block spends in each stage,
     from the MPC_STAGE_CLOCKS build (see the module docstring)."""
     import ctypes
@@ -248,11 +294,15 @@ def stages(root: str) -> dict:
     slots, max_b = 16, 4096
     clocks = np.zeros((max_b, slots), np.int64)
     out = {"root": root, "card": card(), "N": N, "library": info["path"]}
-    for name in ENTRIES:
+    for name in entries:
         read = getattr(stamped, STAGE_READER[name])
         read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+        reason = refusal(name, dev, N)
+        if reason is not None:
+            out[name] = {"refused": reason}
+            continue
         for B in BATCHES:
-            launch, _, _ = entry_call(name, B, dev)
+            launch, _, _ = entry_call(name, B, dev, N)
             for _ in range(3):
                 launch()
             torch.cuda.synchronize()
@@ -285,6 +335,10 @@ def main() -> int:
                     help="split each block's time into the core's stages")
     ap.add_argument("--compare", nargs=2, metavar=("DIR_A", "DIR_B"),
                     help="compare two --dump directories and exit")
+    ap.add_argument("--horizon", type=int, default=20,
+                    help="MPC horizon N of every entry (default 20)")
+    ap.add_argument("--entries", nargs="+", choices=ENTRIES,
+                    default=list(ENTRIES), help="entries to run")
     args = ap.parse_args()
     if args.compare:
         print(json.dumps(compare(*args.compare)), flush=True)
@@ -292,8 +346,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_mpc_kernels: no CUDA device", file=sys.stderr)
         return 1
-    result = stages(args.root) if args.stages else measure(args.root,
-                                                          args.dump)
+    if args.stages:
+        result = stages(args.root, args.horizon, args.entries)
+    else:
+        result = measure(args.root, args.dump, args.horizon, args.entries)
     print(json.dumps(result), flush=True)
     return 0
 
