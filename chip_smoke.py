@@ -46,7 +46,9 @@ non-zero):
    height above 0.6);
 6. with CUDA events at B = 1, 1024 and 4096: the time per tick of each
    tick form through ``plant_step`` and of its plain version, the tick
-   kernel alone, and the prep and fused-QP kernels and their plain
+   kernel alone (also replayed from a CUDA graph: the device time of a
+   held-force launch, shorter than the host's cost of one), and the prep
+   and fused-QP kernels and their plain
    versions; then the ``batched_rollout`` rate at B = 4096 for truth
    odometry, the KF and the dtMPC schedule, walking and standing. Each
    kernel's bound (the card's least time for the same bytes and
@@ -59,8 +61,10 @@ non-zero):
    plain versions and f64 numpy.linalg at B = 257, n = 30 / 60 / 120,
    k = 1 / 2 on seeded SPD batches, and against their plain versions on
    matrices captured in the last Newton steps of a cold PDIP on the walking
-   QP; the four ``inv`` entry points against their ``"linv"`` twin and the
-   ``"subst"`` kernel; then, counters reset and checked per path: walking
+   QP; the seven ``inv`` entry points against their ``"linv"`` twin and the
+   ``"subst"`` kernel (the three standing ones at N = 8, where they form
+   the factor inverse, and bit for bit their ``"subst"`` entries at
+   N = 11); then, counters reset and checked per path: walking
    with the warm PDIP and with the cold dense ADMM (700 ticks each),
    ``ControllerConfig()`` as it is (cold 20-step PDIP, the reference's
    literal weights) standing and walking, the cold PDIP on the walking
@@ -68,8 +72,10 @@ non-zero):
    B = 4096 for the reference's 500 steps, ``posdef_solve_fast`` on the
    walking QP's cold-start system, and walking with ``solve_form="inv"``
    (truth 3000 ticks at B = 64, KF 1200 ticks, ``controller.tick``, the
-   ``make_admm_fused`` entry point); CUDA-event times of each of the eight
-   new entry points beside its plain version, its library call
+   ``make_admm_fused`` entry point), standing with ``solve_form="inv"`` at
+   N = 8 (1000 ticks, KF 600 ticks, a 100-tick ``controller.tick`` loop);
+   CUDA-event times of each of the eleven entry points added since the
+   walking main path beside its plain version, its library call
    (``torch.linalg.cholesky``, ``torch.cholesky_solve``,
    ``torch.linalg.solve``) or its ``"subst"`` form, and the time per tick
    of the general-solver paths at B = 1, 1024 and 4096.
@@ -752,6 +758,11 @@ def main() -> int:
                     "fused_qp_nu3_inv": mfc.FUSED_QP_NU3_INV})
     kernels.update({INV_TICKS[kf]: tfc.TICK_KERNELS_INV[(kf, False)]
                     for kf in INV_TICKS})
+    STAND_INV_TICKS = {False: "standing_tick_inv",
+                       True: "standing_tick_kf_inv"}
+    kernels.update({STAND_INV_TICKS[kf]: tfc.STAND_KERNELS_INV[(kf, False)]
+                    for kf in STAND_INV_TICKS})
+    kernels["fused_qp_nu6_inv"] = mfc.FUSED_QP_NU6_INV
     kernels["pdip_fused"] = qp_cuda.PDIP_FUSED
     for name, kern in kernels.items():
         check(kern.name == name, f"kernel {kern.name} listed as {name}")
@@ -828,6 +839,9 @@ def main() -> int:
     summary["fused_qp_nu3_inv"].update(source=QP_SRC, replaces=QP_TPU)
     for name in INV_TICKS.values():
         summary[name].update(source=TICK_SRC, replaces=TICK_TPU)
+    for name in STAND_INV_TICKS.values():
+        summary[name].update(source=STAND_SRC, replaces=TICK_TPU)
+    summary["fused_qp_nu6_inv"].update(source=QP_SRC, replaces=QP_TPU)
     summary["pdip_fused"].update(source=PDIP_SRC, replaces=PDIP_TPU,
                                  library="none")
     # no single PyTorch call computes a whole tick or a condensed-QP ADMM
@@ -1165,6 +1179,80 @@ def main() -> int:
         say("tick_inv_vs_subst", kernel=name, B=B, **e)
         check(e["xi"] <= 3e-4 and e["grf"] <= 5e-2,
               f"{name} vs the subst tick: {e}")
+
+    # the standing inv entries: the factor inverse where n = 6 N <= 64, so
+    # at N = 8 (n = 48) against their "linv" twin (the bands of the subst
+    # forms) and within the twin forms' band of the subst kernel; at N = 11
+    # (n = 66) the substitution kernel, their subst entry's outputs bit for
+    # bit
+    for N in (8, 11):
+        sc_s = horizon(scfg, N)
+        sc_i = with_solver(sc_s, solve_form="inv")
+        args = qp_inputs(horizon(base, N), 6, 257, seed=80 + N, device=dev)
+        sol, (z, y) = mfc.make_admm_fused(sc_i.srbd, two_feet=True)(*args)
+        sol_s, (z_s, y_s) = mfc.make_admm_fused(sc_s.srbd,
+                                                two_feet=True)(*args)
+        torch.cuda.synchronize()
+        if N == 8:
+            sol_p, (z_p, y_p) = mfc.make_admm_fused(
+                sc_i.srbd, two_feet=True, solve_form="linv")(*args)
+            scale = float(z_p.abs().max()) + 1.0
+            y_scale = float(y_p.abs().max()) + 1.0
+            e = dict(u=maxerr(z, z_p), y=maxerr(y, y_p),
+                     res=maxerr(sol.residual, sol_p.residual),
+                     u_vs_subst=maxerr(z, z_s))
+            say("fused_qp_inv_vs_plain", nu=6, N=N, B=257, scale=scale,
+                y_scale=y_scale, **e)
+            check(bool(torch.isfinite(z).all() and torch.isfinite(y).all())
+                  and e["u"] <= 1e-4 * scale and e["y"] <= 1e-4 * y_scale
+                  and e["res"] <= 1e-4 and e["u_vs_subst"] <= 1e-4 * scale,
+                  f"fused_qp_nu6_inv: {e}")
+            summary["fused_qp_nu6_inv"]["max_abs_err"] = e["u"]
+        else:
+            same = all(torch.equal(a, b) for a, b in (
+                (z, z_s), (y, y_s), (sol.residual, sol_s.residual)))
+            say("fused_qp_inv_vs_subst", nu=6, N=N, B=257, bit_equal=same)
+            check(same, f"fused_qp_nu6_inv at N = {N} is not the subst "
+                  "kernel bit for bit")
+        for est_kf, name in STAND_INV_TICKS.items():
+            if N == 8:
+                v1, v5 = variant_vs_plain(sc_i, est_kf, False, B, dev)
+                say("variant_vs_plain", kernel=name, N=N, B=B, one=v1,
+                    five=v5)
+                bands1 = [("xi", 3e-4), ("q", 5e-4), ("foot_l", 0.0),
+                          ("foot_r", 0.0), ("grf", 5e-2), ("target", 5e-4)]
+                bands5 = [("xi", 5e-4), ("q", 1e-3), ("grf", 2e-1)]
+                if est_kf:
+                    bands1 += [("x_hat", 5e-4), ("p_cov", 1e-5),
+                               ("est_error", 5e-4)]
+                    bands5 += [("x_hat", 5e-4), ("p_cov", 1e-5)]
+                for k, tol in bands1:
+                    check(v1[k] <= tol,
+                          f"{name} one-tick {k} error {v1[k]} > {tol}")
+                for k, tol in bands5:
+                    check(v5[k] <= tol,
+                          f"{name} five-tick {k} error {v5[k]} > {tol}")
+                check(v1["finite"] and v5["finite"] and
+                      v1["z"] <= 2e-3 * v1["z_scale"],
+                      f"{name}: non-finite state or z error {v1['z']}")
+                summary[name]["max_abs_err"] = v1["xi"]
+            else:
+                c_i = dataclasses.replace(sc_i, estimator_mode="kf") \
+                    if est_kf else sc_i
+                s_i = perturbed_states(c_i, B, seed=1, device=dev)
+                si2, mi2 = ro.plant_step(c_i, s_i, its)
+                ss2, ms2 = ro.plant_step(with_solver(c_i, solve_form="subst"),
+                                         s_i, its)
+                pairs = [(si2.xi, ss2.xi), (si2.q, ss2.q),
+                         (si2.qp_z, ss2.qp_z), (si2.qp_lam, ss2.qp_lam),
+                         (mi2["grf"], ms2["grf"])]
+                if est_kf:
+                    pairs.append((si2.kf.p_cov, ss2.kf.p_cov))
+                same = all(torch.equal(a, b) for a, b in pairs)
+                say("tick_inv_vs_subst", kernel=name, N=N, B=B,
+                    bit_equal=same)
+                check(same, f"{name} at N = {N} is not the subst kernel "
+                      "bit for bit")
 
     # ---- 8a. pdip_fused (K9) vs its plain version ------------------------
     # pdip_check at 6 Newton steps (M well conditioned: all four outputs)
@@ -1681,6 +1769,48 @@ def main() -> int:
     path("inv_qp_entry", inv_qp_entry,
          {"fused_qp_nu3_inv": 1, "walking_mpc_prep_inv": 1})
 
+    # (e') standing with solve_form="inv" at N = 8 (n = 48: the factor
+    # inverse, as the TPU kernel forms it there): the stand gate's vy kick
+    # for 1000 ticks, the KF with both feet down for 600, and a standing
+    # controller.tick loop (fused_qp_nu6_inv); finite, height above 0.6
+    sicfg = with_solver(horizon(scfg, 8), solve_form="inv")
+    ksicfg = dataclasses.replace(sicfg, estimator_mode="kf")
+
+    def inv_stand():
+        s = ro.initial_plant_state(sicfg, device=dev)
+        _, m = ro.rollout(sicfg, s.replace(xi=s.xi + vy_kick), 1000)
+        q["inv_stand_height"] = float(m["height"][-300:].mean())
+        q["inv_stand_height_min"] = float(m["height"].min())
+        q["inv_stand_ok"] = bool(torch.isfinite(m["height"]).all()
+                                 and q["inv_stand_height_min"] > 0.6)
+
+    def inv_kf_stand():
+        _, m = ro.rollout(ksicfg, ro.initial_plant_state(ksicfg, device=dev),
+                          600)
+        q["inv_kf_stand_height_min"] = float(m["height"].min())
+        q["inv_kf_stand_ok"] = bool(torch.isfinite(m["height"]).all()
+                                    and q["inv_kf_stand_height_min"] > 0.6
+                                    and torch.isfinite(m["kf_cov_pos"]).all())
+
+    def inv_stand_ctrl_tick():
+        sc = ro.initial_plant_state(sicfg, batch=(Bc,), device=dev)
+        sc = sc.replace(xi=sc.xi + vy_kick)
+        hs = []
+        for t in range(100):
+            sc, mc = ro._plant_step_ref(sicfg, sc, torch.full(
+                (Bc,), float(t), device=dev))
+            hs.append(mc["height"])
+        hs = torch.stack(hs, 1)
+        q["inv_stand_ctrl_tick_height_min"] = float(hs.min())
+        q["inv_stand_ctrl_tick_ok"] = bool(
+            torch.isfinite(hs).all()
+            and q["inv_stand_ctrl_tick_height_min"] > 0.6)
+
+    path("inv_stand", inv_stand, {"standing_tick_inv": 1000})
+    path("inv_kf_stand", inv_kf_stand, {"standing_tick_kf_inv": 600})
+    path("inv_stand_ctrl_tick", inv_stand_ctrl_tick,
+         {"fused_qp_nu6_inv": 100})
+
     # (f) K9 as the entry point it is (no controller path calls it, as in
     # the JAX package): the cold walking QP at B = 4096, 20 Newton steps,
     # held against ops.qp's PDIP on the K8 kernels from the same start
@@ -1837,7 +1967,8 @@ def main() -> int:
               "n22_riccati_walk_ok", "n22_receding_walk_ok",
               "n22_walk_ok", "n42_walk_ok", "n86_refusal_ok",
               "n22_stand_ok", "n22_stand_admm_ok",
-              "n30_stand_ok"):
+              "n30_stand_ok", "inv_stand_ok", "inv_kf_stand_ok",
+              "inv_stand_ctrl_tick_ok"):
         check(q[k], f"quality gate {k} failed: {q}")
     for k in kernels:
         summary[k]["launches"] = launches[k]
@@ -1946,11 +2077,19 @@ def main() -> int:
                     lambda: plan.kernel.launch(plan.params, plan.ptrs,
                                                plan.batch, stream),
                     reps[Bt][0])
+                # the same launches replayed from a CUDA graph: the device
+                # time of a launch shorter than the host's cost of one
+                vt[Bt]["kernel_graph_ms"] = graph_time_ms(
+                    lambda: plan.kernel.launch(
+                        plan.params, plan.ptrs, plan.batch,
+                        torch.cuda.current_stream(dev).cuda_stream),
+                    reps[Bt][0])
             say("timing", kernel=name, card=smi,
                 **{f"B{k}": v for k, v in vt.items()})
             summary[name].update(
                 ms=vt[4096]["ms"], plain_ms=vt[4096]["plain_ms"],
                 kernel_ms=vt[4096]["kernel_ms"],
+                kernel_graph_ms=vt[4096]["kernel_graph_ms"],
                 **tick_bound(c, 4096, est_kf, hold))
 
     # ---- 7d. the eight new entry points and the general-solver paths ----
@@ -2077,6 +2216,67 @@ def main() -> int:
         summary[name].update(ms=vt[4096]["ms"], plain_ms=vt[4096]["plain_ms"],
                              kernel_ms=vt[4096]["kernel_ms"],
                              subst_ms=vt[4096]["subst_ms"], **tb)
+
+    # the standing inv entries at N = 8 (n = 48), where they form the
+    # factor inverse (n^3 / 3 more operations), beside their "linv" twin
+    # and their subst forms on the same inputs
+    n48 = 6 * 8
+    inv48 = n48 ** 3 / 3
+    for est_kf, name in STAND_INV_TICKS.items():
+        c = ksicfg if est_kf else sicfg
+        c_sub = with_solver(c, solve_form="subst")
+        vt = {}
+        for Bt in reps:
+            st = perturbed_states(c, Bt, seed=3, device=dev)
+            it = torch.full((Bt,), 123.0, device=dev)
+            vd = torch.tensor(c.desired_velocity, device=dev).expand(
+                Bt, 3).contiguous()
+            vt[Bt] = turns(
+                lambda: ro.plant_step(c, st, it, v_des=vd),
+                lambda: ro._plant_step_ref(c, st, it, v_des=vd,
+                                           solve_form="linv"), Bt)
+            vt[Bt]["subst_ms"] = cuda_time_ms(
+                lambda: ro.plant_step(c_sub, st, it, v_des=vd), reps[Bt][0])
+            kf_args = {} if st.kf is None else dict(
+                kf_x=st.kf.x_hat, kf_p=st.kf.p_cov, prev_v=st.prev_v,
+                prev_q=st.prev_q)
+            anc = torch.cat([st.xi[:, 3:5], st.xi[:, 2:3]], -1).contiguous()
+            plan = tfc.prepare_tick_launch(
+                st.xi, st.q, st.foot_l, st.foot_r, st.qp_z, st.qp_lam, anc,
+                it, vd, torch.zeros(Bt, device=dev), cfg=c, **kf_args)
+            check(plan.kernel.name == name, f"{name}: plan picked "
+                  f"{plan.kernel.name}")
+            vt[Bt]["kernel_ms"] = graph_time_ms(
+                lambda: plan.kernel.launch(
+                    plan.params, plan.ptrs, plan.batch,
+                    torch.cuda.current_stream(dev).cuda_stream), reps[Bt][0])
+        say("timing", kernel=name, card=smi, N=8,
+            **{f"B{k}": v for k, v in vt.items()})
+        tb = tick_bound(c, 4096, est_kf, False)
+        t_ops = tb["bound_operations_ms"] + 4096 * inv48 / F32_FLOPS * 1e3
+        tb.update(bound_operations_ms=t_ops,
+                  bound_ms=max(tb["bound_bytes_ms"], t_ops),
+                  bound_by="bytes" if tb["bound_bytes_ms"] >= t_ops
+                  else "operations")
+        summary[name].update(ms=vt[4096]["ms"], plain_ms=vt[4096]["plain_ms"],
+                             kernel_ms=vt[4096]["kernel_ms"],
+                             subst_ms=vt[4096]["subst_ms"], shape="N=8", **tb)
+    q6t = {}
+    for Bt in reps:
+        args = qp_inputs(horizon(base, 8), 6, Bt, seed=8, device=dev)
+        k_inv = mfc.make_admm_fused(sicfg.srbd, two_feet=True)
+        k_sub = mfc.make_admm_fused(horizon(scfg, 8).srbd, two_feet=True)
+        twin = mfc.make_admm_fused(sicfg.srbd, two_feet=True,
+                                   solve_form="linv")
+        q6t[Bt] = turns(lambda: k_inv(*args), lambda: twin(*args), Bt)
+        q6t[Bt]["subst_ms"] = cuda_time_ms(lambda: k_sub(*args), reps[Bt][0])
+    say("timing", kernel="fused_qp_nu6_inv", card=smi, N=8,
+        **{f"B{k}": v for k, v in q6t.items()})
+    summary["fused_qp_nu6_inv"].update(
+        ms=q6t[4096]["ms"], plain_ms=q6t[4096]["plain_ms"],
+        subst_ms=q6t[4096]["subst_ms"], shape="N=8",
+        **bound(4096, 169 + 8 * 13 * 6 + 9 * 13 + 13 + 3 * n48, 3 * n48 + 1,
+                core_flops(8, 6, it5, dense_ad=True) + inv48))
 
     # the general-solver paths: host clock around a synchronized window
     # of batched_rollout (the composition on the card) after a warm-up

@@ -39,6 +39,7 @@ device and fetches the reductions once.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -210,6 +211,15 @@ def _kf_metrics(kf: KFState) -> dict:
     return {"kf_cov_pos": d[:, 0:3], "kf_cov_vel": d[:, 3:6]}
 
 
+@functools.lru_cache(maxsize=16)
+def _command(desired_velocity: tuple, dtype, device) -> torch.Tensor:
+    """The configured velocity command on `device`, made once: a tensor
+    made from the tuple every tick is a copy from pageable host memory,
+    which blocks the host behind the kernels queued before it. Callers
+    must not modify it."""
+    return torch.tensor(desired_velocity, dtype=dtype, device=device)
+
+
 def plant_step(cfg: ControllerConfig, state: PlantState,
                iteration: torch.Tensor, grf_override=None, v_des=None):
     """One 1 kHz simulation tick for a batch of scenarios; returns
@@ -233,8 +243,10 @@ def plant_step(cfg: ControllerConfig, state: PlantState,
                                   f"{reason}")
     B = state.xi.shape[0]
     dtype, device = state.xi.dtype, state.xi.device
-    vd = torch.as_tensor(cfg.desired_velocity if v_des is None else v_des,
-                         dtype=dtype, device=device).expand(B, 3)
+    vd = (_command(tuple(cfg.desired_velocity), dtype, device)
+          if v_des is None
+          else torch.as_tensor(v_des, dtype=dtype, device=device)
+          ).expand(B, 3)
     wd = torch.full((B,), float(cfg.desired_yaw_rate), dtype=dtype,
                     device=device)
     it = torch.as_tensor(iteration, dtype=dtype, device=device).expand(B)

@@ -39,7 +39,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MPC_ENTRIES = ("walking_mpc_prep", "walking_tick", "walking_tick_kf",
                "standing_tick", "standing_tick_kf", "fused_qp_nu3",
                "fused_qp_nu6", "walking_mpc_prep_inv", "walking_tick_inv",
-               "walking_tick_kf_inv", "fused_qp_nu3_inv")
+               "walking_tick_kf_inv", "fused_qp_nu3_inv",
+               "standing_tick_inv", "standing_tick_kf_inv",
+               "fused_qp_nu6_inv")
 SMEM_SIZERS = tuple(f"{e}_smem_bytes" for e in MPC_ENTRIES) + tuple(
     f"{e}_blocks_per_sm" for e in MPC_ENTRIES)
 PARAMS_SIZERS = ("walking_mpc_params_bytes", "walking_tick_params_bytes",

@@ -21,9 +21,10 @@
 // all N Bd blocks, S_k = W_k Bd_k instead of the Gramians, no arm sets.
 // Horizon 1 to 85 steps at nu = 3, 1 to 42 at nu = 6 (n <= 256), the
 // core's solve rows a lane chosen at launch (mpc::rpl).
-// `fused_qp_nu3_inv` is the solve_form = "inv" entry: the factor inverted
-// once, mat-vecs per z-update, where n <= 64 (its own packed region of
-// shared memory), the substitution kernel beyond, as the TPU kernel does.
+// `fused_qp_nu3_inv` and `fused_qp_nu6_inv` are the solve_form = "inv"
+// entries: the factor inverted once, mat-vecs per z-update, where n <= 64
+// (its own packed region of shared memory; N <= 21 at nu = 3, N <= 10 at
+// nu = 6), the substitution kernel beyond, as the TPU kernel does.
 //
 // Plain C interface for ctypes: pointers and the stream arrive as void*,
 // the call returns cudaGetLastError() after the launch.
@@ -89,9 +90,9 @@ fused_qp_kernel(const __grid_constant__ mpc::MpcParams P,
   MPC_STAGE(mpc::ST_END);
 }
 
-// the kernel for horizon N: the factor-inverse instantiation where the
-// "inv" entry takes it (nu = 3, n <= 64), else the sweeps with
-// mpc::rpl<NU>(N) solve rows a lane
+// the kernel for horizon N: the factor-inverse instantiation where an
+// "inv" entry takes it (n <= 64), else the sweeps with mpc::rpl<NU>(N)
+// solve rows a lane
 template <int NU>
 auto qp_kernel(int N, bool inv) {
   if constexpr (NU == 3) {
@@ -102,6 +103,7 @@ auto qp_kernel(int N, bool inv) {
       default: return fused_qp_kernel<3, false, 8>;
     }
   } else {
+    if (mpc::use_inv(inv, NU * N)) return fused_qp_kernel<6, true, 4>;
     return mpc::rpl<NU>(N) == 4 ? fused_qp_kernel<6, false, 4>
                                 : fused_qp_kernel<6, false, 8>;
   }
@@ -144,6 +146,7 @@ MPC_STAGE_READER(fused_qp_stage_clocks)
 QP_SIZERS(fused_qp_nu3, 3, false)
 QP_SIZERS(fused_qp_nu6, 6, false)
 QP_SIZERS(fused_qp_nu3_inv, 3, true)
+QP_SIZERS(fused_qp_nu6_inv, 6, true)
 
 extern "C" int fused_qp_nu3(const mpc::MpcParams* prm, const void* Ad,
                             const void* Bd_t, const void* x_ref,
@@ -163,12 +166,22 @@ extern "C" int fused_qp_nu6(const mpc::MpcParams* prm, const void* Ad,
                    res_out, B, stream);
 }
 
-// solve_form = "inv": the factor inverse instead of the sweeps (nu = 3)
+// solve_form = "inv": the factor inverse instead of the sweeps where
+// n <= 64
 extern "C" int fused_qp_nu3_inv(const mpc::MpcParams* prm, const void* Ad,
                                 const void* Bd_t, const void* x_ref,
                                 const void* x0, const void* z_warm,
                                 const void* y_warm, void* z_out, void* y_out,
                                 void* res_out, int B, void* stream) {
   return launch<3, true>(prm, Ad, Bd_t, x_ref, x0, z_warm, y_warm, z_out,
+                         y_out, res_out, B, stream);
+}
+
+extern "C" int fused_qp_nu6_inv(const mpc::MpcParams* prm, const void* Ad,
+                                const void* Bd_t, const void* x_ref,
+                                const void* x0, const void* z_warm,
+                                const void* y_warm, void* z_out, void* y_out,
+                                void* res_out, int B, void* stream) {
+  return launch<6, true>(prm, Ad, Bd_t, x_ref, x0, z_warm, y_warm, z_out,
                          y_out, res_out, B, stream);
 }

@@ -22,8 +22,9 @@
 //
 // solve_form = "inv" (mpc_fused_pallas.py:230-263, :273-280) is the
 // compile-time flag INV of the core, taken where the TPU kernel takes it,
-// n <= 64 (:249; past that it runs the sweeps, and so do the launchers,
-// which pick the INV instantiation only for n <= 64): after step 5 the
+// n <= 64 at either NU (:249; past that it runs the sweeps, and so do the
+// launchers, which pick the INV instantiation only for n <= 64: N <= 21
+// walking, N <= 10 standing): after step 5 the
 // factor is inverted once, T = L^-1, and each z-update of step 6 is the
 // two dense triangular mat-vecs x = T'(T b) instead of two substitution
 // sweeps.  T is a packed lower triangle in a region of its own (the
@@ -153,7 +154,7 @@ struct Dim {
 // Solve rows per lane at horizon N: the fewest of 2 (NU = 3 only), 4 and 8
 // with n = NU N <= 32 RPL.  The number changes no arithmetic.
 template <int NU>
-__host__ __device__ inline int rpl(int N) {
+__host__ __device__ constexpr int rpl(int N) {
   const int n = NU * N;
   return (NU == 3 && n <= 64) ? 2 : n <= 128 ? 4 : 8;
 }
@@ -209,9 +210,10 @@ __host__ __device__ __forceinline__ int tri(int i) {
 //
 // No Gramians are kept: the recursion runs on one W and one scratch in
 // K's storage and leaves S_k = W_k Bd_k [13][NU] per step, all that the
-// band emission reads; once the emission is done S holds z, v and y, and
-// once the f sweeps are done qe holds the factor's sqrt(d) and 1 / sqrt(d)
-// (and, INV, the mat-vecs' scratch row: 3 n <= 13 N at NU = 3).
+// band emission reads; once the emission is done S holds z, v and y (and,
+// INV, the mat-vecs' scratch row after them: 6 NU N <= 13 NU N floats),
+// and once the f sweeps are done qe holds the factor's sqrt(d) and
+// 1 / sqrt(d).
 template <int NU>
 __host__ __device__ inline Smem smem_layout(int N, int nbd, int narms = -1,
                                             bool inv = false) {
@@ -499,7 +501,8 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
                                           const float* __restrict__ zw,
                                           const float* __restrict__ yw) {
   constexpr int MU = Dim<NU>::MU, NT = Dim<NU>::NT;
-  static_assert(!INV || RPL == 2, "the factor inverse is formed for n <= 64");
+  static_assert(!INV || RPL == rpl<NU>(64 / NU),
+                "the factor inverse is formed for n <= 64");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int N = P.N, n = NU * N, m = MU * N;
   float* K = sm + L.K;
@@ -650,10 +653,10 @@ __device__ inline void mpc_condense_solve(const MpcParams& P, float* sm,
     __syncwarp();
     const float alpha = P.alpha, beta = 1.0f - P.alpha;
     // the reciprocal pivots of this lane's rows, once per solve; INV: the
-    // mat-vecs' scratch row after dg and dginv
+    // mat-vecs' scratch row after y
     float dv[RPL];
     load_dinv<RPL>(dginv, n, lane, dv);
-    float* tmp = qe + 2 * n;
+    float* tmp = y + m;
     for (int it = 0; it < P.iters; ++it) {
       admm_z_update<NU, RPL, INV>(P, K, dv, T, tmp, f, v, y, z, n, lane);
       __syncwarp();

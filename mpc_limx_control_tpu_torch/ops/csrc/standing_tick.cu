@@ -8,6 +8,8 @@
 //   standing_tick_kf       the 12-state Kalman filter in the kernel
 //   standing_tick_hold     the dtMPC held-force tick, no MPC
 //   standing_tick_kf_hold  both
+//   standing_tick_inv, standing_tick_kf_inv
+//                          the two solving forms with solve_form = "inv"
 //
 // A standing tick is: gait clock and placement target (reported, not
 // used: no leg swings), both-leg FK (tick_prologue); the two-foot nu = 6
@@ -28,7 +30,12 @@
 // threads per scenario; K is stored as a packed lower triangle, Bd once
 // and, instead of the N Gramians, only S_k = W_k Bd_k, so the block's
 // 37.5 KB of shared memory at N = 20 lets six scenarios share an SM.  The
-// hold forms run no MPC: one thread (truth) or one warp (KF) per scenario.
+// hold forms run no MPC: one thread (truth) or a half warp (KF: kf_tick
+// and kf_hold_tick of tick_common.cuh, the two legs' IKs at once) per
+// scenario.
+// The "inv" forms take the factor inverse where n = 6 N <= 64 (N <= 10) and
+// the substitution kernels beyond, as the TPU kernel does
+// (mpc_fused_pallas.py:249).
 #include "tick_common.cuh"
 
 namespace {
@@ -37,8 +44,9 @@ constexpr int NU = 6;
 constexpr int NT = mpc::Dim<NU>::NT;
 
 // ---- the solving forms: one block of NT threads per scenario ------------
-// RPL: solve rows per lane, mpc::rpl<6>(N)
-template <bool KF, int RPL>
+// INV: the MPC core's solve_form = "inv" (mpc_core.cuh, n <= 64 only);
+// RPL: its solve rows per lane, mpc::rpl<6>(N)
+template <bool KF, bool INV, int RPL>
 __global__ void __launch_bounds__(NT)
 standing_tick_kernel(const __grid_constant__ TickParams T,
                      const __grid_constant__ TickIO io) {
@@ -47,7 +55,7 @@ standing_tick_kernel(const __grid_constant__ TickParams T,
   const int b = blockIdx.x, tid = threadIdx.x;
   MPC_STAGE(mpc::ST_START);
   const int N = P.N, n = NU * N, m = mpc::Dim<NU>::MU * N;
-  const mpc::Smem L = mpc::smem_layout<NU>(N, 1);
+  const mpc::Smem L = mpc::smem_layout<NU>(N, 1, -1, INV);
   float* aux = sm + L.aux;
   const Leg g = load_leg(T);
   const float* xi = io.xi + b * mpc::NX;
@@ -61,10 +69,10 @@ standing_tick_kernel(const __grid_constant__ TickParams T,
   if constexpr (KF) {
     float* w = sm + L.K;
     if (tid < 32) {
-      kf_tick(T, g, tid, false, true, xi, q6, io.pv + b * 3, io.pq + b * 6,
-              io.kx + b * 12, io.kp + b * 144, w, io.kx_o + b * 12,
-              io.kp_o + b * 144);
-      for (int i = 0; i < 6; ++i) xn[i] = w[KW_XN + i];
+      kf_tick_smem(T, g, tid, false, true, xi, q6, io.pv + b * 3,
+                   io.pq + b * 6, io.kx + b * 12, io.kp + b * 144, w,
+                   io.kx_o + b * 12, io.kp_o + b * 144);
+      for (int i = 0; i < 6; ++i) xn[i] = w[KWS_XN + i];
     }
     pos = xn;
     vel = xn + 3;
@@ -95,8 +103,8 @@ standing_tick_kernel(const __grid_constant__ TickParams T,
   MPC_STAGE(mpc::ST_PRE);
 
   // ---- the prep-fused two-foot MPC solve ------------------------------
-  mpc::mpc_prep_solve<NU, false, RPL>(P, sm, L, 1, io.zw + (size_t)b * n,
-                                      io.yw + (size_t)b * m);
+  mpc::mpc_prep_solve<NU, INV, RPL>(P, sm, L, 1, io.zw + (size_t)b * n,
+                                    io.yw + (size_t)b * m);
 
   for (int c = tid; c < n; c += NT) io.z_o[(size_t)b * n + c] = sm[L.z + c];
   for (int r = tid; r < m; r += NT) io.y_o[(size_t)b * m + r] = sm[L.y + r];
@@ -124,6 +132,7 @@ __device__ void stand_hold_tick(const TickParams& T, const Leg& g,
   tick_prologue(T, g, xi, pos, vel, q6, io.vdes + b * 3, io.wdes[b],
                 io.anc + b * 3, io.it[b], false, io.anc_o + b * 3,
                 io.tgt_o + b * 3, o);
+  MPC_STAGE(KS_HOLD_PRE);
   const float* gh = io.grf + b * 6;
   io.res_o[b] = 0.0f;
   stand_epilogue(T, g, xi, q6, io.fl + b * 3, io.fr + b * 3, gh, gh + 3,
@@ -132,51 +141,63 @@ __device__ void stand_hold_tick(const TickParams& T, const Leg& g,
 }
 
 template <bool KF>
-__global__ void __launch_bounds__(HOLD_NT)
+__global__ void __launch_bounds__(HOLD_NT, HOLD_MIN_BLOCKS)
 standing_tick_hold_kernel(const __grid_constant__ TickParams T,
                           const __grid_constant__ TickIO io, int B) {
+  MPC_STAGE(mpc::ST_START);
   const Leg g = load_leg(T);
   if constexpr (!KF) {
     const int b = blockIdx.x * HOLD_NT + threadIdx.x;
     if (b >= B) return;
     const float* xi = io.xi + b * mpc::NX;
     stand_hold_tick(T, g, io, b, xi + 3, xi + 9);
+    MPC_STAGE(mpc::ST_END);
   } else {
-    __shared__ float scratch[HOLD_KF_WARPS][KW_SIZE];
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int b = blockIdx.x * HOLD_KF_WARPS + warp;
-    if (b >= B) return;   // the whole warp, so its __syncwarp()s stay full
-    float* w = scratch[warp];
+    // a scenario on each half warp; a half past the batch repeats the
+    // last scenario (its inputs, so the same values written), so that the
+    // warp's shuffles and __syncwarp()s stay full
+    __shared__ float scratch[HOLD_KF_PER_BLOCK][KW_SIZE];
+    const int slot = threadIdx.x / KF_LANES, lane = threadIdx.x % KF_LANES;
+    const int b0 = blockIdx.x * HOLD_KF_PER_BLOCK + (slot & ~1);
+    if (b0 >= B) return;   // the whole warp
+    const int b = b0 + (slot & 1) < B ? b0 + (slot & 1) : B - 1;
+    float* w = scratch[slot];
     kf_tick(T, g, lane, false, true, io.xi + b * mpc::NX, io.q + b * 6,
             io.pv + b * 3, io.pq + b * 6, io.kx + b * 12, io.kp + b * 144, w,
             io.kx_o + b * 12, io.kp_o + b * 144);
-    if (lane == 0) stand_hold_tick(T, g, io, b, w + KW_XN, w + KW_XN + 3);
+    kf_hold_tick<true>(T, g, io, b, lane, w + KW_XN, w + KW_XN + 3,
+                       w + KW_TRIG);
+    MPC_STAGE(mpc::ST_END);
   }
 }
 
-// dynamic shared memory of the solving forms: the MPC layout with one Bd,
-// and room for the filter's scratch from the K area at any N
-__host__ __device__ inline int solve_smem_floats(int N, bool kf) {
-  const mpc::Smem L = mpc::smem_layout<NU>(N, 1);
-  return (kf && L.K + KW_SIZE > L.total) ? L.K + KW_SIZE : L.total;
+// dynamic shared memory of the solving forms: the MPC layout with one Bd
+// (with the factor inverse where an "inv" form takes it), and room for the
+// filter's scratch from the K area at any N
+__host__ __device__ inline int solve_smem_floats(int N, bool kf, bool inv) {
+  const mpc::Smem L = mpc::smem_layout<NU>(N, 1, -1, inv);
+  return (kf && L.K + KWS_SIZE > L.total) ? L.K + KWS_SIZE : L.total;
 }
 
-// the solving kernel for horizon N: four solve rows per lane up to
-// N = 21, eight beyond
+// the solving kernel for horizon N: the factor-inverse instantiation where
+// an "inv" form takes it (n <= 64), else the sweeps with four solve rows
+// per lane up to N = 21, eight beyond
 template <bool KF>
-auto solve_kernel(int N) {
-  return mpc::rpl<NU>(N) == 4 ? standing_tick_kernel<KF, 4>
-                               : standing_tick_kernel<KF, 8>;
+auto solve_kernel(int N, bool inv) {
+  if (mpc::use_inv(inv, NU * N)) return standing_tick_kernel<KF, true, 4>;
+  return mpc::rpl<NU>(N) == 4 ? standing_tick_kernel<KF, false, 4>
+                               : standing_tick_kernel<KF, false, 8>;
 }
 
-template <bool KF>
+template <bool KF, bool INV = false>
 int launch_solve(const TickParams* prm, const TickIO& io, int B,
                  void* stream) {
   if (B <= 0) return 0;
   if (prm->mpc.N < 1 || prm->mpc.N > mpc::Dim<NU>::MAX_N)
     return (int)cudaErrorInvalidValue;
-  const int bytes = (int)(solve_smem_floats(prm->mpc.N, KF) * sizeof(float));
-  const auto kernel = solve_kernel<KF>(prm->mpc.N);
+  const int bytes =
+      (int)(solve_smem_floats(prm->mpc.N, KF, INV) * sizeof(float));
+  const auto kernel = solve_kernel<KF>(prm->mpc.N, INV);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -188,7 +209,7 @@ template <bool KF>
 int launch_hold(const TickParams* prm, const TickIO& io, int B,
                 void* stream) {
   if (B <= 0) return 0;
-  const int per_block = KF ? HOLD_KF_WARPS : HOLD_NT;
+  const int per_block = KF ? HOLD_KF_PER_BLOCK : HOLD_NT;
   standing_tick_hold_kernel<KF>
       <<<(B + per_block - 1) / per_block, HOLD_NT, 0, (cudaStream_t)stream>>>(
           *prm, io, B);
@@ -197,31 +218,28 @@ int launch_hold(const TickParams* prm, const TickIO& io, int B,
 
 }  // namespace
 
-// dynamic shared memory per block of the solving forms (the hold forms
-// use none)
-extern "C" int standing_tick_smem_bytes(int N) {
-  return (int)(solve_smem_floats(N, false) * sizeof(float));
-}
-
-extern "C" int standing_tick_kf_smem_bytes(int N) {
-  return (int)(solve_smem_floats(N, true) * sizeof(float));
-}
-
-// blocks of the solving forms an SM holds at horizon N
-extern "C" int standing_tick_blocks_per_sm(int N) {
-  return mpc::blocks_per_sm(solve_kernel<false>(N), NT,
-                            standing_tick_smem_bytes(N));
-}
-
-extern "C" int standing_tick_kf_blocks_per_sm(int N) {
-  return mpc::blocks_per_sm(solve_kernel<true>(N), NT,
-                            standing_tick_kf_smem_bytes(N));
-}
-
 MPC_STAGE_READER(standing_tick_stage_clocks)
+
+// dynamic shared memory per block of the solving forms (the hold forms use
+// none), and the blocks of them an SM holds, at horizon N
+#define SOLVE_SIZERS(name, kf, inv)                                    \
+  extern "C" int name##_smem_bytes(int N) {                            \
+    return (int)(solve_smem_floats(N, kf, inv) * sizeof(float));       \
+  }                                                                    \
+  extern "C" int name##_blocks_per_sm(int N) {                         \
+    return mpc::blocks_per_sm(solve_kernel<kf>(N, inv), NT,            \
+                              name##_smem_bytes(N));                   \
+  }
+SOLVE_SIZERS(standing_tick, false, false)
+SOLVE_SIZERS(standing_tick_kf, true, false)
+SOLVE_SIZERS(standing_tick_inv, false, true)
+SOLVE_SIZERS(standing_tick_kf_inv, true, true)
 
 // the C entry points (pointer order in tick_common.cuh)
 TICK_ENTRY_SOLVE(standing_tick, launch_solve<false>)
 TICK_ENTRY_KF(standing_tick_kf, launch_solve<true>)
 TICK_ENTRY_HOLD(standing_tick_hold, launch_hold<false>)
 TICK_ENTRY_KF_HOLD(standing_tick_kf_hold, launch_hold<true>)
+// the solving forms with solve_form = "inv" (the hold forms run no solve)
+TICK_ENTRY_SOLVE(standing_tick_inv, (launch_solve<false, true>))
+TICK_ENTRY_KF(standing_tick_kf_inv, (launch_solve<true, true>))

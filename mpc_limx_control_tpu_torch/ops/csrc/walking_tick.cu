@@ -35,14 +35,16 @@
 // threads, ~15.5 KB of shared memory at N = 20) per scenario keeps many
 // scenarios resident per SM to hide that latency.  The filter (~6k flops:
 // 14 x 14 Cholesky and 13 right-hand sides) runs in warp 0 of that block
-// before the prologue, its scratch in the MPC's K area, which is free
-// until the solve: the covariance entries are shared out over the lanes,
-// the 13 right-hand sides one per lane.  The hold forms need none of the
-// MPC's shared memory: the truth form runs one thread per scenario, the
-// KF form one warp per scenario (the filter as above, its ~3 KB of scratch
-// in static shared memory, four scenarios a block): on one thread, with
-// the scratch in local memory, the filter alone is a ~0.2 ms chain of
-// dependent loads (measured on the H100).
+// before the prologue, in its shared-memory form (kf_tick_smem), its
+// scratch in the MPC's K area, which is free until the solve.  The hold
+// forms need none of the MPC's shared memory: the truth form runs one
+// thread per scenario; the KF form a half warp per scenario, eight a
+// block, its whole tick that half warp's dependent chain: the
+// register-resident filter (kf_tick: S and its factor a row a lane, the
+// 13 right-hand sides a column a lane) and the held-force tick spread over
+// the lanes (kf_hold_tick: the two leg IKs at once), so that at B = 4096
+// the 512 blocks run as one wave with no lane idle for want of work
+// (tick_common.cuh).
 //
 // Horizon: 1 to 85 steps (n = 3 N <= 256), the solve rows a lane of the
 // core chosen at launch (mpc::rpl: 2 / 4 / 8); the "inv" forms take the
@@ -95,11 +97,11 @@ walking_tick_kernel(const __grid_constant__ TickParams T,
   if constexpr (KF) {
     float* w = sm + L.K;
     if (tid < 32) {
-      kf_tick(T, g, tid, left_swing(T, it), false, xi, q6, io.pv + b * 3,
-              io.pq + b * 6, io.kx + b * 12, io.kp + b * 144, w,
-              io.kx_o + b * 12, io.kp_o + b * 144);
+      kf_tick_smem(T, g, tid, left_swing(T, it), false, xi, q6,
+                   io.pv + b * 3, io.pq + b * 6, io.kx + b * 12,
+                   io.kp + b * 144, w, io.kx_o + b * 12, io.kp_o + b * 144);
       // into registers: the prologue's staging may overwrite the scratch
-      for (int i = 0; i < 6; ++i) xn[i] = w[KW_XN + i];
+      for (int i = 0; i < 6; ++i) xn[i] = w[KWS_XN + i];
     }
     pos = xn;
     vel = xn + 3;
@@ -168,9 +170,9 @@ walking_tick_kernel(const __grid_constant__ TickParams T,
 }
 
 // ---- the held-force forms: no MPC ----------------------------------------
-// The truth form runs one thread per scenario.  The KF form runs one warp
-// per scenario, the filter spread over its lanes as in the solving form
-// and its scratch in static shared memory; lane 0 then runs the rest.
+// The truth form runs one thread per scenario.  The KF form runs a half
+// warp per scenario: kf_tick, then kf_hold_tick, the scratch in static
+// shared memory.
 
 // Sections 1-4, the held force, sections 7-8 for scenario b; pos / vel
 // are the base position and velocity the controller sees.
@@ -183,6 +185,7 @@ __device__ void hold_tick(const TickParams& T, const Leg& g,
   tick_prologue(T, g, xi, pos, vel, q6, io.vdes + b * 3, io.wdes[b],
                 io.anc + b * 3, io.it[b], true, io.anc_o + b * 3,
                 io.tgt_o + b * 3, o);
+  MPC_STAGE(KS_HOLD_PRE);
   // the held force belongs to the foot in stance NOW (the gait may have
   // switched since the solve); z / y pass through, no residual
   const float* gh = io.grf + b * 6;
@@ -199,25 +202,33 @@ __device__ void hold_tick(const TickParams& T, const Leg& g,
 }
 
 template <bool KF>
-__global__ void __launch_bounds__(HOLD_NT)
+__global__ void __launch_bounds__(HOLD_NT, HOLD_MIN_BLOCKS)
 walking_tick_hold_kernel(const __grid_constant__ TickParams T,
                          const __grid_constant__ TickIO io, int B) {
+  MPC_STAGE(mpc::ST_START);
   const Leg g = load_leg(T);
   if constexpr (!KF) {
     const int b = blockIdx.x * HOLD_NT + threadIdx.x;
     if (b >= B) return;
     const float* xi = io.xi + b * mpc::NX;
     hold_tick(T, g, io, b, xi + 3, xi + 9);
+    MPC_STAGE(mpc::ST_END);
   } else {
-    __shared__ float scratch[HOLD_KF_WARPS][KW_SIZE];
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int b = blockIdx.x * HOLD_KF_WARPS + warp;
-    if (b >= B) return;   // the whole warp, so its __syncwarp()s stay full
-    float* w = scratch[warp];
+    // a scenario on each half warp; a half past the batch repeats the
+    // last scenario (its inputs, so the same values written), so that the
+    // warp's shuffles and __syncwarp()s stay full
+    __shared__ float scratch[HOLD_KF_PER_BLOCK][KW_SIZE];
+    const int slot = threadIdx.x / KF_LANES, lane = threadIdx.x % KF_LANES;
+    const int b0 = blockIdx.x * HOLD_KF_PER_BLOCK + (slot & ~1);
+    if (b0 >= B) return;   // the whole warp
+    const int b = b0 + (slot & 1) < B ? b0 + (slot & 1) : B - 1;
+    float* w = scratch[slot];
     kf_tick(T, g, lane, left_swing(T, io.it[b]), false, io.xi + b * mpc::NX,
             io.q + b * 6, io.pv + b * 3, io.pq + b * 6, io.kx + b * 12,
             io.kp + b * 144, w, io.kx_o + b * 12, io.kp_o + b * 144);
-    if (lane == 0) hold_tick(T, g, io, b, w + KW_XN, w + KW_XN + 3);
+    kf_hold_tick<false>(T, g, io, b, lane, w + KW_XN, w + KW_XN + 3,
+                        w + KW_TRIG);
+    MPC_STAGE(mpc::ST_END);
   }
 }
 
@@ -227,7 +238,7 @@ walking_tick_hold_kernel(const __grid_constant__ TickParams T,
 __host__ __device__ inline int solve_smem_floats(int N, bool kf, bool inv) {
   const mpc::Smem L = mpc::smem_layout<NU>(N, N, -1, inv);
   const int need = L.total + TK_SIZE;
-  return (kf && L.K + KW_SIZE > need) ? L.K + KW_SIZE : need;
+  return (kf && L.K + KWS_SIZE > need) ? L.K + KWS_SIZE : need;
 }
 
 // the solving kernel for horizon N: the factor-inverse instantiation where
@@ -262,7 +273,7 @@ template <bool KF>
 int launch_hold(const TickParams* prm, const TickIO& io, int B,
                 void* stream) {
   if (B <= 0) return 0;
-  const int per_block = KF ? HOLD_KF_WARPS : HOLD_NT;
+  const int per_block = KF ? HOLD_KF_PER_BLOCK : HOLD_NT;
   walking_tick_hold_kernel<KF>
       <<<(B + per_block - 1) / per_block, HOLD_NT, 0, (cudaStream_t)stream>>>(
           *prm, io, B);

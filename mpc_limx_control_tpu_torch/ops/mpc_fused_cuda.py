@@ -18,11 +18,11 @@ condensation, Cholesky, warm ADMM with exact triangular solves):
   controller's entry point (``controller.stance_mpc``, standing).
 
 Each kernel has a second entry point for ``SolverConfig.solve_form="inv"``
-at nu = 3 (``walking_mpc_prep_inv``, ``fused_qp_nu3_inv``): the Cholesky
-factor inverted once per solve, mat-vecs per ADMM step
-(mpc_fused_pallas.py:230-263), where n = 3 N <= 64; past that the TPU
-kernel keeps the substitution sweeps (:249), and so do these entries. The
-nu = 6 kernels run the sweeps whatever the form.
+(``walking_mpc_prep_inv``, ``fused_qp_nu3_inv``, ``fused_qp_nu6_inv``):
+the Cholesky factor inverted once per solve, mat-vecs per ADMM step
+(mpc_fused_pallas.py:230-263), where n = nu N <= 64 (N <= 21 at nu = 3,
+N <= 10 at nu = 6); past that the TPU kernel keeps the substitution sweeps
+(:249), and so do these entries.
 
 A wrapper launches its kernel for CUDA tensors and runs the kernel's plain
 version (exact triangular solves, ``solve_form="subst"``; the explicit
@@ -64,13 +64,16 @@ FUSED_QP = {nu: _build.Kernel(f"fused_qp_nu{nu}", n_ptr=9,
             for nu in (3, 6)}
 FUSED_QP_NU3_INV = _build.Kernel("fused_qp_nu3_inv", n_ptr=9,
                                  params_sizer="walking_mpc_params_bytes")
+FUSED_QP_NU6_INV = _build.Kernel("fused_qp_nu6_inv", n_ptr=9,
+                                 params_sizer="walking_mpc_params_bytes")
+FUSED_QP_INV = {3: FUSED_QP_NU3_INV, 6: FUSED_QP_NU6_INV}
 # SolverConfig.solve_form values the kernels run
 KERNEL_SOLVE_FORMS = ("subst", "inv")
 
 
 # ---- the core's shared-memory layout (csrc/mpc_core.cuh:smem_layout) -------
 _AUX_SIZE = 64            # the aux area
-_KW_SIZE = 756            # the filter's scratch (csrc/tick_common.cuh)
+_KW_SIZE = 756            # the solving forms' filter (tick_common.cuh)
 _TK_SIZE = 16             # the walking tick's scratch (csrc/walking_tick.cu)
 _AD_SIZE = 176            # fused_qp's Ad [13][13] (csrc/fused_qp.cu)
 MPC_ENTRIES = _build.MPC_ENTRIES
@@ -80,7 +83,7 @@ def entry_nu(entry: str) -> int:
     """Forces per horizon step of an entry point built on the MPC core."""
     if entry not in MPC_ENTRIES:
         raise ValueError(f"{entry!r} is not one of {MPC_ENTRIES}")
-    return 6 if entry.startswith("standing") or entry == "fused_qp_nu6" else 3
+    return 6 if entry.startswith(("standing", "fused_qp_nu6")) else 3
 
 
 def max_horizon(nu: int) -> int:
@@ -144,13 +147,13 @@ def size_reason(entry: str, N: int) -> str | None:
 def plain_solve_form(solve_form: str, nu: int, N: int) -> str:
     """The ``_batched_admm`` form that repeats what the kernels do for a
     config's solve_form at nu forces a step and horizon N: "inv" is the
-    explicit factor inverse ("linv") at nu = 3 where n = 3 N <= 64, as the
-    TPU kernel forms it (mpc_fused_pallas.py:249); the sweeps ("subst")
-    past that and at nu = 6 whatever the form."""
+    explicit factor inverse ("linv") where n = nu N <= 64 (N <= 21 at
+    nu = 3, N <= 10 at nu = 6), as the TPU kernel forms it
+    (mpc_fused_pallas.py:249); the sweeps ("subst") past that."""
     if solve_form not in KERNEL_SOLVE_FORMS:
         raise ValueError(f"solve_form must be one of {KERNEL_SOLVE_FORMS}, "
                          f"got {solve_form!r}")
-    inv = solve_form == "inv" and nu == 3 and nu * N <= INV_MAX_N
+    inv = solve_form == "inv" and nu * N <= INV_MAX_N
     return "linv" if inv else "subst"
 
 
@@ -435,8 +438,8 @@ def fused_walking_qp(Ad, Bd_t, x_ref, x0, z_warm, y_warm, *, N: int,
     CUDA tensors launch ``fused_qp_nu3`` / ``fused_qp_nu6``; CPU tensors
     run the plain version with exact triangular solves (``"subst"``).
     solve_form="inv" (the SolverConfig value) launches ``fused_qp_nu3_inv``
-    at nu = 3 (plain: ``"linv"`` where n <= 64, ``"subst"`` beyond) and
-    changes nothing at nu = 6.
+    / ``fused_qp_nu6_inv`` (plain: ``"linv"`` where n <= 64, ``"subst"``
+    beyond).
     """
     nu = Bd_t.shape[-1]
     if nu not in FUSED_QP:
@@ -468,8 +471,7 @@ def fused_walking_qp(Ad, Bd_t, x_ref, x0, z_warm, y_warm, *, N: int,
     z = torch.empty((B, N * nu), dtype=torch.float32, device=dev)
     y = torch.empty((B, 2 * N * nu), dtype=torch.float32, device=dev)
     res = torch.empty((B,), dtype=torch.float32, device=dev)
-    inv = solve_form == "inv" and nu == 3
-    (FUSED_QP_NU3_INV if inv else FUSED_QP[nu]).launch(
+    (FUSED_QP_INV if solve_form == "inv" else FUSED_QP)[nu].launch(
         prm, [t.data_ptr() for _, t, _ in ins]
         + [t.data_ptr() for t in (z, y, res)], B,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -487,7 +489,7 @@ def make_admm_fused(cfg_srbd, two_feet: bool = False,
     foot, the input weights duplicated) -- controller.stance_mpc's QP.
 
     solve_form=None: the ``fused_qp`` kernel for CUDA tensors (the
-    ``inv`` entry point when the config's solve_form is "inv" and nu = 3),
+    ``inv`` entry point when the config's solve_form is "inv"),
     the plain composition with the explicit f32 K^-1 (``"kinv"``, the JAX
     CPU path) for CPU tensors. solve_form="kinv" / "subst" / "linv": the
     plain composition with that solve form on any device.

@@ -23,12 +23,12 @@ Eight entry points, one per mode and variant of the TPU kernel's
   estimate driving the controller while the plant steps from the truth;
 * ``walking_tick_kf_hold``: both.
 
-The two solving walking forms have a second entry point each for
+The two solving forms of each mode have a second entry point each for
 ``SolverConfig.solve_form="inv"`` (``walking_tick_inv``,
-``walking_tick_kf_inv``: the MPC core with the explicit factor inverse,
-csrc/mpc_core.cuh, where n = 3 N <= 64; the substitution sweeps beyond,
-as the TPU kernel does, mpc_fused_pallas.py:249). The standing forms run
-the sweeps whatever the form; hold ticks run no solve.
+``walking_tick_kf_inv``, ``standing_tick_inv``, ``standing_tick_kf_inv``:
+the MPC core with the explicit factor inverse, csrc/mpc_core.cuh, where
+n = nu N <= 64; the substitution sweeps beyond, as the TPU kernel does,
+mpc_fused_pallas.py:249); hold ticks run no solve.
 
 :func:`supports_fused_tick` accepts only what these kernels run.
 """
@@ -76,13 +76,18 @@ STAND_KERNELS = {
     key: _build.Kernel(k.name.replace("walking", "standing"), n_ptr=k.n_ptr,
                        params_sizer=_SIZER)
     for key, k in TICK_KERNELS.items()}
+STAND_KERNELS_INV = dict(STAND_KERNELS)
+STAND_KERNELS_INV.update({
+    key: _build.Kernel(STAND_KERNELS[key].name + "_inv",
+                       n_ptr=STAND_KERNELS[key].n_ptr, params_sizer=_SIZER)
+    for key in ((False, False), (True, False))})
 
 
 def tick_kernels(cfg) -> dict:
     """(est_kf, hold) -> kernel for the config's mode and solve form."""
-    if cfg.mode == "stand":
-        return STAND_KERNELS
     inv = cfg.srbd.solver.solve_form == "inv"
+    if cfg.mode == "stand":
+        return STAND_KERNELS_INV if inv else STAND_KERNELS
     return TICK_KERNELS_INV if inv else TICK_KERNELS
 
 
@@ -321,8 +326,8 @@ def fused_walking_tick(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
     CUDA tensors launch the matching ``walking_tick*`` /
     ``standing_tick*`` kernel; CPU
     tensors run its plain version, ``rollout._plant_step_ref`` with the
-    exact-solve ADMM (``solve_form="subst"``; ``"linv"`` for the walking
-    ``inv`` forms).
+    exact-solve ADMM (``solve_form="subst"``; ``"linv"`` for the ``inv``
+    forms where n = nu N <= 64).
     """
     reason = _config_reason(cfg)
     if reason is not None:

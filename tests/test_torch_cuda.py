@@ -164,18 +164,19 @@ def _staggered(B, device):
     return pattern.repeat(B // 6 + 1)[:B]
 
 
+@pytest.mark.parametrize("B", [257, 1, 4096])
 @pytest.mark.parametrize("variant", ["hold", "kf", "kf_hold"])
-def test_tick_variant_matches_plain(cuda_device, variant):
+def test_tick_variant_matches_plain(cuda_device, variant, B):
     """walking_tick_hold / _kf / _kf_hold against the plain tick at
-    B = 257, staggered phases, from states three plain ticks in (so the
-    filter and prev_v / prev_q are past their seed): one tick, then five
-    threaded ticks, each launching its kernel once."""
+    B = 257 (not a multiple of a block's scenarios), 1 and 4096, staggered
+    phases, from states three plain ticks in (so the filter and prev_v /
+    prev_q are past their seed): one tick, then five threaded ticks, each
+    launching its kernel once."""
     est_kf, hold = variant.startswith("kf"), variant.endswith("hold")
     cfg = ControllerConfig.walking()
     if est_kf:
         cfg = dataclasses.replace(cfg, estimator_mode="kf")
     kern = tfc.TICK_KERNELS[(est_kf, hold)]
-    B = 257
     # the filter's states get no yaw kick (as in the JAX KF tests): a yaw
     # off the joints' frame puts its measured feet ~10 cm from its state,
     # and within three ticks some swing targets leave the leg's reach,
@@ -286,15 +287,17 @@ def test_unsupported_configs_raise_on_cuda(cuda_device):
         cfg.srbd, solver=dataclasses.replace(cfg.srbd.solver,
                                              solve_form="inv")))
     # solve_form="inv" (K1) is ported: walking launches the inv entry
-    # point, standing (n = 120 > 64) keeps the substitution kernel
+    # point
     before = tfc.TICK_KERNELS_INV[(False, False)].launches
     ro.plant_step(inv, s, it)
     assert tfc.TICK_KERNELS_INV[(False, False)].launches == before + 1
+    # standing launches its inv entry point (which at n = 120 > 64 runs the
+    # substitution sweeps)
     sinv = dataclasses.replace(stand, srbd=inv.srbd)
-    before = tfc.STAND_KERNELS[(False, False)].launches
+    before = tfc.STAND_KERNELS_INV[(False, False)].launches
     ro.plant_step(sinv, ro.initial_plant_state(
         sinv, batch=(2,), device=cuda_device), it)
-    assert tfc.STAND_KERNELS[(False, False)].launches == before + 1
+    assert tfc.STAND_KERNELS_INV[(False, False)].launches == before + 1
 
 
 def _stand_states(cfg, B, seed, device):
@@ -310,12 +313,14 @@ def _stand_states(cfg, B, seed, device):
     return s0.replace(xi=xi)
 
 
+@pytest.mark.parametrize("B", [257, 1, 4096])
 @pytest.mark.parametrize("variant", ["solve", "hold", "kf", "kf_hold"])
-def test_stand_tick_variant_matches_plain(cuda_device, variant):
+def test_stand_tick_variant_matches_plain(cuda_device, variant, B):
     """standing_tick / _hold / _kf / _kf_hold against the plain standing
-    tick at B = 257 and full width (n = 120), from states three plain
-    ticks in: one tick, then five threaded ticks, each one launch."""
-    _stand_variant_vs_plain(cuda_device, variant, 20)
+    tick at B = 257, 1 and 4096 and full width (n = 120), from states
+    three plain ticks in: one tick, then five threaded ticks, each one
+    launch."""
+    _stand_variant_vs_plain(cuda_device, variant, 20, B)
 
 
 @pytest.mark.parametrize("variant", ["solve", "kf"])
@@ -325,13 +330,17 @@ def test_stand_tick_n30_matches_plain(cuda_device, variant):
     _stand_variant_vs_plain(cuda_device, variant, 30)
 
 
-def _stand_variant_vs_plain(cuda_device, variant, N):
+def _stand_variant_vs_plain(cuda_device, variant, N, B=257, inv=False):
+    """One tick, then five threaded ticks, of a standing form against the
+    plain tick (with solve_form="inv", the "linv" twin where n <= 64)."""
     est_kf, hold = variant.startswith("kf"), variant.endswith("hold")
     cfg = _horizon(ControllerConfig.standing(), N)
     if est_kf:
         cfg = dataclasses.replace(cfg, estimator_mode="kf")
-    kern = tfc.STAND_KERNELS[(est_kf, hold)]
-    B = 257
+    if inv:
+        cfg = _inv(cfg)
+    form = mfc.plain_solve_form(cfg.srbd.solver.solve_form, 6, N)
+    kern = tfc.tick_kernels(cfg)[(est_kf, hold)]
     s0 = _stand_states(cfg, B, 2, cuda_device)
     its = _staggered(B, cuda_device)
     for j in range(3):
@@ -342,7 +351,7 @@ def _stand_variant_vs_plain(cuda_device, variant, N):
     s_k, m_k = ro.plant_step(cfg, s0, its, grf_override=held)
     assert kern.launches == before + 1
     s_p, m_p = ro._plant_step_ref(cfg, s0, its, grf_override=held,
-                                  solve_form="subst")
+                                  solve_form=form)
     assert s_k.ref_anchor is None and s_k.qp_z.shape == (B, 6 * N)
     for k, a in (("xi", 3e-4), ("q", 5e-4), ("foot_l", 0.0),
                  ("foot_r", 0.0)):
@@ -370,11 +379,75 @@ def _stand_variant_vs_plain(cuda_device, variant, N):
     for j in range(5):
         s_k, m_k = ro.plant_step(cfg, s_k, its + j, grf_override=held)
         s_p, m_p = ro._plant_step_ref(cfg, s_p, its + j, grf_override=held,
-                                      solve_form="subst")
+                                      solve_form=form)
     assert kern.launches == before + 6
     torch.testing.assert_close(s_k.xi, s_p.xi, atol=5e-4, rtol=0)
     torch.testing.assert_close(s_k.q, s_p.q, atol=1e-3, rtol=0)
     torch.testing.assert_close(m_k["grf"], m_p["grf"], atol=2e-1, rtol=0)
+
+
+@pytest.mark.parametrize("B", [1, 257, 4096])
+@pytest.mark.parametrize("mode", ["walk", "stand"])
+def test_kf_hold_kernels_across_a_phase_switch(cuda_device, mode, B):
+    """walking_tick_kf_hold / standing_tick_kf_hold against the plain tick
+    over five threaded held ticks that cross a gait phase switch
+    (iterations 298 to 302, staggered by the pattern of _staggered: 300
+    and 600 are switches walking), from states three plain ticks in, each
+    tick one launch: the one-tick bands of test_tick_variant_matches_plain
+    after the first tick, its five-tick bands after the fifth. Walking,
+    the switch scales the swinging foot's measurement noise by the
+    filter's high_suspect_number, and S's conditioning with it: there
+    x_hat may part from the plain f32 tick by more than its band (the two
+    f32 routes, the kernel's bit for bit the one-warp filter's before it),
+    and then it passes only if the kernel is within twice the plain f32
+    tick's distance of the plain tick in float64."""
+    base = (ControllerConfig.walking() if mode == "walk"
+            else ControllerConfig.standing())
+    cfg = dataclasses.replace(base, estimator_mode="kf")
+    kern = tfc.tick_kernels(cfg)[(True, True)]
+    assert kern.name == f"{'walking' if mode == 'walk' else 'standing'}" \
+        "_tick_kf_hold"
+    s0 = (_states(cfg, B, 3, cuda_device, yaw=0.0) if mode == "walk"
+          else _stand_states(cfg, B, 3, cuda_device))
+    its = _staggered(B, cuda_device) + 295.0
+    for j in range(3):
+        s0, m0 = ro._plant_step_ref(cfg, s0, its + j, solve_form="subst")
+    its = its + 3.0
+    held = m0["grf"]
+    before = kern.launches
+    s_k = s_p = s0
+    for j in range(5):
+        s_k, m_k = ro.plant_step(cfg, s_k, its + j, grf_override=held)
+        s_p, m_p = ro._plant_step_ref(cfg, s_p, its + j, grf_override=held,
+                                      solve_form="subst")
+        if j == 0:
+            for k, a in (("xi", 3e-4), ("q", 5e-4), ("foot_l", 5e-4),
+                         ("foot_r", 5e-4)):
+                torch.testing.assert_close(getattr(s_k, k), getattr(s_p, k),
+                                           atol=a, rtol=0)
+            torch.testing.assert_close(s_k.kf.x_hat, s_p.kf.x_hat,
+                                       atol=5e-4, rtol=0)
+            torch.testing.assert_close(s_k.kf.p_cov, s_p.kf.p_cov,
+                                       atol=1e-5, rtol=0)
+            torch.testing.assert_close(m_k["foot_target"],
+                                       m_p["foot_target"], atol=5e-4, rtol=0)
+        assert float(m_k["qp_residual"].abs().max()) == 0.0
+    assert kern.launches == before + 5
+    torch.testing.assert_close(s_k.xi, s_p.xi, atol=5e-4, rtol=0)
+    torch.testing.assert_close(s_k.q, s_p.q, atol=1e-3, rtol=0)
+    torch.testing.assert_close(m_k["grf"], m_p["grf"], atol=2e-1, rtol=0)
+    torch.testing.assert_close(s_k.kf.p_cov, s_p.kf.p_cov, atol=1e-5, rtol=0)
+    err = float((s_k.kf.x_hat - s_p.kf.x_hat).abs().max())
+    if err > 5e-4:
+        s_d = ro._map_state(s0, lambda x: x.cpu().double())
+        for j in range(5):
+            s_d, _ = ro._plant_step_ref(
+                cfg, s_d, (its + j).cpu().double(),
+                grf_override=held.cpu().double(), solve_form="subst")
+        x64 = s_d.kf.x_hat
+        k64 = float((s_k.kf.x_hat.cpu().double() - x64).abs().max())
+        p64 = float((s_p.kf.x_hat.cpu().double() - x64).abs().max())
+        assert k64 <= 2.0 * p64, (err, k64, p64)
 
 
 def _qp_inputs(cfg, nu, B, seed, device):
@@ -850,12 +923,15 @@ def test_fused_qp_inv_kernel_matches_twin_and_subst(cuda_device):
     torch.testing.assert_close(z, z_p, atol=1e-4 * scale, rtol=0)
     sol_s, _ = mfc.make_admm_fused(_cfg(20).srbd)(*args)
     torch.testing.assert_close(z, sol_s.u, atol=1e-4 * scale, rtol=0)
-    # two feet (n = 120 > 64): the form changes nothing, no inv launch
+    # two feet (n = 120 > 64): the inv entry runs the substitution sweeps,
+    # the subst entry's outputs bit for bit
     args6 = _qp_inputs(cfg, 6, 33, 66, cuda_device)
     before6 = mfc.FUSED_QP[6].launches
+    before6i = mfc.FUSED_QP_NU6_INV.launches
     sol6, _ = mfc.make_admm_fused(cfg.srbd, two_feet=True)(*args6)
     sol6s, _ = mfc.make_admm_fused(_cfg(20).srbd, two_feet=True)(*args6)
-    assert mfc.FUSED_QP[6].launches == before6 + 2
+    assert mfc.FUSED_QP[6].launches == before6 + 1
+    assert mfc.FUSED_QP_NU6_INV.launches == before6i + 1
     assert mfc.FUSED_QP_NU3_INV.launches == before + 1
     assert torch.equal(sol6.u, sol6s.u)
 
@@ -928,6 +1004,64 @@ def test_inv_entries_equal_subst_past_n64(cuda_device):
         s_s, m_s = ro.plant_step(base, s0, its)
         for k in ("xi", "q", "foot_l", "foot_r", "qp_z", "qp_lam",
                   "ref_anchor"):
+            assert torch.equal(getattr(s_i, k), getattr(s_s, k)), k
+        assert torch.equal(m_i["grf"], m_s["grf"])
+        if est_kf:
+            assert torch.equal(s_i.kf.p_cov, s_s.kf.p_cov)
+
+
+@pytest.mark.parametrize("variant", ["solve", "kf"])
+def test_stand_tick_inv_kernels_match_linv_twin(cuda_device, variant):
+    """standing_tick_inv / standing_tick_kf_inv at N = 8 (n = 48 <= 64:
+    the factor inverse) against the plain standing tick with the "linv"
+    twin, with the bands of the subst forms (one tick, then five threaded
+    ticks)."""
+    _stand_variant_vs_plain(cuda_device, variant, 8, inv=True)
+
+
+def test_fused_qp_nu6_inv_kernel_matches_twin_and_subst(cuda_device):
+    """fused_qp_nu6_inv at N = 8 (n = 48) against its "linv" twin and
+    against the subst kernel on the same inputs, 1e-4 of the solution
+    scale (the band of fused_qp_nu3_inv), not the subst kernel bit for
+    bit."""
+    cfg = _inv(_cfg(8))
+    args = _qp_inputs(cfg, 6, 257, 68, cuda_device)
+    before = mfc.FUSED_QP_NU6_INV.launches
+    sol, (z, y) = mfc.make_admm_fused(cfg.srbd, two_feet=True)(*args)
+    assert mfc.FUSED_QP_NU6_INV.launches == before + 1
+    sol_p, (z_p, y_p) = mfc.make_admm_fused(cfg.srbd, two_feet=True,
+                                            solve_form="linv")(*args)
+    scale = float(z_p.abs().max()) + 1.0
+    torch.testing.assert_close(z, z_p, atol=1e-4 * scale, rtol=0)
+    sol_s, _ = mfc.make_admm_fused(_cfg(8).srbd, two_feet=True)(*args)
+    torch.testing.assert_close(z, sol_s.u, atol=1e-4 * scale, rtol=0)
+    assert not torch.equal(z, sol_s.u)
+
+
+def test_stand_inv_entries_equal_subst_past_n64(cuda_device):
+    """At N = 11 (n = 66 > 64) the standing inv entries run the
+    substitution sweeps, as mpc_fused_pallas.py:249 does: each launches
+    and gives its subst entry's outputs bit for bit."""
+    cfg, icfg = _cfg(11), _inv(_cfg(11))
+    qargs = _qp_inputs(cfg, 6, 33, 16, cuda_device)
+    before = mfc.FUSED_QP_NU6_INV.launches
+    sol_i, zy_i = mfc.make_admm_fused(icfg.srbd, two_feet=True)(*qargs)
+    assert mfc.FUSED_QP_NU6_INV.launches == before + 1
+    sol_s, zy_s = mfc.make_admm_fused(cfg.srbd, two_feet=True)(*qargs)
+    for a, b in zip(zy_i + (sol_i.residual,), zy_s + (sol_s.residual,)):
+        assert torch.equal(a, b)
+    stand = _horizon(ControllerConfig.standing(), 11)
+    for est_kf in (False, True):
+        base = dataclasses.replace(stand, estimator_mode="kf") if est_kf \
+            else stand
+        s0 = _stand_states(base, 33, 7, cuda_device)
+        its = _staggered(33, cuda_device)
+        kern = tfc.STAND_KERNELS_INV[(est_kf, False)]
+        before = kern.launches
+        s_i, m_i = ro.plant_step(_inv(base), s0, its)
+        assert kern.launches == before + 1
+        s_s, m_s = ro.plant_step(base, s0, its)
+        for k in ("xi", "q", "foot_l", "foot_r", "qp_z", "qp_lam"):
             assert torch.equal(getattr(s_i, k), getattr(s_s, k)), k
         assert torch.equal(m_i["grf"], m_s["grf"])
         if est_kf:

@@ -351,9 +351,10 @@ def test_linv_twin_matches_jax_inv_kernel_interpret():
 
 
 def test_inv_dispatch_walking_and_standing():
-    """Walking configs with solve_form="inv" take the inv entry points and
-    the "linv" twin; standing ones (n = 120 > 64) keep the substitution
-    kernels and twin, as mpc_fused_pallas.py:249 does."""
+    """Configs with solve_form="inv" take the inv entry points, walking and
+    standing; the twin is "linv" where n = nu N <= 64 (walking N <= 21,
+    standing N <= 10) and "subst" beyond (standing at N = 20, n = 120), as
+    mpc_fused_pallas.py:249 does."""
     winv = convert.config_from_dict(dataclasses.replace(
         _small_inv(JCfg.walking()), srbd=dataclasses.replace(
             _small_inv(JCfg.walking()).srbd, horizon=20)))
@@ -366,9 +367,20 @@ def test_inv_dispatch_walking_and_standing():
                      (False, True): "walking_tick_hold",
                      (True, False): "walking_tick_kf_inv",
                      (True, True): "walking_tick_kf_hold"}
-    assert ttfc.tick_kernels(sinv) is ttfc.STAND_KERNELS
+    snames = {k: v.name for k, v in ttfc.tick_kernels(sinv).items()}
+    assert snames == {(False, False): "standing_tick_inv",
+                      (False, True): "standing_tick_hold",
+                      (True, False): "standing_tick_kf_inv",
+                      (True, True): "standing_tick_kf_hold"}
+    ssub = dataclasses.replace(sinv, srbd=dataclasses.replace(
+        sinv.srbd, solver=dataclasses.replace(sinv.srbd.solver,
+                                              solve_form="subst")))
+    assert ttfc.tick_kernels(ssub) is ttfc.STAND_KERNELS
     assert tmfc.plain_solve_form("inv", 3, 20) == "linv"
-    assert tmfc.plain_solve_form("inv", 6, 20) == "subst"
+    for N in range(1, 11):
+        assert tmfc.plain_solve_form("inv", 6, N) == "linv", N
+    for N in (11, 20):
+        assert tmfc.plain_solve_form("inv", 6, N) == "subst", N
     assert tmfc.plain_solve_form("subst", 3, 20) == "subst"
     with pytest.raises(ValueError, match="solve_form"):
         tmfc.plain_solve_form("kinv", 3, 20)

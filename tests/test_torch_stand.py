@@ -322,6 +322,53 @@ def test_fused_qp_twin_matches_jax_kernel_interpret(nu):
             torch.zeros(1, 4 * N), torch.zeros(1, 8 * N), **consts)
 
 
+def _inv_form(cfg):
+    return dataclasses.replace(cfg, srbd=dataclasses.replace(
+        cfg.srbd, solver=dataclasses.replace(cfg.srbd.solver,
+                                             solve_form="inv")))
+
+
+def test_stand_linv_twin_matches_jax_inv_kernel_interpret():
+    """fused_qp_nu6_inv's plain twin ("linv", the wrapper's CPU branch of
+    a solve_form="inv" two-foot QP where n = 6 N <= 64) against JAX
+    make_admm_fused(two_feet=True, use_pallas="interpret") with
+    solve_form="inv" at horizon 8 (n = 48), B = 3, with a dense Ad: z and
+    y within 2e-3 of the solution scale (the band of the walking "linv"
+    case, tests/test_torch_linear_mpc.py:323); within 1e-4 of it from the
+    "subst" twin (tests/test_mpc_fused.py:288) and not that twin bit for
+    bit."""
+    N = 8
+    ins = _qp_inputs(N, 6, 3, 57, np.float32)
+    jc = _inv_form(_small(JCfg.walking())).srbd
+    tc = _inv_form(_small(TCfg.walking())).srbd
+    solver = jfused.make_admm_fused(jc, use_pallas="interpret", two_feet=True)
+    with pltpu.force_tpu_interpret_mode():
+        sol_j, (z_j, y_j) = jax.vmap(solver)(*[jnp.asarray(a) for a in ins])
+    tins = [torch.from_numpy(a) for a in ins]
+    assert tmfc.plain_solve_form("inv", 6, N) == "linv"
+    sol_t, (z_t, y_t) = tmfc.make_admm_fused(tc, two_feet=True,
+                                             solve_form="linv")(*tins)
+    scale = float(np.abs(np.asarray(z_j)).max()) + 1.0
+    _close(z_t, z_j, 2e-3 * scale, "z")
+    _close(y_t, y_j, 2e-3 * scale, "y")
+    _close(sol_t.residual, sol_j.residual, 1e-2, "residual")
+    k = tmfc.cone_constants(tc)
+    before = tmfc.FUSED_QP_NU6_INV.launches
+    z_w, y_w, res_w = tmfc.fused_walking_qp(
+        *tins, N=N, iters=k["iters"], rho=k["rho"], alpha=k["alpha"],
+        reg=k["reg"], q_diag=k["q_diag"], r_diag=k["r_diag"] * 2,
+        p_diag=k["p_diag"],
+        Gu=tuple(map(tuple, np.kron(np.eye(2), np.asarray(k["Gu"])))),
+        h=k["hu"] * 2 * N, solve_form="inv")
+    assert tmfc.FUSED_QP_NU6_INV.launches == before    # CPU: no launch
+    assert torch.equal(z_w, z_t) and torch.equal(y_w, y_t)
+    assert torch.equal(res_w, sol_t.residual)
+    z_s = tmfc.make_admm_fused(tc, two_feet=True, solve_form="subst")(
+        *tins)[1][0]
+    _close(z_t, z_s.numpy(), 1e-4 * scale, "z vs subst")
+    assert not torch.equal(z_t, z_s)
+
+
 # ---- the standing tick at full width ----------------------------------------
 
 @pytest.mark.parametrize("est", ["truth", "kf"])
@@ -448,8 +495,24 @@ def test_stand_tick_twin_solve_then_hold_matches_jax_kernel_interpret(est):
     in interpret mode at horizon 8, B = 2, over a solve and two held
     ticks: xi 5e-4, q 1e-3, grf 2e-1, x_hat 5e-4, p_cov 5e-4
     (tests/test_tick_fused.py:436-448), held residual == 0."""
-    jcfg, tcfg = _small(JCfg.standing()), _small(TCfg.standing())
-    kf = est == "kf"
+    _stand_twin_vs_jax_kernel(_small(JCfg.standing()),
+                              _small(TCfg.standing()), est == "kf")
+
+
+def test_stand_kf_inv_twin_solve_then_hold_matches_jax_kernel_interpret():
+    """The standing KF dtMPC block with solve_form="inv" at horizon 8
+    (n = 48 <= 64: the factor inverse on both sides): the plain twin of
+    standing_tick_kf_inv (the "linv" tick) then standing_tick_kf_hold
+    against the JAX fused tick in interpret mode, with the bands of the
+    "subst" case above."""
+    jcfg = _inv_form(_small(JCfg.standing()))
+    tcfg = _inv_form(_small(TCfg.standing()))
+    assert ttfc.tick_kernels(tcfg)[(True, False)].name == \
+        "standing_tick_kf_inv"
+    _stand_twin_vs_jax_kernel(jcfg, tcfg, True)
+
+
+def _stand_twin_vs_jax_kernel(jcfg, tcfg, kf):
     if kf:
         jcfg, tcfg = _kf(jcfg), _kf(tcfg)
     B = 2
@@ -637,12 +700,14 @@ def test_stand_wrapper_dispatch_and_refusals():
     _, mc = tro.plant_step(cold, tro.initial_plant_state(
         cold, batch=(1,), device="cpu"), torch.zeros(1))
     assert bool(torch.isfinite(mc["grf"]).all())
-    # solve_form="inv" at n = 120 > 64 keeps the substitution kernels
+    # solve_form="inv" takes the inv entries, which at n = 120 > 64 run
+    # the substitution sweeps (so the plain twin is "subst")
     inv = dataclasses.replace(cfg, srbd=dataclasses.replace(
         cfg.srbd, solver=dataclasses.replace(cfg.srbd.solver,
                                              solve_form="inv")))
     assert ttfc.unsupported_reason(inv, s) is None
-    assert ttfc.tick_kernels(inv) is ttfc.STAND_KERNELS
+    assert ttfc.tick_kernels(inv) is ttfc.STAND_KERNELS_INV
+    assert tmfc.plain_solve_form("inv", 6, 20) == "subst"
     with pytest.raises(ValueError, match="estimator_mode"):
         ttfc.fused_walking_tick(
             s.xi, s.q, s.foot_l, s.foot_r, s.qp_z, s.qp_lam,

@@ -10,6 +10,13 @@ profiler; then the device time of every kernel in a third window from
 of the wall time. Prints one JSON line per batch size (and appends it to
 ``--out`` when given).
 
+``--held`` profiles the held-force form through the wrapper instead: one
+``rollout.plant_step`` call with a held force pair a tick, on a fixed
+state (the wrapper's checks, the launch and the metric tensors around
+the ``*_tick_hold`` / ``*_tick_kf_hold`` kernel); the line then also
+names the host operators and, from ``cProfile`` over a fourth window,
+the Python functions that take the most host time a tick.
+
 ``--solver`` swaps the config's QP solver for one of the general ones,
 whose tick is the plain composition on the card with its factorizations
 and solves in the ``ops/chol_cuda.py`` kernels: ``pdip`` (warm, 6 Newton
@@ -20,6 +27,7 @@ The line then also counts the kernel launches per tick.
     python3 tools/profile_torch_tick.py [--batches 1 64 1024 4096]
                                         [--ticks 200] [--mode stand]
                                         [--estimator kf] [--mpc-every 5]
+                                        [--held]
                                         [--solver pdip|pdip-cold|admm|
                                                   admm-cold]
                                         [--out FILE]
@@ -53,34 +61,59 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _window(cfg, s, ticks: int, mpc_every: int) -> float:
+def _window(cfg, s, ticks: int, mpc_every: int, held=None) -> float:
     from mpc_limx_control_tpu_torch.control import rollout as ro
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ro.batched_rollout(cfg, s, ticks, mpc_every=mpc_every)
+    if held is None:
+        ro.batched_rollout(cfg, s, ticks, mpc_every=mpc_every)
+    else:
+        it = torch.full((s.xi.shape[0],), 123.0, device=s.xi.device)
+        for _ in range(ticks):
+            ro.plant_step(cfg, s, it, grf_override=held)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / ticks
 
 
-def profile_batch(cfg, B: int, ticks: int, dev, mpc_every: int = 1) -> dict:
+def profile_batch(cfg, B: int, ticks: int, dev, mpc_every: int = 1,
+                  held: bool = False) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from mpc_limx_control_tpu_torch.control import rollout as ro
 
     s = ro.initial_plant_state(cfg, batch=(B,), device=dev)
-    _window(cfg, s, ticks, mpc_every)                    # warm up
-    walls = [_window(cfg, s, ticks, mpc_every),
-             _window(cfg, s, ticks, mpc_every)]
+    force = None
+    if held:
+        force = torch.tensor([0.0, 0.0, 0.0, 2.0, -1.0, 180.0],
+                             device=dev).expand(B, 6).contiguous()
+    _window(cfg, s, ticks, mpc_every, force)                # warm up
+    walls = [_window(cfg, s, ticks, mpc_every, force),
+             _window(cfg, s, ticks, mpc_every, force)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_prof = _window(cfg, s, ticks, mpc_every)
-    by_name, counts = {}, {}
+        wall_prof = _window(cfg, s, ticks, mpc_every, force)
+    py_top = {}
+    if held:
+        import cProfile
+        import pstats
+
+        pr = cProfile.Profile()
+        pr.enable()
+        _window(cfg, s, ticks, mpc_every, force)
+        pr.disable()
+        st = pstats.Stats(pr)
+        rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:10]
+        py_top = {f"{fn[0].rsplit('/', 1)[-1]}:{fn[1]}:{fn[2]}":
+                  tt / ticks * 1e3 for fn, (_, _, tt, _, _) in rows}
+    by_name, counts, host = {}, {}, {}
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us > 0.0:
             by_name[evt.key] = by_name.get(evt.key, 0.0) + us
             counts[evt.key] = counts.get(evt.key, 0) + evt.count
+        elif evt.self_cpu_time_total > 0.0:
+            host[evt.key] = host.get(evt.key, 0.0) + evt.self_cpu_time_total
     dev_ms = sum(by_name.values()) / ticks / 1e3
     wall = min(walls)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -100,6 +133,11 @@ def profile_batch(cfg, B: int, ticks: int, dev, mpc_every: int = 1) -> dict:
         "ticks_per_s": B / wall,
         "top_kernels_ms_per_tick": {k[:60]: v / ticks / 1e3 for k, v in top},
         "top_kernels_us_per_launch": {k[:60]: v / counts[k] for k, v in top},
+        "held": held,
+        "top_python_ms_per_tick": py_top,
+        "top_host_ms_per_tick": {
+            k[:60]: v / ticks / 1e3 for k, v in sorted(
+                host.items(), key=lambda kv: -kv[1])[:8]},
     }
 
 
@@ -111,6 +149,8 @@ def main() -> int:
     ap.add_argument("--mode", choices=("walk", "stand"), default="walk")
     ap.add_argument("--estimator", choices=("truth", "kf"), default="truth")
     ap.add_argument("--mpc-every", type=int, default=1)
+    ap.add_argument("--held", action="store_true",
+                    help="profile plant_step with a held force instead")
     ap.add_argument("--solver", default=None,
                     choices=("pdip", "pdip-cold", "admm", "admm-cold"))
     ap.add_argument("--out", default=None)
@@ -141,7 +181,7 @@ def main() -> int:
             srbd=dataclasses.replace(cfg.srbd, solver=solver))
     for B in args.batches:
         line = json.dumps(dict(card=smi, **profile_batch(
-            cfg, B, args.ticks, dev, args.mpc_every)))
+            cfg, B, args.ticks, dev, args.mpc_every, args.held)))
         print(line, flush=True)
         if args.out:
             with open(args.out, "a") as fh:

@@ -1,6 +1,6 @@
-"""Time the kernels built on the MPC core (csrc/mpc_core.cuh) of a
-checkout, split a block's time into its stages, and compare two checkouts'
-outputs exactly.
+"""Time the kernels built on the MPC core (csrc/mpc_core.cuh) and the
+held-force tick kernels of a checkout, split a block's time into its
+stages, and compare two checkouts' outputs exactly.
 
 Run on a machine with a CUDA card:
 
@@ -14,30 +14,40 @@ imported (default: the one holding this script); its kernels are built
 there at first use. Prints one JSON line: the card's name and power limit
 and, per entry point on the core (the walking ``walking_tick``,
 ``walking_tick_kf``, ``walking_mpc_prep``, ``fused_qp_nu3`` and their four
-``_inv`` forms; the standing ``standing_tick``, ``standing_tick_kf`` and
-``fused_qp_nu6``) at horizon N (``--horizon``, default 20) and B = 1 and
-4096, the device time per launch over launches replayed from a CUDA graph
-on fixed numpy-seeded inputs, its dynamic shared memory and, where the
-library exports them, the blocks an SM holds; an entry the checkout
-refuses at that horizon is reported with its reason. Two checkouts are
-compared by running this once per checkout, in turns, inside one call on
-one card.
+``_inv`` forms; the standing ``standing_tick``, ``standing_tick_kf``,
+``fused_qp_nu6`` and their three ``_inv`` forms) at horizon N
+(``--horizon``, default 20) and per held-force tick (``walking_tick_hold``,
+``walking_tick_kf_hold``, ``standing_tick_hold``,
+``standing_tick_kf_hold``: no MPC, the horizon only sizes the warm state
+they pass through) at B = 1 and 4096, the device time per launch over
+launches replayed from a CUDA graph on fixed numpy-seeded inputs, its
+dynamic shared memory and, where the library exports them, the blocks an
+SM holds; an entry the checkout refuses at that horizon is reported with
+its reason. Two checkouts are compared by running this once per
+checkout, in turns, inside one call on one card.
 
 ``--dump DIR`` also saves every output of those launches to
-``DIR/outputs.npz`` (~15 MB: keep DIR out of the files a call brings
+``DIR/outputs.npz`` (~25 MB: keep DIR out of the files a call brings
 back); ``--compare`` (no card needed) reads two such files and prints, per
 output, whether they are equal bit for bit and their largest absolute
 difference (tools/time_chol_kernels.py's comparison and graph timing).
 
 ``--stages`` builds a second library with ``MPC_STAGE_CLOCKS`` defined
-(the core then records clock64() at its stage boundaries; the normal
+(the kernels then record clock64() at their stage boundaries; the normal
 build never defines it), launches each entry point from it and prints,
 per entry and batch, the mean cycles a block spends in each stage, from
-thread 0's stamps: prologue (tick prologue, loads), gram (linearization
-and Gramians), emit (warp 0's band emission rows), fsweep (warp 0's f
+thread 0's stamps: for the entries on the core, prologue (tick prologue,
+loads; with the filter, ``filter`` of it), gram (linearization and
+Gramians), emit (warp 0's band emission rows), fsweep (warp 0's f
 sweeps), band (the emission of every warp and the f sweeps, barrier to
 barrier), chol (factorization), admm (the ADMM and its outputs), epilogue
-(outputs, plant step), total.
+(outputs, plant step), total; for the held-force ticks, the filter's
+sensors (inputs loaded, sensors synthesized), predict (P_pred, C P, S),
+factor, solves and posterior (with the symmetrization) in the KF forms,
+then the hold tick's prologue (gait clock to swing IK) and epilogue
+(held force, plant step, next-tick kinematics), total. A block of a KF
+hold form holds eight scenarios, two a warp, and thread 0's stamps are
+its first's; a truth hold block holds 128, one a thread.
 """
 
 from __future__ import annotations
@@ -57,7 +67,12 @@ BATCHES = {1: 200, 4096: 20}     # batch -> graph-replayed launches
 ENTRIES = ("walking_tick", "walking_tick_kf", "walking_tick_inv",
            "walking_tick_kf_inv", "walking_mpc_prep", "walking_mpc_prep_inv",
            "fused_qp_nu3", "fused_qp_nu3_inv", "standing_tick",
-           "standing_tick_kf", "fused_qp_nu6")
+           "standing_tick_kf", "fused_qp_nu6", "standing_tick_inv",
+           "standing_tick_kf_inv", "fused_qp_nu6_inv", "walking_tick_hold",
+           "walking_tick_kf_hold", "standing_tick_hold",
+           "standing_tick_kf_hold")
+# scenarios a block of the held-force forms (csrc/tick_common.cuh)
+HOLD_PER_BLOCK = {False: 128, True: 8}
 TICK_FIELDS = ("xi", "q", "foot_l", "foot_r", "z", "y", "anchor",
                "residual", "grf", "target", "kf_x", "kf_p")
 STAGE_READER = {"standing_tick": "standing_tick_stage_clocks",
@@ -68,15 +83,22 @@ STAGE_READER = {"standing_tick": "standing_tick_stage_clocks",
                 "walking_tick_kf": "walking_tick_stage_clocks",
                 "walking_mpc_prep": "walking_mpc_prep_stage_clocks"}
 STAGE_READER.update({f"{e}_inv": STAGE_READER[e] for e in (
-    "walking_tick", "walking_tick_kf", "walking_mpc_prep", "fused_qp_nu3")})
+    "walking_tick", "walking_tick_kf", "walking_mpc_prep", "fused_qp_nu3",
+    "standing_tick", "standing_tick_kf", "fused_qp_nu6")})
+STAGE_READER.update({f"{e}_hold": STAGE_READER[e] for e in (
+    "walking_tick", "walking_tick_kf", "standing_tick", "standing_tick_kf")})
+# the filter's and the hold tick's stage slots (csrc/tick_common.cuh
+# KfStage; the core's are 0-8)
+KS_SENSE, KS_PRED, KS_FACTOR, KS_SOLVE, KS_POST, KS_HOLD_PRE = range(9, 15)
 
 
 def _t(a, dev):
     return torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
 
 
-def tick_call(cfg, B: int, seed: int, dev):
-    """A launch of the config's solving tick kernel on kicked initial
+def tick_call(cfg, B: int, seed: int, dev, hold: bool = False):
+    """A launch of the config's solving tick kernel (with `hold`, its
+    held-force kernel, holding a seeded force pair) on kicked initial
     states (vx, vy; yaw too for the walking truth form), a seeded warm QP
     state and staggered tick counters (both swing sides); returns
     (launch function, output names, outputs)."""
@@ -99,9 +121,14 @@ def tick_call(cfg, B: int, seed: int, dev):
     anc = torch.cat([xi[:, 3:5], xi[:, 2:3]], -1).contiguous()
     kf_args = dict(kf_x=s.kf.x_hat, kf_p=s.kf.p_cov, prev_v=s.prev_v,
                    prev_q=s.prev_q) if kf else {}
+    held = None
+    if hold:
+        held = _t(np.array([0.0, 0.0, 0.0, 2.0, -1.0, 180.0])
+                  + rng.standard_normal((B, 6)), dev)
     inputs = (xi.contiguous(), s.q, s.foot_l, s.foot_r, z, y, anc, it, vd,
               torch.zeros(B, device=dev))
-    plan = tfc.prepare_tick_launch(*inputs, cfg=cfg, **kf_args)
+    plan = tfc.prepare_tick_launch(*inputs, cfg=cfg, grf_held=held,
+                                   **kf_args)
 
     def launch():
         # the plan carries raw pointers: `inputs` (and `s`, which holds the
@@ -109,9 +136,14 @@ def tick_call(cfg, B: int, seed: int, dev):
         # whatever the checkout's plan keeps
         plan.kernel.launch(plan.params, plan.ptrs, plan.batch,
                            torch.cuda.current_stream(dev).cuda_stream)
-        return inputs, s
+        return inputs, s, held
 
-    return launch, TICK_FIELDS[:len(plan.results)], plan.results
+    fields = TICK_FIELDS[:len(plan.results)]
+    if hold:   # z and y pass through: the outputs are the rest
+        keep = [i for i, f in enumerate(fields) if f not in ("z", "y")]
+        return (launch, tuple(fields[i] for i in keep),
+                tuple(plan.results[i] for i in keep))
+    return launch, fields, plan.results
 
 
 def prep_call(cfg, B: int, seed: int, dev):
@@ -202,7 +234,9 @@ def entry_call(name: str, B: int, dev, N: int):
             c.srbd, horizon=N, solver=solver))
 
     inv = name.endswith("_inv")
+    hold = name.endswith("_hold")
     name = name[:-len("_inv")] if inv else name
+    name = name[:-len("_hold")] if hold else name
     walk = horizon(ControllerConfig.walking())
     stand = horizon(ControllerConfig.standing())
     kf = name.endswith("_kf")
@@ -210,7 +244,8 @@ def entry_call(name: str, B: int, dev, N: int):
         cfg = stand if name.startswith("standing") else walk
         if kf:
             cfg = dataclasses.replace(cfg, estimator_mode="kf")
-        launch, fields, outs = tick_call(cfg, B, 31 + kf, dev)
+        launch, fields, outs = tick_call(cfg, B, 31 + kf + 2 * hold, dev,
+                                         hold=hold)
         return launch, fields, lambda: outs
     if name == "walking_mpc_prep":
         launch, fields, out = prep_call(walk, B, 33, dev)
@@ -301,6 +336,8 @@ def stages(root: str, N: int, entries) -> dict:
         if reason is not None:
             out[name] = {"refused": reason}
             continue
+        hold = name.endswith("_hold")
+        kf = "_kf" in name
         for B in BATCHES:
             launch, _, _ = entry_call(name, B, dev, N)
             for _ in range(3):
@@ -309,15 +346,32 @@ def stages(root: str, N: int, entries) -> dict:
             rc = read(clocks.ctypes.data)
             if rc != 0:
                 raise RuntimeError(f"{STAGE_READER[name]}: CUDA error {rc}")
-            c = clocks[:B].astype(np.float64)
-            # slots: start, inputs staged, Gramians, warp 0's emission,
-            # its f sweeps, the barrier after them, factor, ADMM, end
-            step = np.diff(c[:, :9], axis=1)
-            span = dict(zip(("prologue", "gram", "emit", "fsweep"),
-                            step[:, :4].T))
-            span.update(band=c[:, 5] - c[:, 2], chol=step[:, 5],
-                        admm=step[:, 6], epilogue=step[:, 7],
-                        total=c[:, 8] - c[:, 0])
+            per_block = HOLD_PER_BLOCK[kf] if hold else 1
+            c = clocks[:-(-B // per_block)].astype(np.float64)
+            if hold:
+                span = {}
+                if kf:
+                    # slots: start, the filter's stages, hold prologue, end
+                    span.update(zip(
+                        ("sensors", "predict", "factor", "solves",
+                         "posterior"),
+                        np.diff(c[:, [0, KS_SENSE, KS_PRED, KS_FACTOR,
+                                      KS_SOLVE, KS_POST]], axis=1).T))
+                pre0 = c[:, KS_POST] if kf else c[:, 0]
+                span.update(prologue=c[:, KS_HOLD_PRE] - pre0,
+                            epilogue=c[:, 8] - c[:, KS_HOLD_PRE],
+                            total=c[:, 8] - c[:, 0])
+            else:
+                # slots: start, inputs staged, Gramians, warp 0's emission,
+                # its f sweeps, the barrier after them, factor, ADMM, end
+                step = np.diff(c[:, :9], axis=1)
+                span = dict(zip(("prologue", "gram", "emit", "fsweep"),
+                                step[:, :4].T))
+                span.update(band=c[:, 5] - c[:, 2], chol=step[:, 5],
+                            admm=step[:, 6], epilogue=step[:, 7],
+                            total=c[:, 8] - c[:, 0])
+                if kf and name.startswith(("walking_tick", "standing_tick")):
+                    span["filter"] = c[:, KS_POST] - c[:, 0]
             out[f"{name}_B{B}"] = {k: float(v.mean()) for k, v in span.items()}
     out["clocks_sm_mhz"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
