@@ -15,14 +15,17 @@ non-zero):
    equal to the wrappers' mirror, ``mpc_fused_cuda.smem_bytes``, at
    N = 8 to 85) and its blocks an SM at N = 20 (at least five for
    ``standing_tick{,_kf}``, four for ``fused_qp_nu6``, more than six for
-   ``walking_tick{,_kf}`` and ``walking_mpc_prep``);
+   ``walking_tick{,_kf}`` and ``walking_mpc_prep``), and the blocks an SM
+   of the four held-force forms (a half warp a scenario, eight a block;
+   at least four, one wave at B = 4096);
 3. ``walking_mpc_prep`` against its plain version (exact-solve ADMM) at
    N = 20, 8 and 30, B = 257, numpy-seeded inputs; ``fused_qp_nu3`` /
    ``fused_qp_nu6`` (given, dense Ad) against theirs at N = 20 and 30,
    B = 257;
 4. ``walking_tick`` and its hold, KF and KF + hold variants against the
-   plain tick at B = 257: one tick with staggered iterations (both swing
-   sides, 299/300), then five threaded ticks; the two walking solving
+   plain tick at B = 257 (the held-force forms' last warp half full): one
+   tick with staggered iterations (both swing sides, 299/300), then five
+   threaded ticks; the two walking solving
    forms likewise at N = 22 and 42 (n = 66, 126); the four
    ``standing_tick`` forms at full width (n = 120), the two solving ones
    also at N = 30 (n = 180);
@@ -802,13 +805,19 @@ def main() -> int:
     # fused_qp_nu6, more than the six of the walking forms before it)
     per_sm = {name: getattr(lib, f"{name}_blocks_per_sm")(20)
               for name in mfc.MPC_ENTRIES}
+    # and of the held-force forms (a half warp a scenario, eight a block of
+    # 128 threads): at least four, so that B = 4096 runs as one wave
+    hold_per_sm = {name: getattr(lib, f"{name}_blocks_per_sm")()
+                   for name in _build.HOLD_ENTRIES}
     say("occupancy", N=20, smem_bytes={k: smem[f"{k}_N20"] for k in per_sm},
-        blocks_per_sm=per_sm)
+        blocks_per_sm=per_sm, hold_blocks_per_sm=hold_per_sm)
     check(min(per_sm["standing_tick"], per_sm["standing_tick_kf"]) >= 5
           and per_sm["fused_qp_nu6"] >= 4
           and min(per_sm[e] for e in ("walking_tick", "walking_tick_kf",
                                       "walking_mpc_prep")) > 6,
           f"blocks an SM at N = 20: {per_sm}")
+    check(min(hold_per_sm.values()) >= 4,
+          f"held-force blocks an SM: {hold_per_sm}")
     smem.update({f"{name}_n{n}_k1": getattr(lib, f"{name}_smem_bytes")(n, 1)
                  for name in chol_cuda.KERNELS for n in (30, 60, 120)})
     for name in chol_cuda.KERNELS:
@@ -938,7 +947,8 @@ def main() -> int:
     for k, tol in (("xi", 5e-4), ("q", 1e-3), ("grf", 2e-1)):
         check(e5[k] <= tol, f"five-tick {k} error {e5[k]} > {tol}")
 
-    # the hold, KF and KF + hold variants (bands of tests/test_torch_cuda);
+    # the hold, KF and KF + hold variants (bands of tests/test_torch_cuda;
+    # B = 257 leaves the hold forms' last half warp repeating scenario 256);
     # the two solving forms also past the 21 steps the walking core once
     # took (N = 22, 42: two and four solve rows a lane), same bands
     walk_cases = [(v, name, 20) for v, name in VARIANTS.items()

@@ -44,6 +44,11 @@ MPC_ENTRIES = ("walking_mpc_prep", "walking_tick", "walking_tick_kf",
                "fused_qp_nu6_inv")
 SMEM_SIZERS = tuple(f"{e}_smem_bytes" for e in MPC_ENTRIES) + tuple(
     f"{e}_blocks_per_sm" for e in MPC_ENTRIES)
+# the held-force tick forms (no MPC, no dynamic shared memory): a half warp
+# a scenario, `<entry>_blocks_per_sm()` (no argument) the blocks an SM holds
+HOLD_ENTRIES = ("walking_tick_hold", "walking_tick_kf_hold",
+                "standing_tick_hold", "standing_tick_kf_hold")
+HOLD_SIZERS = tuple(f"{e}_blocks_per_sm" for e in HOLD_ENTRIES)
 PARAMS_SIZERS = ("walking_mpc_params_bytes", "walking_tick_params_bytes",
                  "chol_params_bytes", "pdip_params_bytes")
 # those that take two sizes: the matrix order n and the number of
@@ -147,7 +152,7 @@ def build_library(defines: tuple = ()) -> dict:
     for name in PAIR_SMEM_SIZERS:
         getattr(lib, name).argtypes = [ctypes.c_int, ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
-    for name in PARAMS_SIZERS:
+    for name in PARAMS_SIZERS + HOLD_SIZERS:
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     return {"lib": lib, "path": str(out), "seconds": seconds,

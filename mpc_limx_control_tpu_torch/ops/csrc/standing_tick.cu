@@ -30,9 +30,8 @@
 // threads per scenario; K is stored as a packed lower triangle, Bd once
 // and, instead of the N Gramians, only S_k = W_k Bd_k, so the block's
 // 37.5 KB of shared memory at N = 20 lets six scenarios share an SM.  The
-// hold forms run no MPC: one thread (truth) or a half warp (KF: kf_tick
-// and kf_hold_tick of tick_common.cuh, the two legs' IKs at once) per
-// scenario.
+// hold forms run no MPC: a half warp per scenario (hold_tick of
+// tick_common.cuh, the two legs' IKs at once; the KF forms kf_tick first).
 // The "inv" forms take the factor inverse where n = 6 N <= 64 (N <= 10) and
 // the substitution kernels beyond, as the TPU kernel does
 // (mpc_fused_pallas.py:249).
@@ -121,54 +120,15 @@ standing_tick_kernel(const __grid_constant__ TickParams T,
 }
 
 // ---- the held-force forms: no MPC ----------------------------------------
-// The force pair is applied as given (no stance-foot reassignment: both
-// feet stand); z / y pass through in the wrapper, the residual is 0.
-__device__ void stand_hold_tick(const TickParams& T, const Leg& g,
-                                const TickIO& io, int b, const float* pos,
-                                const float* vel) {
-  const float* xi = io.xi + b * mpc::NX;
-  const float* q6 = io.q + b * 6;
-  Pre o;
-  tick_prologue(T, g, xi, pos, vel, q6, io.vdes + b * 3, io.wdes[b],
-                io.anc + b * 3, io.it[b], false, io.anc_o + b * 3,
-                io.tgt_o + b * 3, o);
-  MPC_STAGE(KS_HOLD_PRE);
-  const float* gh = io.grf + b * 6;
-  io.res_o[b] = 0.0f;
-  stand_epilogue(T, g, xi, q6, io.fl + b * 3, io.fr + b * 3, gh, gh + 3,
-                 io.xi_o + b * mpc::NX, io.q_o + b * 6, io.fl_o + b * 3,
-                 io.fr_o + b * 3, io.grf_o + b * 6);
-}
-
+// A half warp per scenario, eight a block (tick_common.cuh
+// hold_kernel_body).  The force pair is applied as given (no stance-foot
+// reassignment: both feet stand); z / y pass through in the wrapper, the
+// residual is 0.
 template <bool KF>
 __global__ void __launch_bounds__(HOLD_NT, HOLD_MIN_BLOCKS)
 standing_tick_hold_kernel(const __grid_constant__ TickParams T,
                           const __grid_constant__ TickIO io, int B) {
-  MPC_STAGE(mpc::ST_START);
-  const Leg g = load_leg(T);
-  if constexpr (!KF) {
-    const int b = blockIdx.x * HOLD_NT + threadIdx.x;
-    if (b >= B) return;
-    const float* xi = io.xi + b * mpc::NX;
-    stand_hold_tick(T, g, io, b, xi + 3, xi + 9);
-    MPC_STAGE(mpc::ST_END);
-  } else {
-    // a scenario on each half warp; a half past the batch repeats the
-    // last scenario (its inputs, so the same values written), so that the
-    // warp's shuffles and __syncwarp()s stay full
-    __shared__ float scratch[HOLD_KF_PER_BLOCK][KW_SIZE];
-    const int slot = threadIdx.x / KF_LANES, lane = threadIdx.x % KF_LANES;
-    const int b0 = blockIdx.x * HOLD_KF_PER_BLOCK + (slot & ~1);
-    if (b0 >= B) return;   // the whole warp
-    const int b = b0 + (slot & 1) < B ? b0 + (slot & 1) : B - 1;
-    float* w = scratch[slot];
-    kf_tick(T, g, lane, false, true, io.xi + b * mpc::NX, io.q + b * 6,
-            io.pv + b * 3, io.pq + b * 6, io.kx + b * 12, io.kp + b * 144, w,
-            io.kx_o + b * 12, io.kp_o + b * 144);
-    kf_hold_tick<true>(T, g, io, b, lane, w + KW_XN, w + KW_XN + 3,
-                       w + KW_TRIG);
-    MPC_STAGE(mpc::ST_END);
-  }
+  hold_kernel_body<true, KF>(T, io, B);
 }
 
 // dynamic shared memory of the solving forms: the MPC layout with one Bd
@@ -209,10 +169,9 @@ template <bool KF>
 int launch_hold(const TickParams* prm, const TickIO& io, int B,
                 void* stream) {
   if (B <= 0) return 0;
-  const int per_block = KF ? HOLD_KF_PER_BLOCK : HOLD_NT;
-  standing_tick_hold_kernel<KF>
-      <<<(B + per_block - 1) / per_block, HOLD_NT, 0, (cudaStream_t)stream>>>(
-          *prm, io, B);
+  standing_tick_hold_kernel<KF><<<(B + HOLD_PER_BLOCK - 1) / HOLD_PER_BLOCK,
+                                  HOLD_NT, 0, (cudaStream_t)stream>>>(
+      *prm, io, B);
   return (int)cudaGetLastError();
 }
 
@@ -234,6 +193,13 @@ SOLVE_SIZERS(standing_tick, false, false)
 SOLVE_SIZERS(standing_tick_kf, true, false)
 SOLVE_SIZERS(standing_tick_inv, false, true)
 SOLVE_SIZERS(standing_tick_kf_inv, true, true)
+// the blocks of a held-force form an SM holds (no dynamic shared memory)
+extern "C" int standing_tick_hold_blocks_per_sm() {
+  return mpc::blocks_per_sm(standing_tick_hold_kernel<false>, HOLD_NT, 0);
+}
+extern "C" int standing_tick_kf_hold_blocks_per_sm() {
+  return mpc::blocks_per_sm(standing_tick_hold_kernel<true>, HOLD_NT, 0);
+}
 
 // the C entry points (pointer order in tick_common.cuh)
 TICK_ENTRY_SOLVE(standing_tick, launch_solve<false>)

@@ -4,18 +4,18 @@
 // for the held-force forms, on a warp in shared memory for the solving
 // forms), the tick's prologue (gait clock, FK, anchor, placement, swing
 // IK) and epilogue (exact-ZOH SRBD plant step, next-tick kinematics), and
-// the held-force tick of the KF forms spread over a half warp.
+// the held-force forms' tick spread over a half warp.
 // Counterparts of the sections of
 // mpc_limx_control_tpu/ops/tick_fused_pallas.py:_tick_kernel (:130) named
 // at each function.
 //
-// The KF held-force forms are one dependent chain per scenario (latency
-// and issue slots, not flops or bytes: ~7k flops and ~1.8 KB a
-// scenario).  On the H100 the previous design (a warp a scenario, the
-// filter in shared memory, the hold tick on one lane) took ~102k cycles a
-// warp at B = 4096, 44k of them in the filter and 48k in the hold tick
-// (PERF.md section 6); the design here shortens the chain (kf_tick,
-// kf_hold_tick) and runs two scenarios a warp.
+// The held-force forms are one dependent chain per scenario (latency
+// and issue slots, not flops or bytes: ~1k flops and ~0.3 KB a scenario
+// with the truth, ~7k and ~1.8 KB with the filter).  On one thread that
+// chain -- ~30 sines and cosines and two IKs one after another -- takes
+// ~40k cycles on the H100 (PERF.md section 6), so the design shortens it
+// (kf_tick, hold_tick: the angles' sines and cosines on nine lanes, the
+// two IKs on two) and runs two scenarios a warp (hold_kernel_body).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -252,8 +252,8 @@ struct TrigShared {
 };
 
 // ---- the Kalman filter ------------------------------------------------
-// The register filter and the held-force tick of the KF forms run one
-// scenario on each half of a warp, KF_LANES lanes (rows of S, right-hand
+// The register filter and the held-force tick (truth and KF forms) run
+// one scenario on each half of a warp, KF_LANES lanes (rows of S, right-hand
 // sides and angles all fit in 16), the two halves in step: half_bcast
 // gives a value of lane `src` of this half to every lane of it.
 constexpr int KF_LANES = 16;
@@ -906,21 +906,20 @@ __device__ void stand_epilogue(const TickParams& T, const Leg& g,
   ik_leg(g, tb, q6 + 3, -1.0f, q_out + 3);
 }
 
-// The held-force tick of the KF forms on the filter's half warp
-// (sections 1-4, the held force, sections 7-8 of scenario b; STAND: the
-// standing tick):
-// the arithmetic of the one-thread hold tick (walking_tick.cu hold_tick,
-// standing_tick.cu stand_hold_tick), laid out so that its two leg IKs --
-// walking, the swing leg to its next point and the stance leg re-pinned;
-// standing, both legs re-pinned -- run on lanes 0 and 1 at once, and the
-// new attitude's and the swing leg's sines and cosines on three lanes at
-// once; the rest runs on lane 0, which alone holds `pos` / `vel` (the
-// controller's base position and velocity).  trig: tick_trig_warp's.
+// The held-force tick on a scenario's half warp (sections 1-4, the held
+// force, sections 7-8 of scenario b; STAND: the standing tick): the
+// arithmetic of tick_prologue and tick_epilogue / stand_epilogue, laid
+// out so that its two leg IKs -- walking, the swing leg to its next point
+// and the stance leg re-pinned; standing, both legs re-pinned -- run on
+// lanes 0 and 1 at once, and the new attitude's and the swing leg's sines
+// and cosines on three lanes at once; the rest runs on lane 0, which
+// alone reads `pos` / `vel` (the controller's base position and velocity:
+// the truth's, or the filter's posterior).  trig: tick_trig_warp's.
 template <bool STAND>
-__device__ void kf_hold_tick(const TickParams& T, const Leg& g,
-                             const TickIO& io, int b, int lane,
-                             const float* pos, const float* vel,
-                             const float* trig) {
+__device__ void hold_tick(const TickParams& T, const Leg& g,
+                          const TickIO& io, int b, int lane,
+                          const float* pos, const float* vel,
+                          const float* trig) {
   const float* xi = io.xi + b * mpc::NX;
   const float* q6 = io.q + b * 6;
   const float* fl = io.fl + b * 3;
@@ -1010,13 +1009,47 @@ __device__ void kf_hold_tick(const TickParams& T, const Leg& g,
 }
 
 // threads per block of the held-force forms (no MPC), how many scenarios
-// a block of the KF held-force form takes (one per half warp), and the
-// blocks an SM must hold: four of 128 threads, so 128 registers a thread at
-// most, let the 512 blocks of B = 4096 KF scenarios run as one wave on 132
-// SMs without spilling
+// a block takes (one per half warp), and the blocks an SM must hold: four
+// of 128 threads, so 128 registers a thread at most, let the 512 blocks of
+// B = 4096 scenarios run as one wave on 132 SMs without spilling
 constexpr int HOLD_NT = 128;
-constexpr int HOLD_KF_PER_BLOCK = HOLD_NT / KF_LANES;
+constexpr int HOLD_PER_BLOCK = HOLD_NT / KF_LANES;
 constexpr int HOLD_MIN_BLOCKS = 4;
+
+// The held-force kernels' body (STAND: standing; KF: the filter's
+// posterior drives the controller, else the truth): a scenario on each
+// half warp.  A half past the batch repeats the last scenario (its inputs,
+// so the same values written), so that the warp's shuffles and
+// __syncwarp()s stay full.  With the truth the tick needs only the nine
+// angles' sines and cosines (tick_trig_warp) in shared memory; the filter
+// leaves them in its scratch.
+template <bool STAND, bool KF>
+__device__ __forceinline__ void hold_kernel_body(const TickParams& T,
+                                                 const TickIO& io, int B) {
+  MPC_STAGE(mpc::ST_START);
+  const Leg g = load_leg(T);
+  const int slot = threadIdx.x / KF_LANES, lane = threadIdx.x % KF_LANES;
+  const int b0 = blockIdx.x * HOLD_PER_BLOCK + (slot & ~1);
+  if (b0 >= B) return;   // the whole warp
+  const int b = b0 + (slot & 1) < B ? b0 + (slot & 1) : B - 1;
+  const float* xi = io.xi + b * mpc::NX;
+  const float* q6 = io.q + b * 6;
+  if constexpr (KF) {
+    __shared__ float scratch[HOLD_PER_BLOCK][KW_SIZE];
+    float* w = scratch[slot];
+    kf_tick(T, g, lane, !STAND && left_swing(T, io.it[b]), STAND, xi, q6,
+            io.pv + b * 3, io.pq + b * 6, io.kx + b * 12, io.kp + b * 144, w,
+            io.kx_o + b * 12, io.kp_o + b * 144);
+    hold_tick<STAND>(T, g, io, b, lane, w + KW_XN, w + KW_XN + 3,
+                     w + KW_TRIG);
+  } else {
+    __shared__ float trig[HOLD_PER_BLOCK][18];   // cosines, then sines
+    tick_trig_warp(lane, xi, q6, trig[slot]);
+    __syncwarp();
+    hold_tick<STAND>(T, g, io, b, lane, xi + 3, xi + 9, trig[slot]);
+  }
+  MPC_STAGE(mpc::ST_END);
+}
 
 }  // namespace
 

@@ -37,14 +37,13 @@
 // 14 x 14 Cholesky and 13 right-hand sides) runs in warp 0 of that block
 // before the prologue, in its shared-memory form (kf_tick_smem), its
 // scratch in the MPC's K area, which is free until the solve.  The hold
-// forms need none of the MPC's shared memory: the truth form runs one
-// thread per scenario; the KF form a half warp per scenario, eight a
-// block, its whole tick that half warp's dependent chain: the
-// register-resident filter (kf_tick: S and its factor a row a lane, the
-// 13 right-hand sides a column a lane) and the held-force tick spread over
-// the lanes (kf_hold_tick: the two leg IKs at once), so that at B = 4096
-// the 512 blocks run as one wave with no lane idle for want of work
-// (tick_common.cuh).
+// forms need none of the MPC's shared memory: a half warp per scenario,
+// eight a block, the whole tick that half warp's dependent chain: with
+// the KF the register-resident filter (kf_tick: S and its factor a row a
+// lane, the 13 right-hand sides a column a lane), then, in both, the
+// held-force tick spread over the lanes (hold_tick: the nine angles' sines
+// and cosines at once, the two leg IKs at once), so that at B = 4096 the
+// 512 blocks run as one wave (tick_common.cuh).
 //
 // Horizon: 1 to 85 steps (n = 3 N <= 256), the solve rows a lane of the
 // core chosen at launch (mpc::rpl: 2 / 4 / 8); the "inv" forms take the
@@ -170,66 +169,14 @@ walking_tick_kernel(const __grid_constant__ TickParams T,
 }
 
 // ---- the held-force forms: no MPC ----------------------------------------
-// The truth form runs one thread per scenario.  The KF form runs a half
-// warp per scenario: kf_tick, then kf_hold_tick, the scratch in static
-// shared memory.
-
-// Sections 1-4, the held force, sections 7-8 for scenario b; pos / vel
-// are the base position and velocity the controller sees.
-__device__ void hold_tick(const TickParams& T, const Leg& g,
-                          const TickIO& io, int b, const float* pos,
-                          const float* vel) {
-  const float* xi = io.xi + b * mpc::NX;
-  const float* q6 = io.q + b * 6;
-  Pre o;
-  tick_prologue(T, g, xi, pos, vel, q6, io.vdes + b * 3, io.wdes[b],
-                io.anc + b * 3, io.it[b], true, io.anc_o + b * 3,
-                io.tgt_o + b * 3, o);
-  MPC_STAGE(KS_HOLD_PRE);
-  // the held force belongs to the foot in stance NOW (the gait may have
-  // switched since the solve); z / y pass through, no residual
-  const float* gh = io.grf + b * 6;
-  float f_l[3], f_r[3];
-  for (int i = 0; i < 3; ++i) {
-    const float fa = gh[i] + gh[3 + i];
-    f_l[i] = o.ls ? 0.0f : fa;
-    f_r[i] = o.ls ? fa : 0.0f;
-  }
-  io.res_o[b] = 0.0f;
-  tick_epilogue(T, g, xi, q6, io.fl + b * 3, io.fr + b * 3, o.ls, f_l, f_r,
-                o.swq, io.xi_o + b * mpc::NX, io.q_o + b * 6,
-                io.fl_o + b * 3, io.fr_o + b * 3, io.grf_o + b * 6);
-}
-
+// A half warp per scenario, eight a block (tick_common.cuh
+// hold_kernel_body): with the KF, kf_tick then hold_tick; with the truth,
+// hold_tick alone.  The held force goes to the foot in stance NOW.
 template <bool KF>
 __global__ void __launch_bounds__(HOLD_NT, HOLD_MIN_BLOCKS)
 walking_tick_hold_kernel(const __grid_constant__ TickParams T,
                          const __grid_constant__ TickIO io, int B) {
-  MPC_STAGE(mpc::ST_START);
-  const Leg g = load_leg(T);
-  if constexpr (!KF) {
-    const int b = blockIdx.x * HOLD_NT + threadIdx.x;
-    if (b >= B) return;
-    const float* xi = io.xi + b * mpc::NX;
-    hold_tick(T, g, io, b, xi + 3, xi + 9);
-    MPC_STAGE(mpc::ST_END);
-  } else {
-    // a scenario on each half warp; a half past the batch repeats the
-    // last scenario (its inputs, so the same values written), so that the
-    // warp's shuffles and __syncwarp()s stay full
-    __shared__ float scratch[HOLD_KF_PER_BLOCK][KW_SIZE];
-    const int slot = threadIdx.x / KF_LANES, lane = threadIdx.x % KF_LANES;
-    const int b0 = blockIdx.x * HOLD_KF_PER_BLOCK + (slot & ~1);
-    if (b0 >= B) return;   // the whole warp
-    const int b = b0 + (slot & 1) < B ? b0 + (slot & 1) : B - 1;
-    float* w = scratch[slot];
-    kf_tick(T, g, lane, left_swing(T, io.it[b]), false, io.xi + b * mpc::NX,
-            io.q + b * 6, io.pv + b * 3, io.pq + b * 6, io.kx + b * 12,
-            io.kp + b * 144, w, io.kx_o + b * 12, io.kp_o + b * 144);
-    kf_hold_tick<false>(T, g, io, b, lane, w + KW_XN, w + KW_XN + 3,
-                        w + KW_TRIG);
-    MPC_STAGE(mpc::ST_END);
-  }
+  hold_kernel_body<false, KF>(T, io, B);
 }
 
 // dynamic shared memory of the solving forms: the MPC layout (with the
@@ -273,10 +220,9 @@ template <bool KF>
 int launch_hold(const TickParams* prm, const TickIO& io, int B,
                 void* stream) {
   if (B <= 0) return 0;
-  const int per_block = KF ? HOLD_KF_PER_BLOCK : HOLD_NT;
-  walking_tick_hold_kernel<KF>
-      <<<(B + per_block - 1) / per_block, HOLD_NT, 0, (cudaStream_t)stream>>>(
-          *prm, io, B);
+  walking_tick_hold_kernel<KF><<<(B + HOLD_PER_BLOCK - 1) / HOLD_PER_BLOCK,
+                                 HOLD_NT, 0, (cudaStream_t)stream>>>(*prm, io,
+                                                                     B);
   return (int)cudaGetLastError();
 }
 
@@ -298,6 +244,13 @@ SOLVE_SIZERS(walking_tick, false, false)
 SOLVE_SIZERS(walking_tick_kf, true, false)
 SOLVE_SIZERS(walking_tick_inv, false, true)
 SOLVE_SIZERS(walking_tick_kf_inv, true, true)
+// the blocks of a held-force form an SM holds (no dynamic shared memory)
+extern "C" int walking_tick_hold_blocks_per_sm() {
+  return mpc::blocks_per_sm(walking_tick_hold_kernel<false>, HOLD_NT, 0);
+}
+extern "C" int walking_tick_kf_hold_blocks_per_sm() {
+  return mpc::blocks_per_sm(walking_tick_hold_kernel<true>, HOLD_NT, 0);
+}
 
 extern "C" int walking_tick_params_bytes() { return (int)sizeof(TickParams); }
 

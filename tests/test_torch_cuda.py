@@ -391,8 +391,9 @@ def _stand_variant_vs_plain(cuda_device, variant, N, B=257, inv=False):
 def test_kf_hold_kernels_across_a_phase_switch(cuda_device, mode, B):
     """walking_tick_kf_hold / standing_tick_kf_hold against the plain tick
     over five threaded held ticks that cross a gait phase switch
-    (iterations 298 to 302, staggered by the pattern of _staggered: 300
-    and 600 are switches walking), from states three plain ticks in, each
+    (iterations 298 to 302 walking, 498 to 502 standing, staggered by the
+    pattern of _staggered: 300 and 600 are switches walking, 500 and 1000
+    standing), from states three plain ticks in, each
     tick one launch: the one-tick bands of test_tick_variant_matches_plain
     after the first tick, its five-tick bands after the fifth. Walking,
     the switch scales the swinging foot's measurement noise by the
@@ -401,15 +402,32 @@ def test_kf_hold_kernels_across_a_phase_switch(cuda_device, mode, B):
     f32 routes, the kernel's bit for bit the one-warp filter's before it),
     and then it passes only if the kernel is within twice the plain f32
     tick's distance of the plain tick in float64."""
-    base = (ControllerConfig.walking() if mode == "walk"
-            else ControllerConfig.standing())
-    cfg = dataclasses.replace(base, estimator_mode="kf")
-    kern = tfc.tick_kernels(cfg)[(True, True)]
+    _hold_across_a_phase_switch(cuda_device, mode, B, est_kf=True)
+
+
+@pytest.mark.parametrize("B", [1, 257, 4096])
+@pytest.mark.parametrize("mode", ["walk", "stand"])
+def test_truth_hold_kernels_across_a_phase_switch(cuda_device, mode, B):
+    """walking_tick_hold / standing_tick_hold (a half warp a scenario, two
+    a warp; B = 257 leaves a half warp that repeats the last scenario)
+    against the plain tick over the five held ticks of the KF case above,
+    across the same phase switch (walking, the held force moves to the
+    other foot at 300), with its one-tick and five-tick bands; the walking
+    states also get the yaw kick of test_tick_variant_matches_plain."""
+    _hold_across_a_phase_switch(cuda_device, mode, B, est_kf=False)
+
+
+def _hold_across_a_phase_switch(device, mode, B, est_kf):
+    cfg = (ControllerConfig.walking() if mode == "walk"
+           else ControllerConfig.standing())
+    if est_kf:
+        cfg = dataclasses.replace(cfg, estimator_mode="kf")
+    kern = tfc.tick_kernels(cfg)[(est_kf, True)]
     assert kern.name == f"{'walking' if mode == 'walk' else 'standing'}" \
-        "_tick_kf_hold"
-    s0 = (_states(cfg, B, 3, cuda_device, yaw=0.0) if mode == "walk"
-          else _stand_states(cfg, B, 3, cuda_device))
-    its = _staggered(B, cuda_device) + 295.0
+        f"_tick{'_kf' if est_kf else ''}_hold"
+    s0 = (_states(cfg, B, 3, device, yaw=0.0 if est_kf else 0.1)
+          if mode == "walk" else _stand_states(cfg, B, 3, device))
+    its = _staggered(B, device) + (295.0 if mode == "walk" else 495.0)
     for j in range(3):
         s0, m0 = ro._plant_step_ref(cfg, s0, its + j, solve_form="subst")
     its = its + 3.0
@@ -425,10 +443,11 @@ def test_kf_hold_kernels_across_a_phase_switch(cuda_device, mode, B):
                          ("foot_r", 5e-4)):
                 torch.testing.assert_close(getattr(s_k, k), getattr(s_p, k),
                                            atol=a, rtol=0)
-            torch.testing.assert_close(s_k.kf.x_hat, s_p.kf.x_hat,
-                                       atol=5e-4, rtol=0)
-            torch.testing.assert_close(s_k.kf.p_cov, s_p.kf.p_cov,
-                                       atol=1e-5, rtol=0)
+            if est_kf:
+                torch.testing.assert_close(s_k.kf.x_hat, s_p.kf.x_hat,
+                                           atol=5e-4, rtol=0)
+                torch.testing.assert_close(s_k.kf.p_cov, s_p.kf.p_cov,
+                                           atol=1e-5, rtol=0)
             torch.testing.assert_close(m_k["foot_target"],
                                        m_p["foot_target"], atol=5e-4, rtol=0)
         assert float(m_k["qp_residual"].abs().max()) == 0.0
@@ -436,6 +455,8 @@ def test_kf_hold_kernels_across_a_phase_switch(cuda_device, mode, B):
     torch.testing.assert_close(s_k.xi, s_p.xi, atol=5e-4, rtol=0)
     torch.testing.assert_close(s_k.q, s_p.q, atol=1e-3, rtol=0)
     torch.testing.assert_close(m_k["grf"], m_p["grf"], atol=2e-1, rtol=0)
+    if not est_kf:
+        return
     torch.testing.assert_close(s_k.kf.p_cov, s_p.kf.p_cov, atol=1e-5, rtol=0)
     err = float((s_k.kf.x_hat - s_p.kf.x_hat).abs().max())
     if err > 5e-4:
@@ -448,6 +469,17 @@ def test_kf_hold_kernels_across_a_phase_switch(cuda_device, mode, B):
         k64 = float((s_k.kf.x_hat.cpu().double() - x64).abs().max())
         p64 = float((s_p.kf.x_hat.cpu().double() - x64).abs().max())
         assert k64 <= 2.0 * p64, (err, k64, p64)
+
+
+def test_hold_kernels_run_as_one_wave(cuda_device):
+    """Each held-force form holds at least four blocks of 128 threads an
+    SM (tick_common.cuh HOLD_MIN_BLOCKS: at most 128 registers a thread),
+    so that B = 4096 scenarios, eight a block, run as one wave on the
+    H100's 132 SMs."""
+    lib = chol_cuda._build.build_library()["lib"]
+    per_sm = {name: getattr(lib, name + "_blocks_per_sm")()
+              for name in chol_cuda._build.HOLD_ENTRIES}
+    assert min(per_sm.values()) >= 4, per_sm
 
 
 def _qp_inputs(cfg, nu, B, seed, device):

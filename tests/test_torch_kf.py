@@ -262,20 +262,34 @@ def test_tick_twin_solve_then_hold_matches_jax_kernel_interpret(est):
     p_cov 1e-5 (after the five ticks: the float32 cancellation of the
     first updates from 100 I is 1e-4 and decays ~10x a tick), grf 2e-1,
     held residual == 0."""
+    _walk_twin_vs_jax_kernel(est == "kf", (5.0, 320.0))
+
+
+def test_tick_twin_hold_across_a_phase_switch_matches_jax_interpret():
+    """The plain twins of walking_tick (solve) then walking_tick_hold
+    against JAX make_tick_fused(..., "interpret") at horizon 8, B = 3,
+    over a solve and four held ticks that cross the gait's phase switch at
+    iteration 300 (the left leg swings on 0-299 of each 600): solved at
+    296, 297 and 299, the held force moves to the other foot at 300 in
+    each scenario, on the first held tick for the last. The bands of the
+    solve-then-hold test above."""
+    _walk_twin_vs_jax_kernel(False, (296.0, 297.0, 299.0))
+
+
+def _walk_twin_vs_jax_kernel(kf, its):
     jcfg, tcfg = _small(JCfg.walking()), _small(TCfg.walking())
-    if est == "kf":
+    if kf:
         jcfg, tcfg = _kf(jcfg), _kf(tcfg)
-    B = 2
+    B = len(its)
     s0 = jro.initial_plant_state(jcfg, batch=(B,))
     rng = np.random.default_rng(13)
     xi = np.asarray(s0.xi).copy()
     xi[:, 9] += 0.05 * rng.standard_normal(B)
     sj = s0.replace(xi=jnp.asarray(xi))
     st = _port_state(sj, torch.float32)
-    its = np.asarray([5.0, 320.0], np.float32)
+    its = np.asarray(its, np.float32)
     vd = jnp.broadcast_to(jnp.asarray([0.5, 0.0, 0.0], jnp.float32), (B, 3))
     wd = jnp.zeros((B,), jnp.float32)
-    kf = est == "kf"
     held_j = held_t = None
     steps = {h: jtick.make_tick_fused(jcfg, use_pallas="interpret", hold=h)
              for h in (False, True)}

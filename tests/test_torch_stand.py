@@ -512,23 +512,35 @@ def test_stand_kf_inv_twin_solve_then_hold_matches_jax_kernel_interpret():
     _stand_twin_vs_jax_kernel(jcfg, tcfg, True)
 
 
-def _stand_twin_vs_jax_kernel(jcfg, tcfg, kf):
+def test_stand_twin_hold_across_a_phase_switch_matches_jax_interpret():
+    """The plain twins of standing_tick (solve) then standing_tick_hold
+    against the JAX fused tick in interpret mode at horizon 8, B = 3, over
+    a solve and four held ticks that cross the standing gait's phase
+    switch at iteration 500 (a 1 s cycle: the placement target reported
+    changes feet; the force pair is held as given), with the bands of the
+    solve-then-hold test above."""
+    _stand_twin_vs_jax_kernel(_small(JCfg.standing()),
+                              _small(TCfg.standing()), False,
+                              its=(496.0, 497.0, 499.0), ticks=5)
+
+
+def _stand_twin_vs_jax_kernel(jcfg, tcfg, kf, its=(5.0, 320.0), ticks=3):
     if kf:
         jcfg, tcfg = _kf(jcfg), _kf(tcfg)
-    B = 2
+    B = len(its)
     s0 = jro.initial_plant_state(jcfg, batch=(B,))
     rng = np.random.default_rng(13)
     xi = np.asarray(s0.xi).copy()
     xi[:, 10] += 0.05 * rng.standard_normal(B)
     sj = s0.replace(xi=jnp.asarray(xi))
     st = _port_state(sj, torch.float32)
-    its = np.asarray([5.0, 320.0], np.float32)
+    its = np.asarray(its, np.float32)
     vd = jnp.zeros((B, 3), jnp.float32)
     wd = jnp.zeros((B,), jnp.float32)
     steps = {h: jtick.make_tick_fused(jcfg, use_pallas="interpret", hold=h)
              for h in (False, True)}
     held_j = held_t = None
-    for j in range(3):
+    for j in range(ticks):
         hold = j > 0
         anc_j = jnp.concatenate([sj.xi[:, 3:5], sj.xi[:, 2:3]], -1)
         args = [sj.xi, sj.q, sj.foot_l, sj.foot_r, sj.qp_z, sj.qp_lam,

@@ -19,15 +19,17 @@ and, per entry point on the core (the walking ``walking_tick``,
 (``--horizon``, default 20) and per held-force tick (``walking_tick_hold``,
 ``walking_tick_kf_hold``, ``standing_tick_hold``,
 ``standing_tick_kf_hold``: no MPC, the horizon only sizes the warm state
-they pass through) at B = 1 and 4096, the device time per launch over
+they pass through) at B = 1, 257 and 4096, the device time per launch over
 launches replayed from a CUDA graph on fixed numpy-seeded inputs, its
 dynamic shared memory and, where the library exports them, the blocks an
-SM holds; an entry the checkout refuses at that horizon is reported with
+SM holds; for the held-force ticks also the time of a call of
+``rollout.plant_step`` on the same inputs in a loop (through the wrapper:
+host-bound); an entry the checkout refuses at that horizon is reported with
 its reason. Two checkouts are compared by running this once per
 checkout, in turns, inside one call on one card.
 
 ``--dump DIR`` also saves every output of those launches to
-``DIR/outputs.npz`` (~25 MB: keep DIR out of the files a call brings
+``DIR/outputs.npz`` (~26 MB: keep DIR out of the files a call brings
 back); ``--compare`` (no card needed) reads two such files and prints, per
 output, whether they are equal bit for bit and their largest absolute
 difference (tools/time_chol_kernels.py's comparison and graph timing).
@@ -44,10 +46,13 @@ barrier), chol (factorization), admm (the ADMM and its outputs), epilogue
 (outputs, plant step), total; for the held-force ticks, the filter's
 sensors (inputs loaded, sensors synthesized), predict (P_pred, C P, S),
 factor, solves and posterior (with the symmetrization) in the KF forms,
-then the hold tick's prologue (gait clock to swing IK) and epilogue
-(held force, plant step, next-tick kinematics), total. A block of a KF
-hold form holds eight scenarios, two a warp, and thread 0's stamps are
-its first's; a truth hold block holds 128, one a thread.
+then the hold tick's prologue (gait clock to swing IK; with the truth,
+the angles' sines and cosines too) and epilogue (held force, plant step,
+next-tick kinematics), total. A block of a hold form holds eight
+scenarios, two a warp, a half warp each (truth and KF alike), and thread
+0's stamps are lane 0's of its first scenario. A checkout whose hold
+blocks are shaped otherwise is split by its own copy of this script
+(``python3 CHECKOUT/tools/time_mpc_kernels.py --stages``).
 """
 
 from __future__ import annotations
@@ -63,7 +68,9 @@ import numpy as np
 import torch
 from time_chol_kernels import compare, cuda_ms
 
-BATCHES = {1: 200, 4096: 20}     # batch -> graph-replayed launches
+# batch -> graph-replayed launches (257: a batch that leaves the hold
+# forms' last warp half full)
+BATCHES = {1: 200, 257: 50, 4096: 20}
 ENTRIES = ("walking_tick", "walking_tick_kf", "walking_tick_inv",
            "walking_tick_kf_inv", "walking_mpc_prep", "walking_mpc_prep_inv",
            "fused_qp_nu3", "fused_qp_nu3_inv", "standing_tick",
@@ -71,8 +78,9 @@ ENTRIES = ("walking_tick", "walking_tick_kf", "walking_tick_inv",
            "standing_tick_kf_inv", "fused_qp_nu6_inv", "walking_tick_hold",
            "walking_tick_kf_hold", "standing_tick_hold",
            "standing_tick_kf_hold")
-# scenarios a block of the held-force forms (csrc/tick_common.cuh)
-HOLD_PER_BLOCK = {False: 128, True: 8}
+# scenarios a block of the held-force forms (csrc/tick_common.cuh
+# HOLD_PER_BLOCK)
+HOLD_PER_BLOCK = 8
 TICK_FIELDS = ("xi", "q", "foot_l", "foot_r", "z", "y", "anchor",
                "residual", "grf", "target", "kf_x", "kf_p")
 STAGE_READER = {"standing_tick": "standing_tick_stage_clocks",
@@ -141,6 +149,15 @@ def tick_call(cfg, B: int, seed: int, dev, hold: bool = False):
     fields = TICK_FIELDS[:len(plan.results)]
     if hold:   # z and y pass through: the outputs are the rest
         keep = [i for i, f in enumerate(fields) if f not in ("z", "y")]
+        state = s.replace(
+            xi=inputs[0], qp_z=z, qp_lam=y,
+            ref_anchor=None if s.ref_anchor is None else anc)
+
+        def wrapper():
+            # the same tick through rollout.plant_step, as a loop calls it
+            return ro.plant_step(cfg, state, it, grf_override=held, v_des=vd)
+
+        launch.wrapper = wrapper
         return (launch, tuple(fields[i] for i in keep),
                 tuple(plan.results[i] for i in keep))
     return launch, fields, plan.results
@@ -255,6 +272,23 @@ def entry_call(name: str, B: int, dev, N: int):
     return launch, fields, lambda: out["v"]
 
 
+def wall_ms(fn, reps: int) -> float:
+    """Time of one call in a loop of `reps` calls, by CUDA events around
+    the loop (host-bound for a call that enqueues less work than its host
+    cost)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -273,8 +307,9 @@ def library_sizes(lib, name: str, N: int) -> dict:
     shared memory and the blocks an SM holds, where it exports them."""
     row = {}
     for key in ("smem_bytes", "blocks_per_sm"):
-        if hasattr(lib, f"{name}_{key}"):
-            row[key] = getattr(lib, f"{name}_{key}")(N)
+        fn = getattr(lib, f"{name}_{key}", None)
+        if fn is not None:   # the hold forms' sizer takes no horizon
+            row[key] = fn() if name.endswith("_hold") else fn(N)
     return row
 
 
@@ -304,6 +339,8 @@ def measure(root: str, dump: str | None, N: int, entries) -> dict:
         for B, reps in BATCHES.items():
             launch, fields, results = entry_call(name, B, dev, N)
             row[f"B{B}_ms"] = cuda_ms(launch, reps)
+            if hasattr(launch, "wrapper"):
+                row[f"B{B}_wrapper_ms"] = wall_ms(launch.wrapper, reps)
             launch()
             torch.cuda.synchronize()
             for field, t in zip(fields, results()):
@@ -346,7 +383,7 @@ def stages(root: str, N: int, entries) -> dict:
             rc = read(clocks.ctypes.data)
             if rc != 0:
                 raise RuntimeError(f"{STAGE_READER[name]}: CUDA error {rc}")
-            per_block = HOLD_PER_BLOCK[kf] if hold else 1
+            per_block = HOLD_PER_BLOCK if hold else 1
             c = clocks[:-(-B // per_block)].astype(np.float64)
             if hold:
                 span = {}
