@@ -6,8 +6,8 @@ names and argument order, batch-first:
 * :func:`cholesky` (chol_pallas.py:144): M [B,n,n] SPD -> lower L [B,n,n];
 * :func:`chol_solve` (:172): L [B,n,n], rhs [B,n,k] -> (L L')^-1 rhs;
 * :func:`posdef_solve` (:293): M, rhs -> M^-1 rhs in one launch;
-* :func:`posdef_solve_fast` (:263): the same function on a column-major
-  factor, the forward substitution riding on the factorization.
+* :func:`posdef_solve_fast` (:263): the same function, the forward
+  substitution riding on the factorization.
 
 The kernels are ``csrc/chol.cu`` (one block per matrix, any B >= 1, any
 k >= 1, n <= 256 as far as shared memory reaches, float32; each reads only
@@ -47,14 +47,13 @@ class CholParams(ctypes.Structure):
 def smem_bytes(name: str, n: int, k: int = 1) -> int:
     """Dynamic shared memory per block of kernel `name` (the arithmetic of
     csrc/chol.cu: the packed lower triangle, plus the diagonal and its
-    reciprocal where the kernel factors; ``posdef_solve_fast`` a
-    column-major panel with an odd leading dimension and k appended
-    rows)."""
+    reciprocal where the kernel factors; ``posdef_solve_fast`` also the k
+    right-hand sides appended as k rows of n floats)."""
     tri = n * (n + 1) // 2
     if name == "chol_solve":
         return 4 * tri
     if name == "posdef_solve_fast":
-        return 4 * (n * ((n + k) | 1) + 2 * n)
+        return 4 * (tri + k * n + 2 * n)
     return 4 * (tri + 2 * n)
 
 
@@ -144,6 +143,7 @@ def posdef_solve(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 
 def posdef_solve_fast(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """The function of :func:`posdef_solve` (M symmetric) by the
-    ``posdef_solve_fast`` kernel: column-major factor, forward substitution
-    inside the factorization."""
+    ``posdef_solve_fast`` kernel: the right-hand sides ride on the
+    factorization as extra rows (the forward substitution inside it), then
+    the backward sweep."""
     return _solve(POSDEF_SOLVE_FAST, plain.posdef_solve_plain, M, rhs)

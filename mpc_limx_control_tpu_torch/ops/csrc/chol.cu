@@ -10,7 +10,8 @@
 //   posdef_solve       _posdef_solve_kernel :119 (pallas_call :293)
 //                      M, rhs -> M^-1 rhs, factor + both sweeps in one launch
 //   posdef_solve_fast  _posdef_fast_kernel :188 (pallas_call :263)
-//                      the same function on a column-major factor
+//                      the same function, the forward sweep inside the
+//                      factorization
 //
 // They are the hot operations of the batched interior-point solver
 // (ops/qp.py: one factorization and two solves per Newton step, one fused
@@ -20,8 +21,7 @@
 // column scaled by 1 / sqrt(d), sqrt(d) on the diagonal, the diagonal
 // clamped at 1e-30 in both substitutions (applied as its reciprocal), strict
 // upper triangle of L written as zero.  Only the lower triangle of M or L
-// is read (posdef_solve_fast reads it as the upper one of the symmetric M,
-// row j as column j).
+// is read.
 //
 // Design.  One block per matrix, any batch size, no padding and no
 // batch-last layout.  Every kernel brings its triangle into dynamic shared
@@ -42,11 +42,14 @@
 // sqrt(d_j) as it stores, with 16-byte stores when n % 4 == 0), zeros and
 // diagonal included.  posdef_solve then runs both sweeps in one warp per
 // right-hand side (registers, shuffles, no barrier).  posdef_solve_fast
-// keeps a square column-major panel with an odd leading dimension and the
-// right-hand sides appended as k extra rows, so that the factorization's
-// own updates perform the forward substitution (row n + c of the factor of
-// [[M, b], [b', .]] is (L^-1 b_c)') and only the backward sweep is left;
-// 256 threads from n + k = 97 on, 128 from 49, else 64.
+// appends the k right-hand sides to the packed triangle as k full rows of
+// n floats (row n + c at n (n + 1) / 2 + c n: chol_common.cuh's PACKED_RHS),
+// so that the factorization's own updates perform the forward substitution
+// (row n + c of the factor of [[M, b], [b', .]] is (L^-1 b_c)') and only
+// the backward sweep is left; its threads as posdef_solve's.  Its X equals
+// posdef_solve's bit for bit: row n + c takes -y_j L[l][j] one fused
+// multiply-add at a time, j ascending, then 1 / sqrt(d_l), as the forward
+// sweep does.
 //
 // chol_solve: L's lower triangle packed likewise (half the bytes of the
 // square), copied in one cp.async group per 32 rows.  The forward sweep runs
@@ -67,11 +70,11 @@
 // B = 4096 on an H100 (700 W, tools/time_chol_kernels.py, device time of
 // graph-replayed launches): cholesky 0.732 ms at n = 120 against a bound
 // of 0.106 (bytes), 0.193 at n = 60 against 0.027; chol_solve 0.151
-// against 0.037 and 0.050 against 0.0095; posdef_solve 0.773 / 0.210;
-// posdef_solve_fast 1.143 / 0.222.  PERF.md section 6 has the rest.
+// against 0.037 and 0.050 against 0.0095; posdef_solve 0.773 / 0.210.
+// PERF.md section 6 has the rest, posdef_solve_fast's among them.
 //
 // Limits: shared memory (the triangle and 2 n floats; chol_solve the
-// triangle; posdef_solve_fast n ((n + k) | 1) + 2 n floats) within the
+// triangle; posdef_solve_fast the triangle, k n and 2 n floats) within the
 // 232448 bytes a block can opt in to, and n <= 256 (eight rows per lane);
 // the Python wrappers raise beyond.
 //
@@ -102,10 +105,6 @@ __device__ inline void copy_lower_packed(float* A, const float* G, int n) {
     for (int j = lane; j <= i; j += 32)
       cp_async4(A + at<PACKED>(i, j, 0), G + (size_t)i * n + j);
   cp_async_commit();
-}
-
-__host__ __device__ inline int panel_floats(int n, int rows_or_cols) {
-  return n * odd(rows_or_cols) + 2 * n;
 }
 
 __host__ __device__ inline int packed_floats(int n) {
@@ -225,8 +224,8 @@ chol_solve_kernel(const float* __restrict__ Lg, const float* __restrict__ rhs,
 // ---- posdef_solve, posdef_solve_fast ---------------------------------------
 enum Mode {
   GIVEN_FACTOR,  // chol_solve: the matrix argument is L
-  FACTOR_ROWS,   // posdef_solve: factor the packed triangle, both sweeps
-  FACTOR_COLS    // posdef_solve_fast: column-major panel, rhs rows appended
+  FACTOR,        // posdef_solve: factor the packed triangle, both sweeps
+  FACTOR_RHS     // posdef_solve_fast: rhs rows appended to the triangle
 };
 
 template <int MODE, int RPL>
@@ -234,36 +233,29 @@ __global__ void __launch_bounds__(MAX_NT)
 posdef_kernel(const float* __restrict__ Min, const float* __restrict__ rhs,
               float* __restrict__ X, int n, int k) {
   extern __shared__ float sm[];
-  constexpr bool CM = MODE == FACTOR_COLS;
-  constexpr int LAY = CM ? COLS : PACKED;
+  constexpr bool RHS = MODE == FACTOR_RHS;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
-  const int rows = CM ? n + k : n;
-  const int ld = CM ? odd(rows) : 0;
   float* A = sm;
-  float* dg = A + (CM ? n * ld : packed_floats(n));
+  float* R = A + packed_floats(n);  // RHS: right-hand side c at R + c n
+  float* dg = R + (RHS ? k * n : 0);
   float* dginv = dg + n;
   const float* Mb = Min + (size_t)blockIdx.x * n * n;
   const float* rb = rhs + (size_t)blockIdx.x * n * k;
   float* Xb = X + (size_t)blockIdx.x * n * k;
 
-  if constexpr (CM) {
-    // M is symmetric: its row j from the diagonal on is column j of the
-    // panel's lower triangle; right-hand side c is row n + c
-    for (int j = warp; j < n; j += nw)
-      for (int i = j + lane; i < n; i += 32)
-        cp_async4(A + at<COLS>(i, j, ld), Mb + (size_t)j * n + i);
+  copy_lower_packed(A, Mb, n);
+  if constexpr (RHS) {
     for (int idx = tid; idx < n * k; idx += nt) {
       const int j = idx / k, c = idx - k * j;
-      cp_async4(A + at<COLS>(n + c, j, ld), rb + idx);
+      cp_async4(R + c * n + j, rb + idx);
     }
     cp_async_commit();
-  } else {
-    copy_lower_packed(A, Mb, n);
   }
   cp_async_wait<0>();
   __syncthreads();
-  factor<LAY>(A, dg, dginv, n, rows, ld);
+  if constexpr (RHS) factor<PACKED_RHS>(A, dg, dginv, n, n + k, n);
+  else factor<PACKED>(A, dg, dginv, n, n, 0);
 
   float dv[RPL];
   load_dinv<RPL>(dginv, n, lane, dv);
@@ -272,11 +264,11 @@ posdef_kernel(const float* __restrict__ Min, const float* __restrict__ rhs,
 #pragma unroll
     for (int s = 0; s < RPL; ++s) {
       const int r = lane + 32 * s;
-      if constexpr (CM) b[s] = r < n ? A[at<COLS>(n + c, r, ld)] : 0.0f;
+      if constexpr (RHS) b[s] = r < n ? R[c * n + r] : 0.0f;
       else b[s] = r < n ? rb[(size_t)r * k + c] : 0.0f;
     }
-    if constexpr (!CM) sweep_forward<LAY, RPL>(A, dv, n, ld, lane, b);
-    sweep_backward<LAY, RPL>(A, dv, n, ld, lane, b);
+    if constexpr (!RHS) sweep_forward<PACKED, RPL>(A, dv, n, 0, lane, b);
+    sweep_backward<PACKED, RPL>(A, dv, n, 0, lane, b);
 #pragma unroll
     for (int s = 0; s < RPL; ++s) {
       const int r = lane + 32 * s;
@@ -293,8 +285,8 @@ using SolveFn = void (*)(const float*, const float*, float*, int, int);
 template <int RPL>
 SolveFn solve_instance(int mode) {
   if (mode == GIVEN_FACTOR) return chol_solve_kernel<RPL>;
-  return mode == FACTOR_COLS ? posdef_kernel<FACTOR_COLS, RPL>
-                             : posdef_kernel<FACTOR_ROWS, RPL>;
+  return mode == FACTOR_RHS ? posdef_kernel<FACTOR_RHS, RPL>
+                            : posdef_kernel<FACTOR, RPL>;
 }
 
 SolveFn solve_fn(int mode, int n) {
@@ -306,18 +298,11 @@ SolveFn solve_fn(int mode, int n) {
   return nullptr;
 }
 
-// Threads of a factorizing block.  A packed panel (cholesky, posdef_solve)
-// leaves room for seven blocks an SM at n = 120: 128 threads each keep the
-// registers within the SM's (measured faster than 256 threads on three
-// square-panel blocks); the square column-major panel of posdef_solve_fast
-// holds three, whose tiles spread over up to 256 threads.
-inline int factor_threads(int mode, int n, int k) {
-  if (mode == FACTOR_COLS) {
-    const int rows = n + k;
-    return rows > 96 ? MAX_NT : (rows > 48 ? 128 : 64);
-  }
-  return n > 64 ? 128 : 64;
-}
+// Threads of a factorizing block.  A packed panel leaves room for seven
+// blocks an SM at n = 120 (with posdef_solve_fast's one right-hand side
+// too): 128 threads each keep the registers within the SM's (measured
+// faster than 256 threads on three square-panel blocks).
+inline int factor_threads(int n) { return n > 64 ? 128 : 64; }
 
 // Threads of a chol_solve block: the copies of the triangle, and one warp
 // per right-hand side.
@@ -329,9 +314,9 @@ inline int solve_threads(int n) {
 
 int smem_bytes_of(int mode, int n, int k) {
   if (mode == GIVEN_FACTOR) return (int)(packed_floats(n) * sizeof(float));
-  if (mode == FACTOR_ROWS)
+  if (mode == FACTOR)
     return (int)((packed_floats(n) + 2 * n) * sizeof(float));
-  return (int)(panel_floats(n, n + k) * sizeof(float));
+  return (int)((packed_floats(n) + (size_t)k * n + 2 * n) * sizeof(float));
 }
 
 int launch_solve(int mode, const CholParams* prm, const void* M,
@@ -344,8 +329,7 @@ int launch_solve(int mode, const CholParams* prm, const void* M,
   cudaError_t err = cudaFuncSetAttribute(
       (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  const int nt =
-      mode == GIVEN_FACTOR ? solve_threads(n) : factor_threads(mode, n, k);
+  const int nt = mode == GIVEN_FACTOR ? solve_threads(n) : factor_threads(n);
   fn<<<B, nt, bytes, (cudaStream_t)stream>>>(
       (const float*)M, (const float*)rhs, (float*)X, n, k);
   return (int)cudaGetLastError();
@@ -357,7 +341,7 @@ extern "C" int chol_params_bytes() { return (int)sizeof(CholParams); }
 
 // dynamic shared memory per block
 extern "C" int cholesky_smem_bytes(int n, int k) {
-  return smem_bytes_of(FACTOR_ROWS, n, k);
+  return smem_bytes_of(FACTOR, n, k);
 }
 
 extern "C" int chol_solve_smem_bytes(int n, int k) {
@@ -365,11 +349,11 @@ extern "C" int chol_solve_smem_bytes(int n, int k) {
 }
 
 extern "C" int posdef_solve_smem_bytes(int n, int k) {
-  return smem_bytes_of(FACTOR_ROWS, n, k);
+  return smem_bytes_of(FACTOR, n, k);
 }
 
 extern "C" int posdef_solve_fast_smem_bytes(int n, int k) {
-  return smem_bytes_of(FACTOR_COLS, n, k);
+  return smem_bytes_of(FACTOR_RHS, n, k);
 }
 
 extern "C" int cholesky(const CholParams* prm, const void* M, void* L, int B,
@@ -381,7 +365,7 @@ extern "C" int cholesky(const CholParams* prm, const void* M, void* L, int B,
   cudaError_t err = cudaFuncSetAttribute(
       cholesky_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  cholesky_kernel<<<B, factor_threads(FACTOR_ROWS, n, 1), bytes,
+  cholesky_kernel<<<B, factor_threads(n), bytes,
                     (cudaStream_t)stream>>>(
       (const float*)M, (float*)L, n);
   return (int)cudaGetLastError();
@@ -394,11 +378,11 @@ extern "C" int chol_solve(const CholParams* prm, const void* L,
 
 extern "C" int posdef_solve(const CholParams* prm, const void* M,
                             const void* rhs, void* X, int B, void* stream) {
-  return launch_solve(FACTOR_ROWS, prm, M, rhs, X, B, stream);
+  return launch_solve(FACTOR, prm, M, rhs, X, B, stream);
 }
 
 extern "C" int posdef_solve_fast(const CholParams* prm, const void* M,
                                  const void* rhs, void* X, int B,
                                  void* stream) {
-  return launch_solve(FACTOR_COLS, prm, M, rhs, X, B, stream);
+  return launch_solve(FACTOR_RHS, prm, M, rhs, X, B, stream);
 }

@@ -3,11 +3,13 @@
 // kernels), csrc/pdip_fused.cu (the fused interior-point kernel) and the
 // MPC core of the walking and standing kernels (csrc/mpc_core.cuh).
 //
-// A panel is a matrix in shared memory in one of three layouts (see
-// chol.cu): ROWS, row-major with an odd leading dimension; COLS, the same
-// column-major; PACKED, the lower triangle row by row, row i at i (i + 1) / 2
-// (32-aligned blocks of rows then read one column conflict-free: the
-// triangular numbers of 0..31 are distinct mod 32).  factor() is one
+// A panel is a matrix in shared memory in one of two layouts: PACKED, the
+// lower triangle row by row, row i at i (i + 1) / 2 (32-aligned blocks of
+// rows then read one column conflict-free: the triangular numbers of 0..31
+// are distinct mod 32); PACKED_RHS, the packed triangle of order ld followed
+// by full rows of ld floats, row ld + c at ld (ld + 1) / 2 + c ld
+// (right-hand sides riding on the factorization, chol.cu's
+// posdef_solve_fast: their bytes grow with k, not k^2).  factor() is one
 // block's in-place lower Cholesky with the TPU bodies' numerics (pivot
 // max(A_jj, 1e-30), column scaled by 1 / sqrt(d)); sweep_forward() and
 // sweep_backward() are one warp's L y = b and L' x = y with the right-hand
@@ -46,17 +48,18 @@ constexpr int PANEL = 8;     // columns a panel
 constexpr int TILE = 4;      // rows and columns of a trailing-update tile
 constexpr unsigned FULL = 0xffffffffu;
 
-enum Layout { ROWS, COLS, PACKED };
+enum Layout { PACKED, PACKED_RHS };
 
-__host__ __device__ inline int odd(int v) { return v | 1; }
-
-// Element (i, j) of a panel: row-major A[i ld + j], column-major
-// A[j ld + i], or packed lower A[i (i + 1) / 2 + j] (j <= i).
+// Element (i, j) of a panel: packed lower A[i (i + 1) / 2 + j] (j <= i;
+// ld unused), or with PACKED_RHS the rows i >= ld after the triangle
+// (branch-free: r = min(i, ld) rows of the triangle, then i - r full rows).
 template <int LAY>
 __device__ __forceinline__ int at(int i, int j, int ld) {
-  if constexpr (LAY == COLS) return j * ld + i;
-  else if constexpr (LAY == PACKED) return ((i * (i + 1)) >> 1) + j;
-  else return i * ld + j;
+  if constexpr (LAY == PACKED_RHS) {
+    const int r = min(i, ld);
+    return ((r * (r + 1)) >> 1) + (i - r) * ld + j;
+  }
+  return ((i * (i + 1)) >> 1) + j;
 }
 
 // ---- asynchronous copies to shared memory ---------------------------------
@@ -137,10 +140,11 @@ __device__ inline void trailing_update(float* A, const float* dginv, int n,
         const int i = i0 + u;
         r[u] = i < rows ? A[at<LAY>(i, j, ld)] * dj : 0.0f;
       }
+      // column l < n: a row of the triangle in either layout
 #pragma unroll
       for (int v = 0; v < TILE; ++v) {
         const int l = l0 + v;
-        c[v] = l < n ? A[at<LAY>(l, j, ld)] * dj : 0.0f;
+        c[v] = l < n ? A[at<PACKED>(l, j, ld)] * dj : 0.0f;
       }
 #pragma unroll
       for (int u = 0; u < TILE; ++u)
@@ -173,7 +177,7 @@ __device__ inline void factor(float* A, float* dg, float* dginv, int n,
   for (int p0 = 0; p0 < n; p0 += PANEL) {
     const int p1 = p0 + PANEL < n ? p0 + PANEL : n;
     for (int j = p0; j < p1; ++j) {
-      const float d = fmaxf(A[at<LAY>(j, j, ld)], 1e-30f);
+      const float d = fmaxf(A[at<PACKED>(j, j, ld)], 1e-30f);
       const float inv = 1.0f / sqrtf(d);
       if (tid == 0) {
         dg[j] = sqrtf(d);
@@ -182,13 +186,14 @@ __device__ inline void factor(float* A, float* dg, float* dginv, int n,
       for (int i = j + 1 + tid; i < rows; i += nt) {
         const float lij = A[at<LAY>(i, j, ld)] * inv;
         const int lmax = i < p1 - 1 ? i : p1 - 1;
-        // the pivot column and the row's targets staged in registers, so
-        // that no load waits on a store
+        // the pivot column (rows l < n: the triangle in either layout) and
+        // the row's targets staged in registers, so that no load waits on
+        // a store
         float c[PANEL], a[PANEL];
 #pragma unroll
         for (int q = 1; q < PANEL; ++q) {
           const int l = j + q;
-          c[q] = l <= lmax ? A[at<LAY>(l, j, ld)] * inv : 0.0f;
+          c[q] = l <= lmax ? A[at<PACKED>(l, j, ld)] * inv : 0.0f;
           a[q] = l <= lmax ? A[at<LAY>(i, l, ld)] : 0.0f;
         }
 #pragma unroll

@@ -19,33 +19,49 @@
 // the padded coordinates stay exactly zero, so this kernel takes any n and
 // B >= 1 unpadded and computes the same function.
 //
-// Design.  G, M and every vector live in dynamic shared memory for the
-// whole solve; G is loaded once.  H does not fit beside them at the
-// standing width (n = 120, m = 240: G 116,160 + H 58,080 + M 58,080 bytes
-// with odd strides already pass the 232,448 a block can opt in to), so H
-// stays in device memory and is read through the read-only path twice a
-// Newton step (H z and the formation of M); a block's H is 57.6 KB, and
-// the ~132 resident blocks' H (7.6 MB) stay in the 50 MB L2.  M has an
-// odd leading dimension and is factored by the K8 device functions of
-// chol_common.cuh; only its lower triangle is formed (the factorization
-// and both sweeps read nothing else).  Mat-vecs: a warp per row with a
-// shuffle sum (H z, G z), a thread per column (G' v).  Max, min and sum
-// over a block are per-thread strided partials, a fixed xor-shuffle tree
-// and the warps' partials combined in warp order: deterministic.  Max and
-// min propagate NaN (as jnp.max / torch.amax do): a NaN merit is never
+// Design.  M and every vector live in dynamic shared memory for the whole
+// solve.  M is the packed lower triangle of chol_common.cuh (row i at
+// i (i + 1) / 2: 29 KB at n = 120, half a square panel), formed in place
+// and factored there by the K8 device functions (factor<PACKED>, the
+// sweeps); nothing reads above its diagonal.  The formation is a
+// register-tiled SYRK: a thread owns 4 x 4 tiles of the lower block
+// triangle (enumerated row-tile by row-tile, walked by subtraction, no
+// index recovery) and for each of the m rows of G loads four G[k][i] and
+// four G[k][j] (two 16-byte loads and d[k]) for 16 fused multiply-adds.
+// Every element keeps the chain of one entry a thread: t = G[k][i] d[k]
+// rounded, acc = fma(t, G[k][j], acc) for k = 0 .. m - 1, then H[i][j] +
+// acc (+ reg on the diagonal), so M is the element-wise formation's bit for
+// bit.  H stays in device memory and is read through the read-only path
+// (H z and the formation).  Mat-vecs: a warp per row with a shuffle sum
+// (H z, G z; four rows a warp at once, all their loads before the first
+// multiply-add), a thread per column (G' v).  Max, min and sum over a
+// block are per-thread strided partials, a fixed xor-shuffle tree and the
+// warps' partials combined in warp order: deterministic.  Max and min
+// propagate NaN (as jnp.max / torch.amax do): a NaN merit is never
 // "better".  The two sweeps run in warp 0 (one right-hand side).
+//
+// Where G lives (Shape): for n <= 64 in shared memory, loaded once, rows
+// padded to a multiple of four floats; 128 threads and five blocks an SM
+// on the walking QP (n / m = 60 / 120: 44,168 bytes).  Beyond, G alone
+// (115 KB at the standing width, 120 / 240) would hold a block alone on
+// its SM, where the factorization's and the sweeps' latency is all there
+// is: so G stays in device memory, the formation streams it through two
+// 16-row chunk buffers (cp.async, the next chunk in flight) and the
+// mat-vecs read it from L2 (G' v 32 loads ahead of its chain); 60,368
+// bytes and 256 threads a block, two blocks an SM at 128 registers (the
+// two blocks' G and H, ~46 MB, stay in the 50 MB L2).
 //
 // What bounds it on this card: operations.  The formation of G' diag(d) G
 // costs m n (n + 1) operations a step (3.5 MFLOP at n = 120, m = 240), the
-// factorization n^3 / 3, the rest O(m n); the inputs are read once (H about
-// twice a step, from L2).  The serial chain of a block (the factorization's
-// n pivots with one barrier each plus one per 8-column panel, whose
-// trailing update is spread over the block in register tiles; 4 n
-// dependent shuffle steps of the sweeps, ~15 block reductions per step)
-// sets the latency.  20 Newton steps at B = 4096 on an H100 (700 W,
-// tools/time_chol_kernels.py): 20.4 ms walking (n / m = 60 / 120, four
-// blocks an SM), 169 ms standing (120 / 240, one); PERF.md section 6.
-//
+// factorization n^3 / 3, the rest O(m n); the inputs are read once (G and
+// H several times a step, from L2).  The serial chain of a block (the
+// factorization's n pivots with one barrier each plus one per 8-column
+// panel, whose trailing update is spread over the block in register
+// tiles; 4 n dependent shuffle steps of the sweeps, ~15 block reductions
+// per step) sets the latency, hidden by the blocks an SM holds; PERF.md
+// section 6 has the times and the stage split (tools/time_chol_kernels.py
+// --stages).
+
 // Limits: n <= 256 (eight rows per lane in a sweep) and the shared memory
 // of pdip_fused_smem_bytes within 232448 bytes; the Python wrapper raises
 // beyond.  Plain C interface for ctypes; the entry point returns
@@ -63,13 +79,55 @@ struct PdipParams {
 
 namespace {
 
-constexpr int PDIP_NT = 256;        // threads per block
 constexpr float EPS = 1e-8f;        // slack / multiplier floor
 constexpr float D_CAP = 1e7f;       // cap on lam / s
 constexpr float REG = 1e-6f;        // added to M's diagonal
 constexpr int N_VEC = 5;            // n-vectors in shared memory
 constexpr int M_VEC = 13;           // m-vectors in shared memory
 constexpr int RED = 32;             // reduction scratch (one per warp)
+
+// ---- stage clocks, compiled in only for a timing build ---------------------
+// A build that defines MPC_STAGE_CLOCKS (tools/time_chol_kernels.py --stages;
+// ops/_build.py's normal build never does) sums thread 0's clock64() time of
+// each stage over the Newton steps, per block b < PDIP_STAGE_MAX_B;
+// pdip_fused_stage_clocks copies the [PDIP_STAGE_MAX_B][PDIP_SLOTS] int64
+// sums to the host.  The stages: the loads and the first merit, then per
+// step the right-hand sides (rp, d, rc), the formation of M, the
+// factorization, the affine direction with sigma, the corrector direction,
+// the step and the merit with the pick, and the outputs; slot PS_TOTAL is
+// kernel start to end.
+constexpr int PDIP_STAGE_MAX_B = 4096;
+constexpr int PDIP_SLOTS = 16;
+enum PdipStage { PS_LOAD, PS_PREP, PS_FORM, PS_FACTOR, PS_AFFINE,
+                 PS_CORRECTOR, PS_STEP, PS_MERIT, PS_END, PS_TOTAL };
+
+#ifdef MPC_STAGE_CLOCKS
+__device__ long long g_pdip_clock[PDIP_STAGE_MAX_B * PDIP_SLOTS];
+
+struct StageClock {
+  long long sum[PS_TOTAL] = {}, start = 0, prev = 0;
+  __device__ StageClock() {
+    if (threadIdx.x == 0) start = prev = clock64();
+  }
+  __device__ void mark(int stage) {
+    if (threadIdx.x != 0) return;
+    const long long t = clock64();
+    sum[stage] += t - prev;
+    prev = t;
+  }
+  __device__ void store() {
+    if (threadIdx.x != 0 || blockIdx.x >= PDIP_STAGE_MAX_B) return;
+    long long* out = g_pdip_clock + (size_t)blockIdx.x * PDIP_SLOTS;
+    for (int s = 0; s < PS_TOTAL; ++s) out[s] = sum[s];
+    out[PS_TOTAL] = prev - start;
+  }
+};
+#else
+struct StageClock {
+  __device__ void mark(int) {}
+  __device__ void store() {}
+};
+#endif
 
 // NaN-propagating max / min (fmaxf / fminf drop a NaN)
 __device__ __forceinline__ float nmax(float a, float b) {
@@ -106,32 +164,75 @@ __device__ float block_reduce(float v, float* red) {
 }
 
 // Row-wise mat-vec, a warp per row: out(i, (A x)_i) for i < rows, called
-// on lane 0 of the row's warp.  A row-major with leading dimension lda
-// (global when GLOBAL: read through the read-only path).
-template <bool GLOBAL, typename Out>
+// on lane 0 of the row's warp; cols <= 32 RPL.  A row-major with leading
+// dimension lda (global when GLOBAL: read through the read-only path).  A
+// warp takes MV_ROWS rows at once and loads all their elements before the
+// first multiply-add, so that one memory round trip serves them; each row
+// keeps its chain (lane-strided fused multiply-adds, then the xor tree).
+constexpr int MV_ROWS = 4;
+
+template <int RPL, bool GLOBAL, typename Out>
 __device__ __forceinline__ void mv_rows(const float* A, int lda,
                                         const float* x, int rows, int cols,
                                         Out out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
-  for (int i = warp; i < rows; i += nw) {
-    float acc = 0.0f;
-    for (int j = lane; j < cols; j += 32) {
-      if constexpr (GLOBAL) acc += __ldg(A + (size_t)i * lda + j) * x[j];
-      else acc += A[i * lda + j] * x[j];
-    }
+  float xv[RPL];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) out(i, acc);
+  for (int s = 0; s < RPL; ++s) {
+    const int j = lane + 32 * s;
+    xv[s] = j < cols ? x[j] : 0.0f;
+  }
+  for (int i0 = MV_ROWS * warp; i0 < rows; i0 += MV_ROWS * nw) {
+    float a[MV_ROWS][RPL];
+#pragma unroll
+    for (int u = 0; u < MV_ROWS; ++u)
+#pragma unroll
+      for (int s = 0; s < RPL; ++s) {
+        const int i = i0 + u, j = lane + 32 * s;
+        const float* e = A + (size_t)i * lda + j;
+        a[u][s] = i < rows && j < cols ? (GLOBAL ? __ldg(e) : *e) : 0.0f;
+      }
+    float acc[MV_ROWS];
+#pragma unroll
+    for (int u = 0; u < MV_ROWS; ++u) {
+      acc[u] = 0.0f;
+#pragma unroll
+      for (int s = 0; s < RPL; ++s)
+        if (lane + 32 * s < cols) acc[u] += a[u][s] * xv[s];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], o);
+    }
+    if (lane == 0)
+#pragma unroll
+      for (int u = 0; u < MV_ROWS; ++u)
+        if (i0 + u < rows) out(i0 + u, acc[u]);
   }
 }
 
-// (G' v)_j for j < n, a thread per column (G in shared memory, [m][ld]).
+// (G' v)_j for j < n, a thread per column: G [m][ld] in shared memory, or
+// in device memory when GLOBAL (MTV_BATCH loads in flight ahead of their
+// fused multiply-adds, which stay in k order).
+constexpr int MTV_BATCH = 32;
+
+template <bool GLOBAL>
 __device__ __forceinline__ float mtv_col(const float* G, int ld, int m,
                                          const float* v, int j) {
   float acc = 0.0f;
-  for (int k = 0; k < m; ++k) acc += G[k * ld + j] * v[k];
+  if constexpr (GLOBAL) {
+    for (int k = 0; k < m; k += MTV_BATCH) {
+      float g[MTV_BATCH];
+#pragma unroll
+      for (int u = 0; u < MTV_BATCH; ++u)
+        g[u] = k + u < m ? __ldg(G + (size_t)(k + u) * ld + j) : 0.0f;
+#pragma unroll
+      for (int u = 0; u < MTV_BATCH; ++u)
+        if (k + u < m) acc += g[u] * v[k + u];
+    }
+  } else {
+    for (int k = 0; k < m; ++k) acc += G[k * ld + j] * v[k];
+  }
   return acc;
 }
 
@@ -147,28 +248,203 @@ __device__ float max_step2(const float* v1, const float* d1, const float* v2,
   return nmin(1.0f, block_reduce<MIN>(part, red));
 }
 
-// n <= 64 (RPL <= 2): at most 64 registers a thread, so that the four
-// blocks whose shared memory fits an SM at n / m = 60 / 120 are resident
-// (the factorization's register tiles took it to 123 and two blocks: 30.2
-// ms against 20.4 at B = 4096, tools/time_chol_kernels.py, H100)
+// The block's shape by width.  n <= 64 (RPL <= 2): G in shared memory, 128
+// threads, and the five blocks whose shared memory fits an SM at n / m =
+// 60 / 120 (so at most 96 registers a thread: uncapped, the
+// factorization's register tiles once took 123 and halved the resident
+// blocks).  Beyond: G streamed from device memory (L2) through two chunk
+// buffers of KC rows, 256 threads, two blocks an SM (128 registers; two
+// blocks of 384 or 512 threads, capped at 80 or 64 registers, spilled and
+// took 90.5 and 87.5 ms against 86.4 at B = 4096, PERF.md section 6),
+// each thread holding TMAX tiles of M at once (one pass of G forms the
+// 465 tiles of n = 120).
 template <int RPL>
-__global__ void __launch_bounds__(PDIP_NT, RPL <= 2 ? 4 : 1)
+struct Shape {
+  static constexpr bool G_SHARED = RPL <= 2;
+  static constexpr int NT = RPL <= 2 ? 128 : 256;
+  static constexpr int MIN_BLOCKS = RPL <= 2 ? 5 : 2;
+};
+
+constexpr int KC = 16;    // rows of G a chunk buffer holds (G streamed)
+constexpr int TMAX = 2;   // tiles of M a thread holds at once (G streamed)
+
+__host__ __device__ inline bool g_shared(int n) { return n <= 64; }
+
+__host__ __device__ inline int g_stride(int n) { return (n + 3) & ~3; }
+
+__host__ __device__ inline int tile_count(int n) {
+  const int nt4 = (n + 3) >> 2;
+  return nt4 * (nt4 + 1) / 2;
+}
+
+// Tile t + step of the lower block triangle from tile t = (a, b), b <= a,
+// numbered row-tile by row-tile (t = a (a + 1) / 2 + b).
+__device__ __forceinline__ void next_tile(int& a, int& b, int step) {
+  b += step;
+  while (b > a) {
+    b -= a + 1;
+    ++a;
+  }
+}
+
+// Row k's term of a 4 x 4 tile: x = G[k][i0..], y = G[k][j0..].
+__device__ __forceinline__ void tile_fma(float (&acc)[4][4], float4 x,
+                                         float4 y, float dk) {
+  const float r[4] = {__fmul_rn(x.x, dk), __fmul_rn(x.y, dk),
+                      __fmul_rn(x.z, dk), __fmul_rn(x.w, dk)};
+  const float c[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(r[u], c[v], acc[u][v]);
+}
+
+// M[i][j] = H[i][j] + acc (+ reg on the diagonal) for the tile's elements
+// on or below the diagonal, into the packed panel.
+__device__ __forceinline__ void tile_store(float* M, const float* Hb, int n,
+                                           int i0, int j0,
+                                           const float (&acc)[4][4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int i = i0 + u, j = j0 + v;
+      if (i < n && j <= i) {
+        float e = __ldg(Hb + (size_t)i * n + j) + acc[u][v];
+        if (i == j) e += REG;
+        M[at<PACKED>(i, j, 0)] = e;
+      }
+    }
+}
+
+// The lower triangle of M = H + G' diag(d) G + reg I into the packed panel,
+// a 4 x 4 register tile of M at a time (see the design note: each element
+// keeps the one-entry chain of fused multiply-adds over k in order).  The
+// thread's first tile (a0, b0) is tile threadIdx.x.
+__device__ __forceinline__ void form_m(float* __restrict__ M,
+                                       const float* __restrict__ G,
+                                       const float* __restrict__ d,
+                                       const float* __restrict__ Hb, int n,
+                                       int m, int a0, int b0) {
+  const int ldg = g_stride(n), nt = blockDim.x;
+  const int ntile = tile_count(n);
+  int a = a0, bt = b0;
+  for (int t = threadIdx.x; t < ntile; t += nt, next_tile(a, bt, nt)) {
+    const int i0 = 4 * a, j0 = 4 * bt;
+    const float* gi = G + i0;
+    const float* gj = G + j0;
+    float acc[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[u][v] = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < m; ++k)
+      tile_fma(acc, *reinterpret_cast<const float4*>(gi + k * ldg),
+               *reinterpret_cast<const float4*>(gj + k * ldg), d[k]);
+    tile_store(M, Hb, n, i0, j0, acc);
+  }
+}
+
+// Rows [k0, k0 + kn) of G [m][n] in device memory into a chunk buffer
+// [KC][ldg], a warp per row; one cp.async group, not waited for.
+__device__ __forceinline__ void load_chunk(float* buf, const float* Gb,
+                                           int n, int ldg, int k0, int kn) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int kk = warp; kk < kn; kk += nw)
+    for (int j = lane; j < n; j += 32)
+      cp_async4(buf + kk * ldg + j, Gb + (size_t)(k0 + kk) * n + j);
+  cp_async_commit();
+}
+
+// form_m with G in device memory: the rows of G pass through two chunk
+// buffers (the next chunk in flight while the block works on this one);
+// each thread holds up to TMAX tiles at once, so that G passes once for
+// every TMAX tiles a thread owns.  The same element chains as form_m.
+__device__ void form_m_streamed(float* __restrict__ M,
+                                float* __restrict__ buf,
+                                const float* __restrict__ Gb,
+                                const float* __restrict__ d,
+                                const float* __restrict__ Hb, int n, int m,
+                                int a0, int b0) {
+  const int ldg = g_stride(n), nt = blockDim.x, tid = threadIdx.x;
+  const int ntile = tile_count(n);
+  const int nch = (m + KC - 1) / KC;
+  const int rounds = (ntile + TMAX * nt - 1) / (TMAX * nt);
+  int a = a0, bt = b0;
+  for (int r = 0; r < rounds; ++r) {
+    int i0[TMAX], j0[TMAX];
+    bool live[TMAX];
+#pragma unroll
+    for (int q = 0; q < TMAX; ++q) {
+      live[q] = tid + (r * TMAX + q) * nt < ntile;
+      i0[q] = 4 * a;
+      j0[q] = 4 * bt;
+      next_tile(a, bt, nt);
+    }
+    float acc[TMAX][4][4];
+#pragma unroll
+    for (int q = 0; q < TMAX; ++q)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[q][u][v] = 0.0f;
+    load_chunk(buf, Gb, n, ldg, 0, m < KC ? m : KC);
+    for (int c = 0; c < nch; ++c) {
+      const int k0 = c * KC, kn = m - k0 < KC ? m - k0 : KC;
+      if (c + 1 < nch) {
+        const int k1 = k0 + KC;
+        load_chunk(buf + ((c + 1) & 1) * KC * ldg, Gb, n, ldg, k1,
+                   m - k1 < KC ? m - k1 : KC);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const float* B = buf + (c & 1) * KC * ldg;
+#pragma unroll
+      for (int q = 0; q < TMAX; ++q) {
+        if (!live[q]) continue;
+#pragma unroll 4
+        for (int kk = 0; kk < kn; ++kk)
+          tile_fma(acc[q],
+                   *reinterpret_cast<const float4*>(B + kk * ldg + i0[q]),
+                   *reinterpret_cast<const float4*>(B + kk * ldg + j0[q]),
+                   d[k0 + kk]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int q = 0; q < TMAX; ++q)
+      if (live[q]) tile_store(M, Hb, n, i0[q], j0[q], acc[q]);
+  }
+}
+
+template <int RPL>
+__global__ void __launch_bounds__(Shape<RPL>::NT, Shape<RPL>::MIN_BLOCKS)
 pdip_kernel(const float* __restrict__ Hg, const float* __restrict__ fg,
             const float* __restrict__ Gg, const float* __restrict__ hg,
             const float* __restrict__ z0g, const float* __restrict__ s0g,
             const float* __restrict__ lam0g, float* __restrict__ zb_out,
             float* __restrict__ merit_out, float* __restrict__ zf_out,
             float* __restrict__ lamf_out, int n, int m, int iters) {
+  constexpr bool GS = Shape<RPL>::G_SHARED;
   extern __shared__ float sm[];
+  StageClock clk;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
-  const int ld = odd(n);
+  const int ld = g_stride(n);
   const size_t b = blockIdx.x;
   const float* Hb = Hg + b * n * n;
+  const float* Gb = Gg + b * m * n;
 
-  float* G = sm;                    // [m][ld]
-  float* M = G + m * ld;            // [n][ld], lower triangle, then L
-  float* dg = M + n * ld;
+  float* G = sm;                    // GS: [m][ld]; else two [KC][ld] chunks
+  float* M = G + (GS ? m : 2 * KC) * ld;   // packed lower triangle, then L
+  // the G that the mat-vecs read: shared, or device memory [m][n]
+  const float* Gv = GS ? G : Gb;
+  const int ldv = GS ? ld : n;
+  float* dg = M + n * (n + 1) / 2;
   float* dginv = dg + n;
   float* f = dginv + n;             // n-vectors
   float* z = f + n;
@@ -191,9 +467,10 @@ pdip_kernel(const float* __restrict__ Hg, const float* __restrict__ fg,
   float* red = dl + m;              // [RED]
 
   {
-    const float* Gb = Gg + b * m * n;
-    for (int k = warp; k < m; k += nw)
-      for (int j = lane; j < n; j += 32) G[k * ld + j] = Gb[k * n + j];
+    // G's rows with zero padding to ld; streamed, the buffers' padding
+    for (int k = warp; k < (GS ? m : 2 * KC); k += nw)
+      for (int j = lane; j < ld; j += 32)
+        if (GS || j >= n) G[k * ld + j] = j < n ? Gb[k * n + j] : 0.0f;
     for (int j = tid; j < n; j += nt) {
       f[j] = fg[b * n + j];
       z[j] = z0g[b * n + j];
@@ -215,12 +492,13 @@ pdip_kernel(const float* __restrict__ Hg, const float* __restrict__ fg,
   // rd, gz and the merit of the current (z, s, lam); returns the merit
   // and leaves mu = sum(s lam) / m in *mu
   auto residuals = [&](float* mu) {
-    mv_rows<true>(Hb, n, z, n, n, [&](int i, float hz) {
+    mv_rows<RPL, true>(Hb, n, z, n, n, [&](int i, float hz) {
       rd[i] = hz + f[i];
     });
-    mv_rows<false>(G, ld, z, m, n, [&](int k, float v) { gz[k] = v; });
+    mv_rows<RPL, !GS>(Gv, ldv, z, m, n, [&](int k, float v) { gz[k] = v; });
     __syncthreads();
-    for (int j = tid; j < n; j += nt) rd[j] += mtv_col(G, ld, m, lam, j);
+    for (int j = tid; j < n; j += nt)
+      rd[j] += mtv_col<!GS>(Gv, ldv, m, lam, j);
     __syncthreads();
     float p_sum = 0.0f, p_prim = -INFINITY, p_dual = -INFINITY;
     for (int k = tid; k < m; k += nt) {
@@ -241,7 +519,7 @@ pdip_kernel(const float* __restrict__ Hg, const float* __restrict__ fg,
       wv[k] = (rc[k] - lam[k] * rp[k]) / sf[k];
     __syncthreads();
     for (int j = tid; j < n; j += nt)
-      w[j] = -rd[j] + mtv_col(G, ld, m, wv, j);
+      w[j] = -rd[j] + mtv_col<!GS>(Gv, ldv, m, wv, j);
     __syncthreads();
     if (warp == 0) {
       float bv[RPL];
@@ -252,8 +530,8 @@ pdip_kernel(const float* __restrict__ Hg, const float* __restrict__ fg,
       }
       float dv[RPL];
       load_dinv<RPL>(dginv, n, lane, dv);
-      sweep_forward<ROWS, RPL>(M, dv, n, ld, lane, bv);
-      sweep_backward<ROWS, RPL>(M, dv, n, ld, lane, bv);
+      sweep_forward<PACKED, RPL>(M, dv, n, 0, lane, bv);
+      sweep_backward<PACKED, RPL>(M, dv, n, 0, lane, bv);
 #pragma unroll
       for (int q = 0; q < RPL; ++q) {
         const int r = lane + 32 * q;
@@ -261,7 +539,7 @@ pdip_kernel(const float* __restrict__ Hg, const float* __restrict__ fg,
       }
     }
     __syncthreads();
-    mv_rows<false>(G, ld, w, m, n, [&](int k, float gdz) {
+    mv_rows<RPL, !GS>(Gv, ldv, w, m, n, [&](int k, float gdz) {
       const float dsk = -rp[k] - gdz;
       ds_out[k] = dsk;
       dl_out[k] = -(rc[k] + lam[k] * dsk) / sf[k];
@@ -273,7 +551,9 @@ pdip_kernel(const float* __restrict__ Hg, const float* __restrict__ fg,
   float merit_best = residuals(&mu);
   const float mu0 = mu;
   merit_best += mu / mu0;
-  const int tri = n * (n + 1) / 2;
+  int a0 = 0, b0 = 0;                  // this thread's first tile of M
+  next_tile(a0, b0, tid);
+  clk.mark(PS_LOAD);
 
   for (int it = 0; it < iters; ++it) {
     // rd, gz and mu hold the current iterate's (computed with its merit)
@@ -284,20 +564,13 @@ pdip_kernel(const float* __restrict__ Hg, const float* __restrict__ fg,
       rc[k] = s[k] * lam[k];
     }
     __syncthreads();
-    // lower triangle of M = H + G' diag(d) G + reg I, entry e = i(i+1)/2 + j
-    for (int e = tid; e < tri; e += nt) {
-      int i = (int)((sqrtf(8.0f * (float)e + 1.0f) - 1.0f) * 0.5f);
-      while (i * (i + 1) / 2 > e) --i;
-      while ((i + 1) * (i + 2) / 2 <= e) ++i;
-      const int j = e - i * (i + 1) / 2;
-      float acc = 0.0f;
-      for (int k = 0; k < m; ++k) acc += (G[k * ld + i] * d[k]) * G[k * ld + j];
-      float v = __ldg(Hb + (size_t)i * n + j) + acc;
-      if (i == j) v += REG;
-      M[i * ld + j] = v;
-    }
+    clk.mark(PS_PREP);
+    if constexpr (GS) form_m(M, G, d, Hb, n, m, a0, b0);
+    else form_m_streamed(M, G, Gb, d, Hb, n, m, a0, b0);
     __syncthreads();
-    factor<ROWS>(M, dg, dginv, n, n, ld);
+    clk.mark(PS_FORM);
+    factor<PACKED>(M, dg, dginv, n, n, 0);
+    clk.mark(PS_FACTOR);
 
     direction(dsa, dla);                                  // affine
     const float a_aff = max_step2(s, dsa, lam, dla, m, red);
@@ -310,7 +583,9 @@ pdip_kernel(const float* __restrict__ Hg, const float* __restrict__ fg,
     for (int k = tid; k < m; k += nt)
       rc[k] = s[k] * lam[k] - sigma * mu + dsa[k] * dla[k];
     __syncthreads();
+    clk.mark(PS_AFFINE);
     direction(ds, dl);                                    // corrector
+    clk.mark(PS_CORRECTOR);
     const float alpha = 0.99f * max_step2(s, ds, lam, dl, m, red);
     for (int j = tid; j < n; j += nt) z[j] = z[j] + alpha * w[j];
     for (int k = tid; k < m; k += nt) {
@@ -318,11 +593,13 @@ pdip_kernel(const float* __restrict__ Hg, const float* __restrict__ fg,
       lam[k] = nmax(lam[k] + alpha * dl[k], EPS);
     }
     __syncthreads();
+    clk.mark(PS_STEP);
     const float merit = residuals(&mu) + mu / mu0;
     if (merit < merit_best) {          // uniform: every thread holds merit
       merit_best = merit;
       for (int j = tid; j < n; j += nt) zb[j] = z[j];
     }
+    clk.mark(PS_MERIT);
   }
   __syncthreads();
   for (int j = tid; j < n; j += nt) {
@@ -331,6 +608,8 @@ pdip_kernel(const float* __restrict__ Hg, const float* __restrict__ fg,
   }
   for (int k = tid; k < m; k += nt) lamf_out[b * m + k] = lam[k];
   if (tid == 0) merit_out[b] = merit_best;
+  clk.mark(PS_END);
+  clk.store();
 }
 
 using PdipFn = void (*)(const float*, const float*, const float*,
@@ -338,26 +617,45 @@ using PdipFn = void (*)(const float*, const float*, const float*,
                         const float*, float*, float*, float*, float*, int,
                         int, int);
 
-// The instantiation whose rows per lane (1, 2, 4 or 8) cover n; nullptr
+struct PdipLaunch {
+  PdipFn fn;
+  int nt;  // threads per block
+};
+
+template <int RPL>
+PdipLaunch launch_of() {
+  return {pdip_kernel<RPL>, Shape<RPL>::NT};
+}
+
+// The instantiation whose rows per lane (1, 2, 4 or 8) cover n; fn nullptr
 // beyond n = 256.
-PdipFn pdip_fn(int n) {
+PdipLaunch pdip_fn(int n) {
   const int rpl = (n + 31) / 32;
-  if (rpl <= 1) return pdip_kernel<1>;
-  if (rpl <= 2) return pdip_kernel<2>;
-  if (rpl <= 4) return pdip_kernel<4>;
-  if (rpl <= MAX_RPL) return pdip_kernel<8>;
-  return nullptr;
+  if (rpl <= 1) return launch_of<1>();
+  if (rpl <= 2) return launch_of<2>();
+  if (rpl <= 4) return launch_of<4>();
+  if (rpl <= MAX_RPL) return launch_of<8>();
+  return {nullptr, 0};
 }
 
 }  // namespace
 
 extern "C" int pdip_params_bytes() { return (int)sizeof(PdipParams); }
 
-// dynamic shared memory per block: G and M with odd strides, the factor's
-// diagonal and its reciprocal, the vectors and the reduction scratch
+#ifdef MPC_STAGE_CLOCKS
+extern "C" int pdip_fused_stage_clocks(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, g_pdip_clock, sizeof(g_pdip_clock));
+}
+#endif
+
+// dynamic shared memory per block: G (n <= 64) or its two chunk buffers,
+// rows of a multiple of four floats; M's packed lower triangle, the
+// factor's diagonal and its reciprocal, the vectors and the reduction
+// scratch
 extern "C" int pdip_fused_smem_bytes(int n, int m) {
+  const size_t g_rows = g_shared(n) ? m : 2 * KC;
   return (int)(sizeof(float)
-               * ((size_t)m * odd(n) + (size_t)n * odd(n) + 2 * n
+               * (g_rows * g_stride(n) + (size_t)n * (n + 1) / 2 + 2 * n
                   + N_VEC * n + M_VEC * m + RED));
 }
 
@@ -368,13 +666,14 @@ extern "C" int pdip_fused(const PdipParams* prm, const void* H, const void* f,
                           void* stream) {
   const int n = prm->n, m = prm->m;
   if (B <= 0) return 0;
-  PdipFn fn = n >= 1 && m >= 1 && prm->iters >= 0 ? pdip_fn(n) : nullptr;
-  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const PdipLaunch l = n >= 1 && m >= 1 && prm->iters >= 0
+                           ? pdip_fn(n) : PdipLaunch{nullptr, 0};
+  if (l.fn == nullptr) return (int)cudaErrorInvalidValue;
   const int bytes = pdip_fused_smem_bytes(n, m);
   cudaError_t err = cudaFuncSetAttribute(
-      (const void*)fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      (const void*)l.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
-  fn<<<B, PDIP_NT, bytes, (cudaStream_t)stream>>>(
+  l.fn<<<B, l.nt, bytes, (cudaStream_t)stream>>>(
       (const float*)H, (const float*)f, (const float*)G, (const float*)h,
       (const float*)z0, (const float*)s0, (const float*)lam0,
       (float*)z_best, (float*)merit, (float*)z_final, (float*)lam_final, n, m,

@@ -44,12 +44,20 @@ class PdipParams(ctypes.Structure):
                 ("iters", ctypes.c_int)]
 
 
+G_SHARED_MAX_N = 64           # G in shared memory up to here, else streamed
+G_CHUNK_ROWS = 16             # rows of G a chunk buffer holds (streamed)
+
+
 def smem_bytes(n: int, m: int) -> int:
-    """Dynamic shared memory per block (csrc/pdip_fused.cu): G [m][n | 1]
-    and M [n][n | 1], the factor's diagonal and its reciprocal, 5 n- and
-    13 m-vectors and 32 floats of reduction scratch. H stays in device
-    memory."""
-    return 4 * (m * (n | 1) + n * (n | 1) + 2 * n + 5 * n + 13 * m + 32)
+    """Dynamic shared memory per block (csrc/pdip_fused.cu): G's m rows (n
+    <= 64) or two chunk buffers of 16 rows (G streamed from device memory),
+    rows of n rounded up to a multiple of four floats; M's packed lower
+    triangle (n (n + 1) / 2 floats), the factor's diagonal and its
+    reciprocal, 5 n- and 13 m-vectors and 32 floats of reduction scratch.
+    H stays in device memory."""
+    g_rows = m if n <= G_SHARED_MAX_N else 2 * G_CHUNK_ROWS
+    return 4 * (g_rows * (-(-n // 4) * 4) + n * (n + 1) // 2 + 2 * n + 5 * n
+                + 13 * m + 32)
 
 
 def _form_m(H, G, d):

@@ -681,15 +681,17 @@ def _spd(B, n, k, seed, device):
 
 # the edges of csrc/chol.cu's schedule: the 8-column panel (7, 8, 9), the
 # 4 x 4 trailing tiles and 32-row blocks (31, 32, 33, 63, 64, 65, 119, 121),
-# the rows per lane of a sweep (32 / 64 / 128 / 256), the block sizes (64,
-# 128, 256 threads) and the shared-memory limit of posdef_solve_fast's
-# square panel (239 with k <= 2)
+# the rows per lane of a sweep (32 / 64 / 128 / 256), the block sizes (64
+# and 128 threads, from n = 65) and n = 239 / 256, past what
+# posdef_solve_fast's square panel took before its right-hand sides rode as
+# rows after the packed triangle (n <= 239 with k <= 2); k = 33 takes the
+# appended rows across a 32-row block
 CHOL_EDGES = [1, 7, 8, 9, 30, 31, 32, 33, 60, 63, 64, 65, 119, 120, 121, 128,
               239, 256]
 
 
 @pytest.mark.parametrize("B", [257, 1])
-@pytest.mark.parametrize("k", [1, 2, 5])
+@pytest.mark.parametrize("k", [1, 2, 5, 33])
 @pytest.mark.parametrize("n", CHOL_EDGES)
 def test_chol_kernels_match_plain_and_numpy(cuda_device, n, k, B):
     """cholesky / chol_solve / posdef_solve / posdef_solve_fast at B = 257
@@ -741,11 +743,11 @@ def test_chol_kernels_match_plain_and_numpy(cuda_device, n, k, B):
 
 def test_chol_smem_mirror_matches_library(cuda_device):
     """chol_cuda.smem_bytes (the wrapper's size rule) equals the library's
-    *_smem_bytes for every kernel at every edge order and k = 1, 2, 5."""
+    *_smem_bytes for every kernel at every edge order and k = 1, 2, 5, 33."""
     lib = chol_cuda._build.build_library()["lib"]
     for name in chol_cuda.KERNELS:
         for n in CHOL_EDGES:
-            for k in (1, 2, 5):
+            for k in (1, 2, 5, 33):
                 assert getattr(lib, name + "_smem_bytes")(n, k) == \
                     chol_cuda.smem_bytes(name, n, k), (name, n, k)
 
@@ -876,6 +878,29 @@ def test_chol_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="232448"):
         chol_cuda.cholesky(big)
     torch.testing.assert_close(chol_cuda.posdef_solve_fast(M, rhs), rhs)
+
+
+@pytest.mark.parametrize("n,k", [(256, 96), (240, 40)])
+def test_posdef_solve_fast_takes_what_the_square_panel_refused(cuda_device,
+                                                               n, k):
+    """Orders and right-hand-side counts the square column-major panel
+    (n ((n + k) | 1) + 2 n floats) refused and the packed triangle with k
+    appended rows (n (n + 1) / 2 + k n + 2 n) takes: n = 256 up to k = 96,
+    the new limit (k = 97 is refused), and 240 / 40. Held against
+    posdef_solve (the same function) and f64 numpy.linalg at 5e-5."""
+    assert 4 * (n * ((n + k) | 1) + 2 * n) > chol_cuda.SMEM_LIMIT_BYTES
+    M64, r64, M, rhs = _spd(33, n, k, 7 + k, cuda_device)
+    before = chol_cuda.POSDEF_SOLVE_FAST.launches
+    x = chol_cuda.posdef_solve_fast(M, rhs)
+    assert chol_cuda.POSDEF_SOLVE_FAST.launches == before + 1
+    torch.testing.assert_close(x, chol_cuda.posdef_solve(M, rhs), atol=5e-5,
+                               rtol=0)
+    np.testing.assert_allclose(x.double().cpu().numpy(),
+                               np.linalg.solve(M64, r64), atol=5e-5, rtol=0)
+    if n == 256:
+        with pytest.raises(ValueError, match="232448"):
+            chol_cuda.posdef_solve_fast(
+                M, torch.zeros(33, n, k + 1, device=cuda_device))
 
 
 @pytest.mark.parametrize("method", ["pdip_cold", "pdip_warm", "admm"])
@@ -1133,20 +1158,21 @@ def _standing_qp(B, seed, device):
 
 
 def _pdip_inputs(n, B, seed, device):
-    """K9's three QPs with their start: the recipe of
-    tests/test_qp_pallas.py:46-58 (n = 30, m = 64; z0 = 0, s0 = lam0 = 1),
-    the walking (60 / 120) and standing (120 / 240) QPs from the cold start
-    of ops/qp.py's PDIP."""
+    """K9's QPs with their start: the recipe of tests/test_qp_pallas.py:46-58
+    (n = 30, m = 64, and n = 61, m = 122, whose n is no multiple of the
+    formation's 4 x 4 tiles; z0 = 0, s0 = lam0 = 1), the walking (60 / 120)
+    and standing (120 / 240) QPs from the cold start of ops/qp.py's PDIP."""
     def t(a):
         return torch.tensor(np.asarray(a), dtype=torch.float32,
                             device=device)
 
-    if n == 30:
+    if n in (30, 61):
+        m = 64 if n == 30 else 122
         rng = np.random.default_rng(seed)
-        A = rng.normal(size=(B, 30, 30))
-        H = t(np.einsum("bij,bkj->bik", A, A) / 30 + 3 * np.eye(30))
-        f, G = t(rng.normal(size=(B, 30))), t(rng.normal(size=(B, 64, 30)))
-        h = t(np.abs(rng.normal(size=(B, 64))) + 1.0)
+        A = rng.normal(size=(B, n, n))
+        H = t(np.einsum("bij,bkj->bik", A, A) / n + 3 * np.eye(n))
+        f, G = t(rng.normal(size=(B, n))), t(rng.normal(size=(B, m, n)))
+        h = t(np.abs(rng.normal(size=(B, m))) + 1.0)
         return [a.contiguous() for a in (H, f, G, h, torch.zeros_like(f),
                                          torch.ones_like(h),
                                          torch.ones_like(h))]
@@ -1159,10 +1185,14 @@ def _pdip_inputs(n, B, seed, device):
     return [a.contiguous() for a in (H, f, G, h, z0, s0, torch.ones_like(h))]
 
 
-@pytest.mark.parametrize("n", [30, 60, 120])
-def test_pdip_fused_matches_plain(cuda_device, n):
-    """The K9 kernel against pdip_fused_plain at B = 257 after 6 and 20
-    Newton steps, every scenario held by chip_smoke.py's ``pdip_check``:
+@pytest.mark.parametrize("B", [257, 1])
+@pytest.mark.parametrize("n", [30, 60, 61, 120])
+def test_pdip_fused_matches_plain(cuda_device, n, B):
+    """The K9 kernel against pdip_fused_plain at B = 257 and on the first of
+    those QPs alone (B = 1; the merit's floor measured on the 257, as
+    chip_smoke.py does) after 6 and 20 Newton steps, n = 61 with its
+    formation tiles cut at the edge, every scenario held by chip_smoke.py's
+    ``pdip_check``:
     the merit after 0 and 1 steps within 1e-3 of itself, the best-iterate
     pick bit for bit from the kernel's own launches, the best merit within
     1e-3 of itself plus 8x its f32 floor, all four outputs at 6 steps (a
@@ -1176,11 +1206,12 @@ def test_pdip_fused_matches_plain(cuda_device, n):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     args = _pdip_inputs(n, 257, 30 + n, cuda_device)
+    held = [a[:B].contiguous() for a in args]
     before = qp_cuda.PDIP_FUSED.launches
-    qp_cuda.pdip_fused(*args, iters=6)
+    qp_cuda.pdip_fused(*held, iters=6)
     assert qp_cuda.PDIP_FUSED.launches == before + 1
     for iters in (6, 20):
-        e = smoke.pdip_check(args, iters, smoke.pdip_floor(args, iters))
+        e = smoke.pdip_check(held, iters, smoke.pdip_floor(args, iters))
         assert e["ok"], (iters, e)
 
 
@@ -1193,8 +1224,8 @@ def test_pdip_fused_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         qp_cuda.pdip_fused(args[0].transpose(1, 2), *args[1:])
     big = [torch.zeros(s, device=cuda_device) for s in
-           ((1, 120, 120), (1, 120), (1, 500, 120), (1, 500), (1, 120),
-            (1, 500), (1, 500))]
+           ((1, 120, 120), (1, 120), (1, 3600, 120), (1, 3600), (1, 120),
+            (1, 3600), (1, 3600))]
     with pytest.raises(ValueError, match="232448"):
         qp_cuda.pdip_fused(*big)
 

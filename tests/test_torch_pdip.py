@@ -4,9 +4,12 @@ kernel ``qp_pallas.pdip_fused`` in interpret mode, on the CPU.
 
 Two QPs at B = 128: the recipe of tests/test_qp_pallas.py:46-58 (n = 30,
 which is not a multiple of 8, so the JAX wrapper pads it; m = 64) and the
-condensed walking QP at horizon 8 (n = 24, m = 48) from its cold start.
-Each interpret call runs once per module. float32 bands, with the measured
-errors they were set against:
+condensed walking QP at horizon 8 (n = 24, m = 48) from its cold start;
+and the recipe at the standing width (n = 120, m = 240) after 1 and 6
+steps, in the bands below (measured: the merit 1.7e-6 of itself after 1
+step, 3.1e-3 after 6, inside the floor band; z and lam within 3.6e-6 of
+their scale). Each interpret call runs once per module. float32 bands,
+with the measured errors they were set against:
 
 * 0 and 1 Newton steps, where the merit stands far above the f32 floor
   (O(0.1-10); the walking QP starts infeasible, so every term counts):
@@ -61,10 +64,9 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _recipe(dtype):
+def _recipe(dtype, n=30, m=64):
     """tests/test_qp_pallas.py:46-58: H = A A' / n + 3 I, f, G normal,
     h = |normal| + 1, z0 = 0, s0 = lam0 = 1."""
-    n, m = 30, 64
     rng = np.random.default_rng(1)
     A = rng.normal(size=(B, n, n)).astype(np.float32)
     H = (np.einsum("bij,bkj->bik", A, A) / n
@@ -117,6 +119,7 @@ def _walking_qp(dtype):
 
 
 CASES = {"recipe": _recipe, "walking_n24": _walking_qp}
+BUILDERS = {**CASES, "recipe_n120": lambda dtype: _recipe(dtype, 120, 240)}
 
 
 @pytest.fixture(scope="module")
@@ -128,7 +131,7 @@ def runs():
     def get(case, dtype, iters):
         key = (case, dtype, iters)
         if key not in cache:
-            args = CASES[case](dtype)
+            args = BUILDERS[case](dtype)
             with pltpu.force_tpu_interpret_mode():
                 out = qp_pallas.pdip_fused(*map(jnp.asarray, args),
                                            iters=iters)
@@ -199,6 +202,25 @@ def test_plain_matches_pallas_interpret_f32_ten_steps(runs, case):
                                atol=1e-3 * _scale(ref[2]), rtol=0)
 
 
+@pytest.mark.parametrize("iters", [1, 6])
+def test_plain_matches_pallas_interpret_f32_standing_width(runs, iters):
+    """n / m = 120 / 240, the standing QP's width: after 1 step the merit
+    within 1e-3 of itself, after 6 within its floor band (8x the change
+    when the constraint rows are reversed, as above); all four outputs
+    finite, z_best, z_final and lam_final within 1e-4 of their scale."""
+    args, ref = runs("recipe_n120", np.float32, iters)
+    out = _plain(args, iters)
+    for name, o, r in zip(OUT, out, ref):
+        assert np.isfinite(r).all() and np.isfinite(o).all(), name
+    if iters == 1:
+        np.testing.assert_allclose(out[1], ref[1], rtol=1e-3, atol=0)
+    else:
+        assert (np.abs(out[1] - ref[1]) <= _merit_band(args, out, 6)).all()
+    for i in (0, 2, 3):
+        np.testing.assert_allclose(out[i], ref[i], atol=1e-4 * _scale(ref[i]),
+                                   rtol=0, err_msg=OUT[i])
+
+
 @pytest.mark.parametrize("iters", [6, 10])
 def test_plain_matches_pallas_interpret_f64(runs, iters):
     args, ref = runs("recipe", np.float64, iters)
@@ -233,7 +255,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(TypeError, match="float32"):
         qp_cuda.pdip_fused(*meta(30, 64, torch.float64))
     with pytest.raises(ValueError, match="232448"):
-        qp_cuda.pdip_fused(*meta(120, 500))
+        qp_cuda.pdip_fused(*meta(60, 1000))      # G in shared memory
+    with pytest.raises(ValueError, match="232448"):
+        qp_cuda.pdip_fused(*meta(120, 3600))     # G streamed: 13 m-vectors
     with pytest.raises(ValueError, match="232448"):
         qp_cuda.pdip_fused(*meta(300, 8))
     with pytest.raises(ValueError, match="CUDA"):
@@ -244,6 +268,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         qp_cuda.pdip_fused(*bad)
     with pytest.raises(ValueError, match="iters"):
         qp_cuda.pdip_fused(*meta(30, 64), iters=-1)
-    # the standing width fits: G and M with odd strides and the vectors
-    assert qp_cuda.smem_bytes(120, 240) == 190208
+    # what fits: G's rows (n <= 64) or two 16-row chunk buffers of it, rows
+    # of a multiple of four floats; M's packed lower triangle, the vectors
+    assert qp_cuda.smem_bytes(61, 122) == 4 * (122 * 64 + 1891 + 122 + 305
+                                               + 13 * 122 + 32)
+    assert qp_cuda.smem_bytes(120, 240) == 4 * (32 * 120 + 7260 + 240
+                                                + 600 + 13 * 240 + 32)
+    assert qp_cuda.smem_bytes(120, 3549) <= qp_cuda.SMEM_LIMIT_BYTES
     assert qp_cuda.smem_bytes(120, 240) <= qp_cuda.SMEM_LIMIT_BYTES

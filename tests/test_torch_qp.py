@@ -106,15 +106,19 @@ def test_chol_twin_matches_pallas_interpret(name, n, k):
 PACKED = {"cholesky", "chol_solve", "posdef_solve"}
 
 
+ALL = PACKED | {"posdef_solve_fast"}
+
+
 @pytest.mark.parametrize("n,k,takes", [
-    (239, 1, PACKED | {"posdef_solve_fast"}), (239, 5, PACKED),
-    (240, 1, PACKED), (256, 1, PACKED), (257, 1, set())])
+    (239, 1, ALL), (239, 5, ALL), (240, 1, ALL), (256, 1, ALL),
+    (257, 1, set()), (256, 96, ALL), (256, 97, PACKED), (239, 121, ALL),
+    (239, 122, PACKED)])
 def test_chol_size_rule(n, k, takes):
     """Which orders each K8 kernel takes within a block's 232448 bytes of
     shared memory: the packed lower triangle (n (n + 1) / 2 floats, and
-    2 n where the kernel factors) up to the sweeps' n = 256,
-    posdef_solve_fast's square column-major panel (n ((n + k) | 1) + 2 n)
-    to n = 239."""
+    2 n where the kernel factors) up to the sweeps' n = 256;
+    posdef_solve_fast also its k right-hand sides as k rows of n floats
+    (to k = 96 at n = 256, 121 at n = 239)."""
     assert {name for name in chol_cuda.KERNELS
             if chol_cuda.size_reason(name, n, k) is None} == takes
 
@@ -136,12 +140,12 @@ def test_chol_wrappers_validate():
     with pytest.raises(ValueError, match="CUDA"):
         chol_cuda.cholesky(torch.zeros(1, 2, 2, device="meta"))
     # what shared memory allows, named in the refusal (the packed lower
-    # triangle n (n + 1) / 2 and 2 n floats; posdef_solve_fast's square
-    # column-major panel)
+    # triangle n (n + 1) / 2 and 2 n floats; posdef_solve_fast also k n
+    # floats of right-hand sides)
     assert chol_cuda.smem_bytes("cholesky", 120) == 4 * (7260 + 240)
     assert chol_cuda.smem_bytes("chol_solve", 120) == 4 * 7260
     assert chol_cuda.smem_bytes("posdef_solve_fast", 60, 2) == \
-        4 * (60 * 63 + 120)
+        4 * (1830 + 2 * 60 + 120)
     chol_cuda._check_size("cholesky", 128, 1)
     with pytest.raises(ValueError, match="232448"):
         chol_cuda._check_size("cholesky", 300, 1)
