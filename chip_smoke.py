@@ -46,7 +46,18 @@ non-zero):
    kernels once took, the compositions at N = 22, the walking fused tick at
    N = 22 and 42 and its refusal at N = 86, and the standing kernels at
    N = 22 (the fused tick and the warm ADMM) and N = 30 (100 ticks each,
-   height above 0.6);
+   height above 0.6); then this slice's paths, counters likewise:
+   ``batched_rollout_resident`` against ``batched_rollout`` bit for bit
+   (walking and standing x truth and KF, B = 1 and 4096, 200 / 100 ticks,
+   the wall and device ms a tick of both), the session's CUDA graphs
+   against its eager tick functions bit for bit over 10 scripted ticks,
+   four loopback UDP sessions on the card against the torch WirePlant of
+   tests/test_torch_session_walking.py (walking truth, KF and async
+   dispatch 1500 ticks, standing 1000; the bands of
+   tests/test_session_walking.py, one ``walking_mpc_prep`` /
+   ``fused_qp_nu6`` launch a solve, the latency statistics), and
+   tests/test_velocity_profile.py's ramp / cruise / stop through
+   ``rollout(v_des_schedule=)`` (1800 ticks);
 6. with CUDA events at B = 1, 1024 and 4096: the time per tick of each
    tick form through ``plant_step`` and of its plain version, the tick
    kernel alone (also replayed from a CUDA graph: the device time of a
@@ -450,6 +461,30 @@ def graph_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def wall_and_device_ms(fn, steps: int):
+    """(wall, device) ms a tick of `fn`, a run of `steps` ticks: the host
+    clock around a synchronized run (the better of two, after a warm-up
+    run), and the kernels' summed time in a torch.profiler trace of one
+    run (None when the trace shows no device time)."""
+    fn()
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages())
+    return (1e3 * min(walls) / steps,
+            dev_us / 1e3 / steps if dev_us > 0 else None)
 
 
 def with_solver(cfg, warm=None, **kw):
@@ -1961,6 +1996,214 @@ def main() -> int:
                                            T22, 0.6, batch=Bg),
          {"standing_tick": T22})
 
+    # ---- 5b. the resident rollout, the live session, the v_des schedule --
+    # [resident]: batched_rollout_resident (the state in two buffers, each
+    # pair of ticks one CUDA graph replay) against batched_rollout
+    # (mpc_every = 1), bit for bit on every field and metric, walking and
+    # standing x truth and KF at B = 1 and 4096, with the wall and the
+    # device ms a tick of both
+    wcfg = ControllerConfig.walking()
+    res_ms = {}
+    for label, c in (("walk", wcfg), ("walk_kf", kcfg), ("stand", scfg),
+                     ("stand_kf", kscfg)):
+        Tr = 200 if c.mode == "walk" else 100
+        kname = tfc.tick_kernels(c)[(c.estimator_mode == "kf", False)].name
+        for Br in (1, 4096):
+            s0r = perturbed_states(c, Br, seed=8, device=dev, yaw=0.0)
+            it0r = torch.tensor((np.arange(Br) * 600) // Br,
+                                dtype=torch.float32, device=dev)
+            f_ref, m_ref = ro.batched_rollout(c, s0r, Tr,
+                                              start_iteration=it0r)
+            got_r = {}
+
+            def resident():
+                got_r["out"] = ro.batched_rollout_resident(
+                    c, s0r, Tr, start_iteration=it0r)
+
+            path(f"resident_{label}_B{Br}", resident, {kname: Tr})
+            f_res, m_res = got_r["out"]
+            fields = ["xi", "q", "foot_l", "foot_r", "qp_z", "qp_lam",
+                      "ref_anchor", "prev_v", "prev_q"]
+            pairs = [(f, getattr(f_res, f), getattr(f_ref, f))
+                     for f in fields if getattr(f_ref, f) is not None]
+            if c.estimator_mode == "kf":
+                pairs += [("kf_x", f_res.kf.x_hat, f_ref.kf.x_hat),
+                          ("kf_p", f_res.kf.p_cov, f_ref.kf.p_cov)]
+            pairs += [(k, m_res[k], m_ref[k]) for k in m_ref]
+            differ = [k for k, a, b in pairs if not torch.equal(a, b)]
+            check(set(m_res) == set(m_ref) and not differ,
+                  f"resident {label} B = {Br}: not bit for bit {differ}")
+            res_ms[f"{label}_B{Br}"] = dict(
+                T=Tr, **{f"{n}_{kind}_ms_per_tick": v for n, fn in (
+                    ("rollout", lambda: ro.batched_rollout(
+                        c, s0r, Tr, start_iteration=it0r)),
+                    ("resident", lambda: ro.batched_rollout_resident(
+                        c, s0r, Tr, start_iteration=it0r)))
+                    for kind, v in zip(("wall", "device"),
+                                       wall_and_device_ms(fn, Tr))})
+            say("resident", case=f"{label}_B{Br}", bit_equal=not differ,
+                card=smi, **res_ms[f"{label}_B{Br}"])
+    q["resident_ok"] = True
+
+    # the live session's tests: WirePlant and the scripted link
+    sys.path.insert(0, "tests")
+    from mpc_limx_control_tpu_torch.control import session as ses
+    from test_torch_session_walking import (ScriptedLink, WirePlant,
+                                            scripted_sensors)
+
+    # [session_graph]: each tick function's CUDA graph against the same
+    # function run eagerly, over 10 scripted ticks (two solves, eight held
+    # ticks; walking with the KF every tick, standing with truth
+    # odometry): every command and published odometry bit for bit
+    for label, c, kf_ in (("walk_kf", wcfg, True), ("stand", scfg, False)):
+        sens = scripted_sensors(c, 10, seed=3)
+        runs_g = {}
+        sessions = {g: ses.ControlSession(c, state_port=19950 + 2 * g,
+                                          cmd_port=19951 + 2 * g,
+                                          device=dev, cuda_graphs=g)
+                    for g in (True, False)}
+        for g, sg in sessions.items():
+            sg.link.close()
+            sg.link = ScriptedLink(sens)
+
+        def graphed(sg=sessions[True]):
+            runs_g[True] = sg.run(10, hz=1000.0, use_kf=kf_,
+                                  est_odom_every=5)
+
+        path(f"session_graph_{label}", graphed,
+             {"walking_mpc_prep" if c.mode == "walk" else "fused_qp_nu6": 2})
+        runs_g[False] = sessions[False].run(10, hz=1000.0, use_kf=kf_,
+                                            est_odom_every=5)
+        sent = {g: (sg.link.cmds, sg.link.est)
+                for g, sg in sessions.items()}
+        same = (len(sent[True][0]) == len(sent[False][0]) == 10
+                and len(sent[True][1]) == len(sent[False][1])
+                == (2 if kf_ else 0)
+                and all(np.array_equal(a[k], b[k])
+                        for side in (0, 1)
+                        for a, b in zip(sent[True][side], sent[False][side])
+                        for k in a))
+        for sg in sessions.values():
+            sg.close()
+        say("session_graph", case=label, bit_equal=same,
+            graph_tick_p50_ms=1e3 * runs_g[True]["tick_latency_p50"],
+            eager_tick_p50_ms=1e3 * runs_g[False]["tick_latency_p50"])
+        check(same, f"session graphs differ from the eager functions "
+                    f"({label})")
+    q["session_graph_ok"] = True
+
+    # [session]: loopback UDP sessions on the card against the WirePlant
+    # on the CPU (a thread), with the JAX tests' iteration counts and
+    # bands (tests/test_session_walking.py); the walking truth run also
+    # within that test's envelope of the port's rollout of the same
+    # schedule on the card
+    sess = {}
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)      # the plant's CPU ticks beside the session
+
+    def live(label, c, iters, truth, kw, port):
+        plant = WirePlant(c, port, port + 1, publish_truth_odom=truth)
+        try:
+            with ses.ControlSession(c, state_port=port, cmd_port=port + 1,
+                                    device=dev) as sg:
+                if kw.get("use_kf"):
+                    x = sg.kf.x_hat
+                    x[0:3] = plant.xi[0, 3:6]
+                    x[6:9] = plant.foot_l[0]
+                    x[9:12] = plant.foot_r[0]
+                    sg.kf = sg.kf.replace(x_hat=x)
+                kern = ("walking_mpc_prep" if c.mode == "walk"
+                        else "fused_qp_nu6")
+                out = {}
+
+                def drive():
+                    out["stats"] = sg.run(iterations=iters, hz=1000.0, **kw)
+
+                path(f"session_{label}", drive, {kern: iters // 5})
+                st = out["stats"]
+                est_err = (float(np.linalg.norm(
+                    sg.kf.x_hat[0:3].cpu().numpy()
+                    - plant.xi[0, 3:6].numpy())) if kw.get("use_kf")
+                    else None)
+            xi = plant.xi[0].numpy()
+            got_est = plant.host.poll_est_odom()
+            solves = st["mpc_solves"] + st["solves_dispatched"]
+            r = dict(sent=st["sent"], mpc_solves=st["mpc_solves"],
+                     solves_dispatched=st["solves_dispatched"],
+                     solves_adopted=st["solves_adopted"],
+                     est_odom_published=st["est_odom_published"],
+                     launches=kernels[kern].launches, solves=solves,
+                     plant_steps=plant.steps_taken, height=float(xi[5]),
+                     x=float(xi[3]), roll=float(xi[0]), pitch=float(xi[1]),
+                     y=float(xi[4]), est_error=est_err,
+                     est_cov_finite=bool(got_est is not None and np.isfinite(
+                         got_est["cov_diag"]).all()) if est_err else None,
+                     **{k: st[k] for k in st if "latency" in k
+                        or "staleness" in k or k.endswith("_over_1ms")
+                        or k.endswith("_over_5ms")})
+            check(r["sent"] == iters and r["launches"] == solves
+                  and r["plant_steps"] > 0.9 * iters,
+                  f"session {label}: {r}")
+            sess[label] = r
+            say("session", case=label, card=smi, **r)
+            return r
+        finally:
+            plant.close()
+
+    r = live("walk_truth", wcfg, 1500, True, {}, 19960)
+    sim_f, _ = ro.rollout(wcfg, ro.initial_plant_state(wcfg, device=dev),
+                          1500, mpc_every=5)
+    sim_h, sim_x = float(sim_f.xi[5]), float(sim_f.xi[3])
+    q["session_walk_ok"] = bool(
+        r["mpc_solves"] == 300 and 0.63 < r["height"] < 0.67
+        and abs(r["roll"]) < 0.1 and abs(r["pitch"]) < 0.1 and r["x"] > 0.2
+        and abs(r["height"] - sim_h) < 0.03
+        and abs(r["x"] - sim_x) < 0.25 * max(1.0, sim_x))
+    r = live("walk_kf", wcfg, 1500, False, {"use_kf": True}, 19964)
+    q["session_kf_ok"] = bool(
+        0.55 < r["height"] < 0.75 and abs(r["roll"]) < 0.2
+        and abs(r["pitch"]) < 0.2 and r["x"] > 0.1 and r["est_error"] < 0.1
+        and r["est_odom_published"] >= 150 and r["est_cov_finite"])
+    r = live("walk_async", wcfg, 1500, True, {"async_dispatch": True}, 19968)
+    q["session_async_ok"] = bool(
+        r["solves_dispatched"] >= 300 and r["solves_adopted"] >= 1
+        and r["grf_staleness_max"] >= r["grf_staleness_p50"] >= 0.0
+        and 0.63 < r["height"] < 0.67 and abs(r["roll"]) < 0.1
+        and abs(r["pitch"]) < 0.1 and r["x"] > 0.2)
+    r = live("stand", scfg, 1000, True, {}, 19972)
+    q["session_stand_ok"] = bool(
+        r["mpc_solves"] == 200 and 0.63 < r["height"] < 0.67
+        and abs(r["x"]) < 0.05 and abs(r["y"]) < 0.05
+        and abs(r["roll"]) < 0.05 and abs(r["pitch"]) < 0.05)
+    torch.set_num_threads(n_threads)
+    say("session_sim_reference", height=sim_h, x=sim_x)
+
+    # [v_des_schedule]: tests/test_velocity_profile.py's ramp / cruise /
+    # stop at B = 1, 1800 ticks, one walking_tick a tick
+    t_v = np.arange(1800) / 1000.0
+    vx_v = np.where(t_v < 0.6, t_v, np.where(t_v < 1.2, 0.6, 0.0))
+    sched_v = torch.tensor(np.stack([vx_v, 0 * vx_v, 0 * vx_v], 1),
+                           dtype=torch.float32, device=dev)
+    got_v = {}
+
+    def v_schedule():
+        got_v["out"] = ro.rollout(wcfg, ro.initial_plant_state(
+            wcfg, device=dev), 1800, v_des_schedule=sched_v)
+
+    path("v_des_schedule", v_schedule, {"walking_tick": 1800})
+    f_v, m_v = got_v["out"]
+    h_v, v_v = m_v["height"].cpu().numpy(), m_v["velocity"].cpu().numpy()
+    q.update(vdes_height_min=float(h_v.min()),
+             vdes_cruise_vx=float(v_v[900:1150, 0].mean()),
+             vdes_final_vx=float(v_v[-1, 0]), vdes_vx_1250=float(v_v[1250, 0]))
+    q["v_des_schedule_ok"] = bool(
+        q["vdes_height_min"] > 0.5 and abs(q["vdes_cruise_vx"] - 0.6) < 0.2
+        and q["vdes_final_vx"] < 0.2
+        and q["vdes_final_vx"] < 0.5 * q["vdes_vx_1250"]
+        and bool(torch.isfinite(f_v.xi).all()))
+    say("v_des_schedule", card=smi, **{k: v for k, v in q.items()
+                                       if k.startswith("vdes_")})
+
     q["main_path_s"] = time.perf_counter() - t_main
     say("quality", launches=launches, **q)
     for k in ("walk_ok", "turn_ok", "push_ok", "terrain_ok", "ctrl_tick_ok",
@@ -1978,7 +2221,9 @@ def main() -> int:
               "n22_walk_ok", "n42_walk_ok", "n86_refusal_ok",
               "n22_stand_ok", "n22_stand_admm_ok",
               "n30_stand_ok", "inv_stand_ok", "inv_kf_stand_ok",
-              "inv_stand_ctrl_tick_ok"):
+              "inv_stand_ctrl_tick_ok", "resident_ok", "session_graph_ok",
+              "session_walk_ok", "session_kf_ok", "session_async_ok",
+              "session_stand_ok", "v_des_schedule_ok"):
         check(q[k], f"quality gate {k} failed: {q}")
     for k in kernels:
         summary[k]["launches"] = launches[k]

@@ -26,7 +26,8 @@ import torch
 
 from mpc_limx_control_tpu_torch.core.config import ControllerConfig
 from mpc_limx_control_tpu_torch.core.types import (JointState, OdomState,
-                                                   RobotCmd, TickDiagnostics)
+                                                   RobotCmd, TickDiagnostics,
+                                                   constant)
 from mpc_limx_control_tpu_torch.control import gait as gaitmod
 from mpc_limx_control_tpu_torch.models import kinematics as kin
 from mpc_limx_control_tpu_torch.models import srbd
@@ -59,8 +60,8 @@ def _cone_rows(cfg: ControllerConfig, dtype, device):
     G [12N, 6N]. The bound vector is schedule-dependent
     (:func:`_cone_bounds`)."""
     c = cfg.srbd
-    Gu1 = torch.tensor(fqp.cone_constants(c)["Gu"], dtype=dtype,
-                       device=device)
+    Gu1 = constant(tuple(map(tuple, fqp.cone_constants(c)["Gu"])), dtype,
+                   device)
     return torch.kron(torch.eye(c.horizon, dtype=dtype, device=device),
                       torch.block_diag(Gu1, Gu1))
 
@@ -83,8 +84,8 @@ def _cone_bounds(cfg: ControllerConfig, on_l: torch.Tensor,
 
 
 def _weights(c, feet: int, dtype, device):
-    q = torch.tensor(c.q_diag, dtype=dtype, device=device)
-    r = torch.tensor(tuple(c.r_diag) * feet, dtype=dtype, device=device)
+    q = constant(tuple(c.q_diag), dtype, device)
+    r = constant(tuple(c.r_diag) * feet, dtype, device)
     return torch.diag(q), torch.diag(r), torch.diag(c.p_scale * q)
 
 
@@ -274,12 +275,12 @@ def tick(cfg: ControllerConfig, odom: OdomState, joints: JointState,
     B = odom.pos.shape[0]
     iteration = torch.as_tensor(iteration, dtype=dtype,
                                 device=device).expand(B)
+    # the configured commands are made once per device (types.constant)
     if v_des is None:
-        v_des = torch.tensor(cfg.desired_velocity, dtype=dtype,
-                             device=device)
+        v_des = constant(tuple(cfg.desired_velocity), dtype, device)
     v_des = torch.as_tensor(v_des, dtype=dtype, device=device).expand(B, 3)
     if yaw_rate_des is None:
-        yaw_rate_des = cfg.desired_yaw_rate
+        yaw_rate_des = constant(float(cfg.desired_yaw_rate), dtype, device)
     yaw_rate_des = torch.as_tensor(yaw_rate_des, dtype=dtype,
                                    device=device).expand(B)
 
@@ -404,8 +405,7 @@ def tick(cfg: ControllerConfig, odom: OdomState, joints: JointState,
                             torch.cat([joints.q[:, :3], swing_q], -1))
         tau_cmd = torch.where(ls[:, None], torch.cat([zeros3t, tau_st], -1),
                               torch.cat([tau_st, zeros3t], -1))
-        left_gain = torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0, 0.0], dtype=dtype,
-                                 device=device)
+        left_gain = constant((1.0, 1.0, 1.0, 0.0, 0.0, 0.0), dtype, device)
         kp = cfg.kp * torch.where(ls[:, None], left_gain, 1.0 - left_gain)
     cmd = RobotCmd(mode=torch.zeros((B, 6), dtype=torch.int32,
                                     device=device),

@@ -17,7 +17,8 @@ import torch
 
 from mpc_limx_control_tpu_torch.core.config import ControllerConfig
 from mpc_limx_control_tpu_torch.core.types import (ImuData, JointState,
-                                                   KFState, OdomState)
+                                                   KFState, OdomState,
+                                                   constant)
 from mpc_limx_control_tpu_torch.models import kinematics as kin
 from mpc_limx_control_tpu_torch.ops import kf as kfops
 from mpc_limx_control_tpu_torch.utils import rotations as rot
@@ -73,7 +74,7 @@ def estimator_tick(cfg: ControllerConfig, kf_state: KFState,
     pr_w = _mv(R_wb, kin.forward_kinematics(gr, qr))
     vl_w = _mv(R_wb, vl_b) + torch.linalg.cross(omega_w, pl_w, dim=-1)
     vr_w = _mv(R_wb, vr_b) + torch.linalg.cross(omega_w, pr_w, dim=-1)
-    g_vec = torch.tensor([0.0, 0.0, -9.81], dtype=dtype, device=device)
+    g_vec = constant((0.0, 0.0, -9.81), dtype, device)
     meas = kfops.KFMeasurement(
         foot_pos_rel=torch.stack([pl_w, pr_w], -2),
         foot_vel_rel=torch.stack([vl_w, vr_w], -2),

@@ -14,7 +14,7 @@ import math
 import torch
 
 from mpc_limx_control_tpu_torch.core.config import ControllerConfig, GaitParams
-from mpc_limx_control_tpu_torch.core.types import GaitState
+from mpc_limx_control_tpu_torch.core.types import GaitState, constant
 
 
 def gait_clock(gait: GaitParams, iteration: torch.Tensor) -> GaitState:
@@ -62,8 +62,8 @@ def foot_placement(cfg: ControllerConfig, state: GaitState,
         off_l = cfg.robot.nominal_foot_offset_left[:2]
         off_r = cfg.robot.nominal_foot_offset_right[:2]
     offset = torch.where(state.left_swing[..., None],
-                         torch.tensor(off_l, dtype=dtype, device=device),
-                         torch.tensor(off_r, dtype=dtype, device=device))
+                         constant(tuple(off_l), dtype, device),
+                         constant(tuple(off_r), dtype, device))
     xy = xy + offset
     z = torch.full((*xy.shape[:-1], 1), cfg.ground_height, dtype=dtype,
                    device=device)

@@ -39,14 +39,13 @@ device and fetches the reductions once.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 
 from mpc_limx_control_tpu_torch.core.config import ControllerConfig
 from mpc_limx_control_tpu_torch.core.types import (ImuData, JointState,
                                                    KFState, OdomState,
-                                                   default_device)
+                                                   constant, default_device)
 from mpc_limx_control_tpu_torch.control import controller as ctrl
 from mpc_limx_control_tpu_torch.control import estimator as est
 from mpc_limx_control_tpu_torch.control import gait as gaitmod
@@ -186,8 +185,7 @@ def _kf_estimate(cfg: ControllerConfig, state: PlantState,
                         tau=torch.zeros_like(state.q))
     R_wb = rot.quat_to_rot(truth.quat)
     a_world = (truth.v_pos - state.prev_v) / dt
-    g_vec = torch.tensor([0.0, 0.0, -9.81], dtype=state.xi.dtype,
-                         device=state.xi.device)
+    g_vec = constant((0.0, 0.0, -9.81), state.xi.dtype, state.xi.device)
     # the accelerometer reads the specific force in the body frame
     imu = ImuData(quat=truth.quat,
                   acc=(R_wb.transpose(-1, -2)
@@ -209,15 +207,6 @@ def _kf_metrics(kf: KFState) -> dict:
     pose-with-covariance stream, include/stateEstimator.h:404-419)."""
     d = torch.diagonal(kf.p_cov, dim1=-2, dim2=-1)
     return {"kf_cov_pos": d[:, 0:3], "kf_cov_vel": d[:, 3:6]}
-
-
-@functools.lru_cache(maxsize=16)
-def _command(desired_velocity: tuple, dtype, device) -> torch.Tensor:
-    """The configured velocity command on `device`, made once: a tensor
-    made from the tuple every tick is a copy from pageable host memory,
-    which blocks the host behind the kernels queued before it. Callers
-    must not modify it."""
-    return torch.tensor(desired_velocity, dtype=dtype, device=device)
 
 
 def plant_step(cfg: ControllerConfig, state: PlantState,
@@ -243,7 +232,7 @@ def plant_step(cfg: ControllerConfig, state: PlantState,
                                   f"{reason}")
     B = state.xi.shape[0]
     dtype, device = state.xi.dtype, state.xi.device
-    vd = (_command(tuple(cfg.desired_velocity), dtype, device)
+    vd = (constant(tuple(cfg.desired_velocity), dtype, device)
           if v_des is None
           else torch.as_tensor(v_des, dtype=dtype, device=device)
           ).expand(B, 3)
@@ -386,12 +375,24 @@ def _plant_step_ref(cfg: ControllerConfig, state: PlantState,
 
 
 def _rollout_batched(cfg, state0: PlantState, steps: int, start_iteration,
-                     mpc_every: int):
+                     mpc_every: int, v_des_schedule=None):
     B = state0.xi.shape[0]
     dtype, device = state0.xi.dtype, state0.xi.device
     if mpc_every < 1 or steps % mpc_every != 0:
         raise ValueError(f"steps={steps} must be a multiple of "
                          f"mpc_every={mpc_every} >= 1")
+    if v_des_schedule is not None:
+        # the JAX rollout reads a schedule only when every tick solves and
+        # drops it silently otherwise: the port refuses instead
+        if mpc_every != 1:
+            raise ValueError("v_des_schedule needs mpc_every=1 (got "
+                             f"mpc_every={mpc_every})")
+        v_des_schedule = torch.as_tensor(v_des_schedule, dtype=dtype,
+                                         device=device)
+        if tuple(v_des_schedule.shape) != (steps, 3):
+            raise ValueError(f"v_des_schedule: shape "
+                             f"{tuple(v_des_schedule.shape)}, expected "
+                             f"({steps}, 3)")
     start = torch.as_tensor(start_iteration, dtype=dtype,
                             device=device).expand(B)
     # its[t] = t + start (float, as the JAX scan's arange + start)
@@ -409,7 +410,9 @@ def _rollout_batched(cfg, state0: PlantState, steps: int, start_iteration,
     s, grf = state0, None
     for t in range(steps):
         hold = grf if (mpc_every > 1 and t % mpc_every != 0) else None
-        s, m = plant_step(cfg, s, its[t], grf_override=hold, v_des=vd_cfg)
+        vd = (vd_cfg if v_des_schedule is None
+              else v_des_schedule[t].expand(B, 3).contiguous())
+        s, m = plant_step(cfg, s, its[t], grf_override=hold, v_des=vd)
         if mpc_every > 1 and t % mpc_every == 0:
             grf = m["grf"]
         for k in keys:
@@ -418,16 +421,19 @@ def _rollout_batched(cfg, state0: PlantState, steps: int, start_iteration,
 
 
 def rollout(cfg: ControllerConfig, state0: PlantState, steps: int,
-            start_iteration=0, mpc_every: int = 1):
+            start_iteration=0, mpc_every: int = 1, v_des_schedule=None):
     """Closed-loop simulation of ONE scenario (unbatched state, e.g. from
     ``initial_plant_state(cfg)``); returns (final, metrics) with metrics
     stacked over time on axis 0. ``mpc_every`` > 1 reproduces the
     reference's dtMPC schedule: the MPC is re-solved every `mpc_every`
     ticks (mpcStep = 5, include/MPCParam.h:46-47) and the force held in
-    between, while gait, swing tracking and the plant run every tick."""
+    between, while gait, swing tracking and the plant run every tick.
+    ``v_des_schedule`` [steps, 3]: the velocity command of each tick in
+    place of the configured one (ramp, cruise, stop); it needs
+    ``mpc_every=1`` (ValueError otherwise)."""
     s0 = _map_state(state0, lambda x: x[None])
     final, metrics = _rollout_batched(cfg, s0, steps, start_iteration,
-                                      mpc_every)
+                                      mpc_every, v_des_schedule)
     return _unbatch(final), {k: v[0] for k, v in metrics.items()}
 
 
@@ -437,6 +443,143 @@ def batched_rollout(cfg: ControllerConfig, state0: PlantState, steps: int,
     a scalar or a [B] tensor (staggered gait phases). Returns (final,
     metrics) with metrics[k] [B, steps, ...]."""
     return _rollout_batched(cfg, state0, steps, start_iteration, mpc_every)
+
+
+def batched_rollout_resident(cfg: ControllerConfig, state0: PlantState,
+                             steps: int, start_iteration=0):
+    """The closed loop over the whole-tick kernel with the state resident
+    in two preallocated buffers (JAX ``batched_rollout_resident``,
+    rollout.py:566-685, which carries the kernel's batch-last layout
+    through one ``lax.scan``).
+
+    Takes what ``tick_fused_cuda.supports_fused_tick`` takes (walk or
+    stand, truth or KF odometry, solve_form "subst" or "inv"; ValueError
+    otherwise), every tick solving. State buffers A and B alternate as the
+    kernel's input and output; the iteration, the tick index and the
+    metrics (``[B, steps, ...]``, JAX's keys, ``est_error`` zero with
+    truth odometry) are written on the device. On the card the first tick
+    is one launch, each following pair of ticks (B -> A -> B) one replay
+    of a CUDA graph that holds the two launches and their metric writes,
+    and an even ``steps`` ends with one more launch: equal bit for bit to
+    ``batched_rollout(mpc_every=1)``, which launches the same kernel on
+    the same inputs. CPU tensors run the same loop over the tick's plain
+    version (the CPU branch of ``tick_fused_cuda.fused_walking_tick``),
+    with no graph. Returns (final, metrics) as batched_rollout.
+    """
+    from mpc_limx_control_tpu_torch.ops import graphs
+
+    reason = tfc._config_reason(cfg)
+    if reason is not None:
+        raise ValueError("batched_rollout_resident runs the tick kernels, "
+                         f"which do not implement this config: {reason}")
+    est_kf = cfg.estimator_mode == "kf"
+    if (state0.kf is not None) != est_kf:
+        raise ValueError(f"estimator_mode={cfg.estimator_mode!r} needs a "
+                         f"state {'with' if est_kf else 'without'} kf")
+    B = state0.xi.shape[0]
+    dtype, device = state0.xi.dtype, state0.xi.device
+    anc0 = (state0.ref_anchor if state0.ref_anchor is not None
+            else torch.cat([state0.xi[:, 3:5], state0.xi[:, 2:3]], -1))
+    fields = [state0.xi, state0.q, state0.foot_l, state0.foot_r,
+              state0.qp_z, state0.qp_lam, anc0]
+    if est_kf:
+        fields += [state0.kf.x_hat, state0.kf.p_cov, state0.prev_v,
+                   state0.prev_q]
+    # each side: the carried state, then the kernel's residual, force and
+    # target outputs
+    cmd = [(B,), (B, 6), (B, 3)]
+    bufs = tuple(
+        [t.contiguous().clone() if i == 0 else torch.empty_like(t)
+         for t in fields]
+        + [torch.empty(sh, dtype=dtype, device=device) for sh in cmd]
+        for i in (0, 1))
+    n_state = len(fields)
+    start = torch.as_tensor(start_iteration, dtype=dtype,
+                            device=device).expand(B).clone()
+    it = torch.empty_like(start)
+    t_idx = torch.zeros((1,), dtype=torch.long, device=device)
+    vd = constant(tuple(cfg.desired_velocity), dtype,
+                  device).expand(B, 3).contiguous()
+    wd = torch.full((B,), float(cfg.desired_yaw_rate), dtype=dtype,
+                    device=device)
+    keys = METRIC_KEYS + (KF_METRIC_KEYS if est_kf else ())
+    widths = [_METRIC_WIDTH[k][0] if _METRIC_WIDTH[k] else 1 for k in keys]
+    packed = torch.empty((B, steps, sum(widths)), dtype=dtype,
+                         device=device)
+    cuda = device.type == "cuda"
+
+    def inputs(src):
+        kf = dict(zip(("kf_x", "kf_p", "prev_v", "prev_q"), src[7:n_state]))
+        return src[:7] + [it, vd, wd], kf
+
+    def outputs(dst):
+        """The kernel's outputs in its order (state, then residual, force,
+        target, then the filter)."""
+        return dst[:7] + dst[n_state:] + (dst[7:9] if est_kf else [])
+
+    # on the card, the launches A -> B and B -> A, written in place
+    plans = {}
+    if cuda:
+        for i in (0, 1):
+            args, kw = inputs(bufs[i])
+            plans[i] = tfc.prepare_tick_launch(*args, **kw, cfg=cfg,
+                                               out=outputs(bufs[1 - i]))
+
+    def tick(i):
+        """One tick from side i into side 1 - i, its metrics written at
+        the tick index, then the index advanced."""
+        src, dst = bufs[i], bufs[1 - i]
+        torch.add(start, t_idx, out=it)
+        if cuda:
+            p = plans[i]
+            p.kernel.launch(p.params, p.ptrs, p.batch,
+                            torch.cuda.current_stream(device).cuda_stream)
+        else:
+            args, kw = inputs(src)
+            for d, o in zip(outputs(dst),
+                            tfc.fused_walking_tick(*args, **kw, cfg=cfg)):
+                d.copy_(o)
+        xi, (res, grf, tgt) = dst[0], dst[n_state:]
+        if est_kf:
+            est_err = torch.linalg.vector_norm(
+                dst[7][:, 0:3] - src[0][:, 3:6], dim=-1)
+            cov = torch.diagonal(dst[8], dim1=-2, dim2=-1)
+        else:
+            est_err = torch.zeros_like(res)
+        row = [est_err[:, None], xi[:, 5:6], xi[:, 9:12], grf, res[:, None],
+               tgt] + ([cov[:, 0:3], cov[:, 3:6]] if est_kf else [])
+        packed.index_copy_(1, t_idx, torch.cat(row, -1)[:, None])
+        if est_kf:
+            # the filter's input was the pre-step truth (plant_step)
+            dst[9].copy_(src[0][:, 9:12])
+            dst[10].copy_(src[1])
+        t_idx.add_(1)
+
+    if steps > 0:
+        tick(0)
+    pairs = (steps - 1) // 2
+    if pairs > 0 and cuda:
+        graph = graphs.Graph(lambda: (tick(1), tick(0)),
+                             name="batched_rollout_resident")
+        for _ in range(pairs):
+            graph.replay()
+    else:
+        for _ in range(pairs):
+            tick(1)
+            tick(0)
+    if steps > 1 and steps % 2 == 0:
+        tick(1)
+    fin = bufs[steps % 2]
+    final = PlantState(
+        xi=fin[0], q=fin[1], foot_l=fin[2], foot_r=fin[3], qp_z=fin[4],
+        qp_lam=fin[5],
+        ref_anchor=fin[6] if state0.ref_anchor is not None else None,
+        kf=KFState(x_hat=fin[7], p_cov=fin[8]) if est_kf else None,
+        prev_v=fin[9] if est_kf else None, prev_q=fin[10] if est_kf else None)
+    cols = torch.split(packed, widths, -1)
+    metrics = {k: (c[..., 0] if not _METRIC_WIDTH[k] else c).contiguous()
+               for k, c in zip(keys, cols)}
+    return final, metrics
 
 
 SOAK_KEYS = ("height_mean", "height_min", "height_max", "vx_mean", "vy_mean",

@@ -18,6 +18,7 @@ broadcast against the joint angles.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -34,8 +35,11 @@ class LegGeometry(NamedTuple):
     foot: torch.Tensor    # knee -> contact point (foot + contact merged)
 
 
+@functools.lru_cache(maxsize=64)
 def leg_geometry(offsets: LegOffsets = LegOffsets(), side: str = "left",
                  dtype=torch.float32, device=None) -> LegGeometry:
+    """The chain constants of one leg, made once per (offsets, side,
+    dtype, device) (see types.constant); callers must not modify them."""
     if side not in ("left", "right"):
         raise ValueError(f"side must be 'left' or 'right', got {side!r}")
     mirror = torch.tensor([1.0, 1.0 if side == "left" else -1.0, 1.0],

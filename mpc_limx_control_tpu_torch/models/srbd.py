@@ -11,10 +11,13 @@ the vector-form plant step, the friction cone and the walking reference.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from mpc_limx_control_tpu_torch.core.config import RobotParams, SRBDConfig
+from mpc_limx_control_tpu_torch.core.types import constant
 
 
 def _skew(r):
@@ -39,8 +42,8 @@ def _rz(yaw):
 
 
 def inertia_matrix(robot: RobotParams, dtype=torch.float32, device=None):
-    return torch.tensor(robot.inertia, dtype=dtype,
-                        device=device).reshape(3, 3)
+    """The body inertia [3, 3], made once per device (types.constant)."""
+    return constant(tuple(robot.inertia), dtype, device).reshape(3, 3)
 
 
 def linearize(robot: RobotParams, foot_pos: torch.Tensor,
@@ -104,6 +107,17 @@ def linearize_reference_literal(robot: RobotParams, foot_pos: torch.Tensor,
     return Ac, Bc
 
 
+@functools.lru_cache(maxsize=16)
+def _ac_constant(dtype, device) -> torch.Tensor:
+    """The yaw-independent part of Ac [13, 13]: p_dot = v and the gravity
+    state on v_z, made once (see types.constant); callers must not modify
+    it."""
+    Ac = torch.zeros((13, 13), dtype=dtype, device=device)
+    Ac[3:6, 9:12] = torch.eye(3, dtype=dtype, device=device)  # p_dot = v
+    Ac[11, 12] = 1.0                                   # v_z_dot += g_state
+    return Ac
+
+
 def linearize_shared(robot: RobotParams, arms: torch.Tensor,
                      base_pos: torch.Tensor, yaw: torch.Tensor):
     """Corrected SRBD linearization with the yaw-dependent pieces shared
@@ -117,12 +131,12 @@ def linearize_shared(robot: RobotParams, arms: torch.Tensor,
     rz = _rz(yaw)
     rzT = rz.transpose(-1, -2)
     I_body = inertia_matrix(robot, dtype, device)
-    I_w_inv = torch.linalg.inv(rz @ I_body @ rzT)
+    # inv_ex: the same inverse without linalg.inv's check of the factor's
+    # info on the host, a synchronization a CUDA graph cannot capture
+    I_w_inv = torch.linalg.inv_ex(rz @ I_body @ rzT).inverse
 
-    Ac = torch.zeros((B, 13, 13), dtype=dtype, device=device)
+    Ac = _ac_constant(dtype, device).expand(B, 13, 13).clone()
     Ac[:, 0:3, 6:9] = rzT                              # Theta_dot = Rz^T w
-    Ac[:, 3:6, 9:12] = torch.eye(3, dtype=dtype, device=device)  # p_dot = v
-    Ac[:, 11, 12] = 1.0                                # v_z_dot += g_state
 
     r = arms - base_pos[:, None, :]                    # [B, K, 3]
     Bc = torch.zeros((B, K, 13, 3), dtype=dtype, device=device)
@@ -195,16 +209,11 @@ def friction_cone_rows(cfg: SRBDConfig, N: int, dtype=torch.float32,
     """Per-step friction cone stacked over the horizon (G [6N, 3N],
     h [6N]): |fx| <= mu fz, |fy| <= mu fz, fz_min <= fz <= fz_max."""
     mu = cfg.friction_mu
-    Gu = torch.tensor([
-        [1.0, 0.0, -mu],
-        [-1.0, 0.0, -mu],
-        [0.0, 1.0, -mu],
-        [0.0, -1.0, -mu],
-        [0.0, 0.0, 1.0],
-        [0.0, 0.0, -1.0],
-    ], dtype=dtype, device=device)
-    hu = torch.tensor([0.0, 0.0, 0.0, 0.0, cfg.fz_max, -cfg.fz_min],
-                      dtype=dtype, device=device)
+    Gu = constant(((1.0, 0.0, -mu), (-1.0, 0.0, -mu), (0.0, 1.0, -mu),
+                   (0.0, -1.0, -mu), (0.0, 0.0, 1.0), (0.0, 0.0, -1.0)),
+                  dtype, device)
+    hu = constant((0.0, 0.0, 0.0, 0.0, cfg.fz_max, -cfg.fz_min), dtype,
+                  device)
     G = torch.kron(torch.eye(N, dtype=dtype, device=device), Gu)
     return G, hu.repeat(N)
 
@@ -240,17 +249,19 @@ def walking_reference(xi0: torch.Tensor, cfg: SRBDConfig, N: int,
     dtype, device = xi0.dtype, xi0.device
     t = torch.arange(N + 1, dtype=dtype, device=device) * cfg.ts   # [N+1]
     ref = xi0[:, None, :].expand(xi0.shape[0], N + 1, 13).clone()
+    # (fills in place: a write of a Python number is a copy from host
+    # memory, which a CUDA graph cannot capture)
     if cfg.attitude_ref == "level":
-        ref[..., 0:2] = 0.0
+        ref[..., 0:2].zero_()
     yaw0 = xi0[:, 2:3] if yaw_anchor is None else yaw_anchor[:, None]
     ref[..., 2] = yaw0 + t * yaw_rate[:, None]
     origin = xi0[:, None, 3:6] if pos_anchor is None \
         else pos_anchor[:, None, :]
     pos = origin + t[:, None] * v_des[:, None, :]
     if height_des is not None:
-        pos[..., 2] = height_des
+        pos[..., 2].fill_(height_des)
     ref[..., 3:6] = pos
-    ref[..., 6:8] = 0.0
+    ref[..., 6:8].zero_()
     ref[..., 8] = yaw_rate[:, None]
     ref[..., 9:12] = v_des[:, None, :]
     ref[:, 0, 9:12] = xi0[:, 9:12]          # include/mpcQP.h:89-93

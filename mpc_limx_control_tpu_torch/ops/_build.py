@@ -159,11 +159,18 @@ def build_library(defines: tuple = ()) -> dict:
             "built": built, "log": log}
 
 
+# every Kernel made, so that a CUDA graph can keep their counters true
+# (ops/graphs.py)
+KERNELS: list = []
+
+
 class Kernel:
     """One C entry point of the kernel library with a launch counter.
 
     ``launches`` counts the launches made through this object; it is bumped
-    only after a launch that CUDA accepted.
+    only after a launch that CUDA accepted. A launch recorded into a CUDA
+    graph runs nothing: ``ops.graphs.Graph`` takes it off again and adds
+    it back at every replay.
     """
 
     def __init__(self, name: str, n_ptr: int, params_sizer: str):
@@ -171,6 +178,7 @@ class Kernel:
         self.n_ptr = n_ptr
         self.params_sizer = params_sizer   # C function: sizeof(params)
         self.launches = 0
+        KERNELS.append(self)
 
     def reset(self) -> None:
         self.launches = 0

@@ -23,6 +23,7 @@ walking loop runs this filter inside the tick kernel
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -56,10 +57,13 @@ def _observation_matrix(dtype, device) -> torch.Tensor:
     return C
 
 
-def kf_update(cfg: EstimatorConfig, state: KFState, meas: KFMeasurement,
-              dt: float) -> KFState:
-    """One predict + update step over a batch [B, ...]."""
-    dtype, device = state.x_hat.dtype, state.x_hat.device
+@functools.lru_cache(maxsize=16)
+def _constants(cfg: EstimatorConfig, dt: float, dtype, device):
+    """The filter's constant matrices A [12, 12], B [12, 3], C [14, 12] and
+    noise diagonals q [12], r [14], made once per (config, dt, dtype,
+    device): an element write of a Python number is a copy from host
+    memory, which synchronizes with the card and which a CUDA graph
+    cannot capture. Callers must not modify them."""
     e3 = torch.eye(3, dtype=dtype, device=device)
     A = torch.eye(12, dtype=dtype, device=device)
     A[0:3, 3:6] = dt * e3
@@ -78,6 +82,14 @@ def kf_update(cfg: EstimatorConfig, state: KFState, meas: KFMeasurement,
     r_diag = torch.cat([full(6, cfg.foot_sensor_noise_position),
                         full(6, cfg.foot_sensor_noise_velocity),
                         full(2, cfg.foot_height_sensor_noise)])
+    return A, Bm, C, q_diag, r_diag
+
+
+def kf_update(cfg: EstimatorConfig, state: KFState, meas: KFMeasurement,
+              dt: float) -> KFState:
+    """One predict + update step over a batch [B, ...]."""
+    dtype, device = state.x_hat.dtype, state.x_hat.device
+    A, Bm, C, q_diag, r_diag = _constants(cfg, float(dt), dtype, device)
 
     # contact gating: x high_suspect_number on the foot not in contact
     gate = torch.where(meas.contact, 1.0, cfg.high_suspect_number).to(dtype)

@@ -382,11 +382,16 @@ class TickLaunch(NamedTuple):
 
 def prepare_tick_launch(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
                         v_des, yaw_rate, kf_x=None, kf_p=None, prev_v=None,
-                        prev_q=None, grf_held=None, *, cfg) -> TickLaunch:
+                        prev_q=None, grf_held=None, *, cfg,
+                        out=None) -> TickLaunch:
     """Check the CUDA tensors of :func:`fused_walking_tick` (same
     arguments) and allocate its outputs, without launching: the kernel
     variant is chosen by the config's mode and estimator and by
-    ``grf_held``."""
+    ``grf_held``. ``out``: the kernel's output tensors to write instead
+    (xi', q', foot_l', foot_r', then z, y unless the tick holds, anchor',
+    residual, grf, target, then kf_x', kf_p' with the filter), none of
+    them an input (``control.rollout.batched_rollout_resident``'s double
+    buffer)."""
     if xi.device.type != "cuda":
         raise ValueError(f"the tick kernels run on CUDA tensors, got "
                          f"{xi.device}")
@@ -414,14 +419,22 @@ def prepare_tick_launch(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
         for name, t, shape in warm_in:
             _build.check_tensor(name, t, shape, dev)
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-
-    state_out = (empty(B, NX), empty(B, 6), empty(B, 3), empty(B, 3))
-    warm_out = () if hold else (empty(B, n), empty(B, 2 * n))
-    cmd_out = (empty(B, 3), empty(B), empty(B, 6), empty(B, 3))
-    kf_out = (empty(B, 12), empty(B, 12, 12)) if est_kf else ()
-    outs = state_out + warm_out + cmd_out + kf_out
+    shapes = ((B, NX), (B, 6), (B, 3), (B, 3)) \
+        + (() if hold else ((B, n), (B, 2 * n))) \
+        + ((B, 3), (B,), (B, 6), (B, 3)) \
+        + (((B, 12), (B, 12, 12)) if est_kf else ())
+    if out is None:
+        outs = tuple(torch.empty(sh, dtype=torch.float32, device=dev)
+                     for sh in shapes)
+    else:
+        if len(out) != len(shapes):
+            raise ValueError(f"out: {len(out)} tensors, the kernel writes "
+                             f"{len(shapes)}")
+        for i, (t, sh) in enumerate(zip(out, shapes)):
+            _build.check_tensor(f"out[{i}]", t, sh, dev)
+        outs = tuple(out)
+    n_kf = len(outs) - (2 if est_kf else 0)
+    state_out, cmd_out, kf_out = outs[:4], outs[n_kf - 4:n_kf], outs[n_kf:]
     results = (state_out + (z_warm, y_warm) + cmd_out + kf_out if hold
                else outs)
     return TickLaunch(tick_kernels(cfg)[(est_kf, hold)], tick_params(cfg),

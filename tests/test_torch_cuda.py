@@ -1367,3 +1367,153 @@ def test_composition_runs_past_the_mpc_horizon(cuda_device):
     with pytest.raises(NotImplementedError, match="1 to 42 steps"):
         ro.plant_step(_horizon(stand, 43), s43,
                       torch.zeros(2, device=cuda_device))
+
+
+# ---- the resident rollout and the live session on the card ------------------
+
+@pytest.mark.parametrize("mode,est", [("walk", "truth"), ("walk", "kf"),
+                                      ("stand", "truth"), ("stand", "kf")])
+@pytest.mark.parametrize("T", [1, 6, 7])
+def test_resident_rollout_equals_batched_rollout(cuda_device, mode, est, T):
+    """batched_rollout_resident (double-buffered state, pairs of ticks
+    replayed from a CUDA graph) launches the tick kernel on the inputs
+    batched_rollout(mpc_every=1) gives it: every field and metric equal
+    bit for bit, with staggered gait phases, at 1, an even and an odd
+    tick count; one launch a tick."""
+    base = (ControllerConfig.walking() if mode == "walk"
+            else ControllerConfig.standing())
+    cfg = dataclasses.replace(base, estimator_mode=est)
+    B = 257
+    s0 = _states(cfg, B, 5, cuda_device, yaw=0.0)
+    it0 = torch.arange(B, dtype=torch.float32, device=cuda_device) * 2.0
+    f_ref, m_ref = ro.batched_rollout(cfg, s0, T, start_iteration=it0)
+    kern = tfc.tick_kernels(cfg)[(est == "kf", False)]
+    kern.reset()
+    f_res, m_res = ro.batched_rollout_resident(cfg, s0, T,
+                                               start_iteration=it0)
+    torch.cuda.synchronize()
+    assert kern.launches == T
+    for f in ("xi", "q", "foot_l", "foot_r", "qp_z", "qp_lam", "ref_anchor",
+              "prev_v", "prev_q"):
+        if getattr(f_ref, f) is not None:
+            assert torch.equal(getattr(f_res, f), getattr(f_ref, f)), f
+    if est == "kf":
+        assert torch.equal(f_res.kf.x_hat, f_ref.kf.x_hat)
+        assert torch.equal(f_res.kf.p_cov, f_ref.kf.p_cov)
+    assert set(m_res) == set(m_ref)
+    for k in m_ref:
+        assert torch.equal(m_res[k], m_ref[k]), k
+
+
+def _scripted_session(cfg, graphs, port, ticks, use_kf):
+    from mpc_limx_control_tpu_torch.control import session as ses
+    from test_torch_session_walking import ScriptedLink, scripted_sensors
+
+    s = ses.ControlSession(cfg, state_port=port, cmd_port=port + 1,
+                           device="cuda", cuda_graphs=graphs)
+    s.link.close()
+    s.link = ScriptedLink(scripted_sensors(cfg, ticks, seed=4))
+    stats = s.run(ticks, hz=1000.0, use_kf=use_kf, est_odom_every=3)
+    return s, stats
+
+
+@pytest.mark.parametrize("case", ["walk_kf", "walk_truth", "stand",
+                                  "stand_kf", "cold"])
+def test_session_graphs_equal_eager_functions(cuda_device, case):
+    """The session's CUDA graphs (estimator, solve and held-force ticks;
+    the cold tick of ControllerConfig()) against the same functions run
+    eagerly on the card: 12 scripted ticks, every sent command and
+    published odometry bit for bit, the same statistics' counters, and
+    one MPC kernel launch a solve in both."""
+    cfg = {"walk_kf": ControllerConfig.walking(),
+           "walk_truth": ControllerConfig.walking(),
+           "stand": ControllerConfig.standing(),
+           "stand_kf": ControllerConfig.standing(),
+           "cold": ControllerConfig()}[case]
+    use_kf = case.endswith("_kf")
+    runs = {}
+    for g in (True, False):
+        s, st = _scripted_session(cfg, g, 19930 + 2 * g, 12, use_kf)
+        runs[g] = (s.link.cmds, s.link.est, st)
+        s.close()
+    (cg, eg, sg), (ce, ee, se) = runs[True], runs[False]
+    assert len(cg) == len(ce) == 12
+    assert len(eg) == len(ee) == (4 if use_kf else 0)
+    for a, b in zip(cg + eg, ce + ee):
+        for k in a:
+            assert np.array_equal(a[k], b[k]), k
+    for k in ("sent", "mpc_solves", "mpc_holds", "est_odom_published"):
+        assert sg[k] == se[k], k
+    assert sg["mpc_solves"] == (12 if case == "cold" else 3)
+
+
+def test_session_capture_counts_replays_not_the_capture(cuda_device):
+    """Making a session captures its graphs: a recorded launch runs
+    nothing and is not counted; each replay counts its launches."""
+    from mpc_limx_control_tpu_torch.ops import _build
+
+    cfg = ControllerConfig.walking()
+    kern = mfc.WALKING_MPC_PREP
+    before = kern.launches
+    s, stats = _scripted_session(cfg, True, 19940, 10, False)
+    s.close()
+    # two eager warm-up launches when the session was made, then one a
+    # solve tick (0 and 5)
+    assert kern.launches - before == 2 + 2
+    assert stats["mpc_solves"] == 2
+    assert all(k.launches >= 0 for k in _build.KERNELS)
+
+
+def test_graph_capture_survives_dead_graphs_in_cycles(cuda_device):
+    """A dead session holds its graphs in a reference cycle, which only
+    the cyclic collector frees; a collection during another capture would
+    destroy a graph inside it and break that capture (seen once in the
+    card tests). With the collector firing at every allocation, a capture
+    still succeeds and replays."""
+    import gc
+
+    from mpc_limx_control_tpu_torch.ops import graphs
+
+    x = torch.ones(8, device=cuda_device)
+
+    class Holder:
+        pass
+
+    for _ in range(3):
+        h = Holder()
+        h.cycle = h
+        h.graph = graphs.Graph(lambda: x * 2.0)
+        del h
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        g = graphs.Graph(lambda: [Holder() for _ in range(200)] and x + 1.0)
+    finally:
+        gc.set_threshold(*thresholds)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(g.out, x + 1.0)
+    gc.collect()
+
+
+def test_loopback_session_walks_on_the_card(cuda_device):
+    """A 200-tick walking session on the card over the UDP loopback,
+    truth odometry, against the torch WirePlant on the CPU: every tick
+    sent, one walking_mpc_prep launch a solve, upright at the height."""
+    from mpc_limx_control_tpu_torch.control import session as ses
+    from test_torch_session_walking import WirePlant
+
+    cfg = ControllerConfig.walking()
+    plant = WirePlant(cfg, 19944, 19945, publish_truth_odom=True)
+    try:
+        with ses.ControlSession(cfg, state_port=19944, cmd_port=19945,
+                                device="cuda") as s:
+            mfc.WALKING_MPC_PREP.reset()
+            stats = s.run(200, hz=1000.0)
+        assert stats["sent"] == 200 and stats["mpc_solves"] == 40
+        assert mfc.WALKING_MPC_PREP.launches == 40
+        xi = plant.xi[0].numpy()
+        assert 0.6 < xi[5] < 0.7 and abs(xi[0]) < 0.1 and abs(xi[1]) < 0.1
+        assert stats["tick_latency_p50"] > 0.0
+    finally:
+        plant.close()

@@ -1,0 +1,347 @@
+"""The port's control session over the native UDP loopback, on CPU tensors,
+and against the JAX session on the same sensor sequence.
+
+Counterparts of the 11 tests of tests/test_session.py (move-to-zero,
+group / single joint moves, the MPC loop with truth and KF odometry,
+odometry over the wire, the helpers, the safety commands, the calibration
+gate, the published KF odometry), on ports 19100-19599; and a parity
+test that needs no UDP: an in-process link replays one numpy-seeded
+sensor sequence to the JAX ``ControlSession.run`` and to the port's, and
+every command they send is compared tick for tick.
+"""
+
+import dataclasses
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from mpc_limx_control_tpu_torch import runtime as rt
+from mpc_limx_control_tpu_torch.control import session as ses
+from mpc_limx_control_tpu_torch.core.config import ControllerConfig as TCfg
+
+from test_torch_session_walking import (  # noqa: F401  (a fixture)
+    ScriptedLink, _pf_runtime_built, scripted_sensors)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Session ticks at B = 1 on the CPU: one torch thread per test worker
+    (tests/test_torch_slice.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+class LoopbackRobot:
+    """Ideal position-servo robot: q tracks commanded q instantly."""
+
+    def __init__(self, state_port, cmd_port, q0=None, hz=2000.0):
+        self.host = rt.RobotHost(state_port=state_port, cmd_port=cmd_port)
+        self.q = np.zeros(6, np.float32) if q0 is None else np.asarray(
+            q0, np.float32)
+        self.hz = hz
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self):
+        rate = rt.Rate(self.hz)
+        try:
+            while not self._stop.is_set():
+                cmd = self.host.poll_cmd()
+                if cmd is not None:
+                    track = cmd["kp"] > 0
+                    self.q[track] = cmd["q"][track]
+                self.host.publish_state(
+                    self.q, quat=(0, 0, 0, 1), acc=(0, 0, 9.81))
+                rate.sleep()
+        finally:
+            rate.close()
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=2.0)
+        self.host.close()
+
+
+@pytest.fixture
+def robot_ports():
+    base = 19100 + 2 * (int(time.time() * 10) % 200)
+    return base, base + 1
+
+
+def _session(sp, cp, cfg=None):
+    return ses.ControlSession(cfg, host_ip="127.0.0.1", state_port=sp,
+                              cmd_port=cp, device="cpu")
+
+
+def test_move_group_joints_reaches_zero(robot_ports):
+    sp, cp = robot_ports
+    robot = LoopbackRobot(sp, cp, q0=[0.4, -0.3, 0.5, -0.2, 0.3, -0.4])
+    try:
+        with rt.RobotLink("127.0.0.1", sp, cp) as link:
+            ok = ses.move_group_joints(link, np.zeros(6), duration_iters=200,
+                                       hz=500.0, max_iters=3000)
+        assert ok
+        np.testing.assert_allclose(robot.q, 0.0, atol=0.1)
+    finally:
+        robot.close()
+
+
+def test_move_single_joint(robot_ports):
+    sp, cp = robot_ports
+    robot = LoopbackRobot(sp, cp)
+    try:
+        with rt.RobotLink("127.0.0.1", sp, cp) as link:
+            ok = ses.move_single_joint(link, 2, 0.7, duration_iters=200,
+                                       hz=500.0, max_iters=3000)
+        assert ok
+        assert abs(robot.q[2] - 0.7) < 0.1
+    finally:
+        robot.close()
+
+
+def test_session_mpc_loop(robot_ports):
+    sp, cp = robot_ports
+    robot = LoopbackRobot(sp, cp)
+    try:
+        with _session(sp, cp) as session:
+            session.init()
+            assert session.start(timeout_iters=2000)
+            stats = session.run(iterations=30, hz=200.0)
+        assert stats["sent"] == 30
+    finally:
+        robot.close()
+
+
+def test_session_kf_loop(robot_ports):
+    """The use_kf path: KF-estimated odometry drives the tick."""
+    sp, cp = robot_ports
+    robot = LoopbackRobot(sp, cp)
+    try:
+        with _session(sp, cp) as session:
+            stats = session.run(iterations=15, hz=100.0, use_kf=True)
+        assert stats["sent"] == 15
+        # the filter state advanced
+        assert float(session.kf.x_hat.abs().max()) > 0.0
+    finally:
+        robot.close()
+
+
+def test_odometry_over_the_wire(robot_ports):
+    sp, cp = robot_ports
+    robot = LoopbackRobot(sp, cp)
+    try:
+        with rt.RobotLink("127.0.0.1", sp, cp) as link:
+            deadline = time.time() + 2.0
+            got = None
+            while got is None and time.time() < deadline:
+                robot.host.publish_odom(
+                    pos=(0.1, 0.2, 0.65), v_pos=(0.5, 0, 0), stamp_ns=5)
+                time.sleep(0.002)
+                got = link.recv_odom()
+        assert got is not None
+        np.testing.assert_allclose(got["pos"], [0.1, 0.2, 0.65], atol=1e-7)
+        np.testing.assert_allclose(got["v_pos"], [0.5, 0, 0], atol=1e-7)
+    finally:
+        robot.close()
+
+
+def test_error_test_semantics():
+    assert ses.error_test([0] * 6, [0.05] * 6, 0.1)
+    assert not ses.error_test([0] * 6, [0.05, 0.2, 0, 0, 0, 0], 0.1)
+
+
+def test_square_wave_torque():
+    t0 = ses.square_wave_torque(0)
+    t1 = ses.square_wave_torque(1000)
+    np.testing.assert_allclose(t0[[0, 3]], 20.0)
+    np.testing.assert_allclose(t1[[0, 3]], -20.0)
+    assert (t0[[1, 2, 4, 5]] == 0).all()
+
+
+def test_zero_torque_and_damping(robot_ports):
+    """The PFControllerBase safety commands
+    (src/pf_controller_base.cpp:72-97): zeroTorque sends all-zero
+    gains/targets; damping sends kd = 4 only."""
+    sp, cp = robot_ports
+    with rt.RobotHost(state_port=sp, cmd_port=cp) as host, \
+            _session(sp, cp) as session:
+        deadline = time.time() + 2.0
+        got = None
+        while got is None and time.time() < deadline:
+            session.zero_torque()
+            time.sleep(0.002)
+            got = host.poll_cmd()
+        assert got is not None
+        for k in ("q", "dq", "tau", "kp", "kd"):
+            np.testing.assert_allclose(got[k], 0.0, atol=1e-7)
+
+        got = None
+        deadline = time.time() + 2.0
+        while got is None and time.time() < deadline:
+            session.damping()
+            time.sleep(0.002)
+            c = host.poll_cmd()
+            if c is not None and c["kd"][0] == 4.0:
+                got = c
+        assert got is not None
+        np.testing.assert_allclose(got["kd"], 4.0, atol=1e-7)
+        for k in ("q", "dq", "tau", "kp"):
+            np.testing.assert_allclose(got[k], 0.0, atol=1e-7)
+
+
+def test_calibration_gate_aborts(robot_ports):
+    """A calibration diagnostic with nonzero code trips init()."""
+    sp, cp = robot_ports
+    with rt.RobotHost(state_port=sp, cmd_port=cp) as host, \
+            _session(sp, cp) as session:
+        stop = threading.Event()
+
+        def spam():
+            while not stop.is_set():
+                host.publish_diag(rt.DIAG_CALIBRATION, code=1, level=2)
+                time.sleep(0.002)
+
+        t = threading.Thread(target=spam, daemon=True)
+        t.start()
+        try:
+            with pytest.raises(ses.CalibrationError):
+                session.init(settle_s=1.0)
+            assert not session.calibrated
+        finally:
+            stop.set()
+            t.join(timeout=2.0)
+
+
+def test_calibration_gate_passes(robot_ports):
+    sp, cp = robot_ports
+    with rt.RobotHost(state_port=sp, cmd_port=cp) as host, \
+            _session(sp, cp) as session:
+        host.publish_diag(rt.DIAG_CALIBRATION, code=0)
+        time.sleep(0.05)
+        session.init(settle_s=0.1)   # must not raise
+        assert session.calibrated
+
+
+def test_session_kf_publishes_est_odom(robot_ports):
+    """run(use_kf=True) publishes KF odometry + covariance back over the
+    wire."""
+    sp, cp = robot_ports
+    robot = LoopbackRobot(sp, cp)
+    try:
+        with _session(sp, cp) as session:
+            stats = session.run(iterations=12, hz=100.0, use_kf=True,
+                                est_odom_every=2)
+        assert stats["est_odom_published"] >= 5
+        time.sleep(0.05)
+        got = robot.host.poll_est_odom()
+        assert got is not None
+        assert np.isfinite(got["cov_diag"]).all()
+        assert (got["cov_diag"] >= 0).all()
+    finally:
+        robot.close()
+
+
+# ---- the port's session against the JAX session ----------------------------
+
+COUNTERS = ("sent", "stale", "est_odom_published", "mpc_solves", "mpc_holds",
+            "solves_dispatched", "solves_adopted")
+# float32 bands of a sent command, port against JAX: q as
+# tests/test_torch_slice.py::test_rollout_20_ticks_matches_jax_f32 holds it
+# (measured <= 2.2e-6); tau (N m, on a ~28 N m scale) from the stance
+# force, where the two libraries' f32 K^-1 ADMM rounds differently:
+# measured <= 9.9e-5 over the three runs, the band ~7x that; dq, kp and kd
+# are configuration values, equal.
+CMD_BANDS = {"q": 1e-5, "dq": 0.0, "tau": 7e-4, "kp": 0.0, "kd": 0.0}
+# the published KF odometry: measured <= 4.8e-7; the covariance diagonal
+# after the first update from 100 I, the float32 cancellation of
+# tests/test_torch_kf.py: measured 3.1e-5, the band ~7x that
+EST_BANDS = {"pos": 1e-5, "quat": 1e-5, "v_pos": 1e-5, "v_ori": 1e-5,
+             "cov_diag": 2e-4}
+
+
+def _run_scripted(session, sensors, use_kf):
+    session.link.close()
+    session.link = ScriptedLink(sensors)
+    stats = session.run(iterations=len(sensors), hz=1000.0, use_kf=use_kf,
+                        est_odom_every=5)
+    return session.link, stats
+
+
+@pytest.mark.parametrize("case", ["walk_truth", "walk_kf", "stand"])
+def test_session_matches_jax_session(case, robot_ports):
+    """The JAX ControlSession.run and the port's on one scripted sensor
+    sequence of 30 ticks (no UDP): six solve / hold cycles of the dtMPC
+    schedule, the anchor seeded at tick 0, with the KF the filter and the
+    odometry published every 5 ticks. Every command tick for tick within
+    CMD_BANDS, the published odometry within EST_BANDS, the statistics'
+    counters equal."""
+    from mpc_limx_control_tpu.control import session as jses
+    from mpc_limx_control_tpu.core.config import ControllerConfig as JCfg
+
+    mode = "stand" if case == "stand" else "walk"
+    use_kf = case == "walk_kf"
+    tcfg = TCfg.standing() if mode == "stand" else TCfg.walking()
+    jcfg = JCfg.standing() if mode == "stand" else JCfg.walking()
+    sensors = scripted_sensors(tcfg, 30, seed=11)
+    sp, cp = robot_ports
+    with jses.ControlSession(jcfg, "127.0.0.1", sp, cp) as js:
+        jlink, jstats = _run_scripted(js, sensors, use_kf)
+    with _session(sp, cp, tcfg) as ts:
+        tlink, tstats = _run_scripted(ts, sensors, use_kf)
+    assert len(tlink.cmds) == len(jlink.cmds) == 30
+    gaps = {k: 0.0 for k in CMD_BANDS}
+    for ct, cj in zip(tlink.cmds, jlink.cmds):
+        for k, band in CMD_BANDS.items():
+            gaps[k] = max(gaps[k], float(np.abs(ct[k] - cj[k]).max()))
+    for k, band in CMD_BANDS.items():
+        assert gaps[k] <= band, (k, gaps[k])
+    assert len(tlink.est) == len(jlink.est) == (6 if use_kf else 0)
+    for et, ej in zip(tlink.est, jlink.est):
+        for k, band in EST_BANDS.items():
+            np.testing.assert_allclose(et[k], ej[k], atol=band, rtol=0,
+                                       err_msg=k)
+    assert {k: tstats[k] for k in COUNTERS} == \
+        {k: jstats[k] for k in COUNTERS}
+    assert tstats["mpc_solves"] == 6
+    if mode == "walk":
+        np.testing.assert_allclose(ts.ref_anchor.numpy(),
+                                   np.asarray(js.ref_anchor), atol=1e-5)
+    if use_kf:
+        np.testing.assert_allclose(ts.kf.x_hat.numpy(),
+                                   np.asarray(js.kf.x_hat), atol=1e-5)
+    z_t, y_t = ts.qp_state
+    np.testing.assert_allclose(z_t.numpy(), np.asarray(js.qp_state[0]),
+                               atol=0.1, rtol=0)
+
+
+def test_session_initial_state_matches_jax(robot_ports):
+    """The cold warm-start state (y = 0 for ADMM, as JAX's session starts
+    it, unlike the rollout's Riccati ones: ROADMAP, "Not faults"), the
+    filter's initial state and the anchor before the first tick."""
+    from mpc_limx_control_tpu.control import session as jses
+    from mpc_limx_control_tpu.core.config import ControllerConfig as JCfg
+
+    sp, cp = robot_ports
+    for jcfg, tcfg in ((JCfg.walking(), TCfg.walking()),
+                       (JCfg.standing(), TCfg.standing())):
+        with jses.ControlSession(jcfg, "127.0.0.1", sp, cp) as js, \
+                _session(sp + 2, cp + 2, tcfg) as ts:
+            for a, b in zip(ts.qp_state, js.qp_state):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+            np.testing.assert_array_equal(ts.kf.p_cov.numpy(),
+                                          np.asarray(js.kf.p_cov))
+            assert (ts.ref_anchor is None) == (js.ref_anchor is None)
+    pdip = dataclasses.replace(tcfg, srbd=dataclasses.replace(
+        tcfg.srbd, solver=dataclasses.replace(tcfg.srbd.solver,
+                                              method="pdip")))
+    with _session(sp, cp, pdip) as ts:
+        assert float(ts.qp_state[1].min()) == 1.0
+    with pytest.raises(ValueError, match="warm"):
+        with _session(sp, cp, TCfg()) as ts:
+            ts.run(1, async_dispatch=True)
