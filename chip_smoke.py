@@ -57,7 +57,17 @@ non-zero):
    tests/test_session_walking.py, one ``walking_mpc_prep`` /
    ``fused_qp_nu6`` launch a solve, the latency statistics), and
    tests/test_velocity_profile.py's ramp / cruise / stop through
-   ``rollout(v_des_schedule=)`` (1800 ticks);
+   ``rollout(v_des_schedule=)`` (1800 ticks); then the scenario mesh of
+   ``parallel/mesh.py``: both sharding styles over a mesh of the card and
+   of 4 shards on it, truth and KF walking, B = 256, 10 steps, the final
+   state bit for bit the unsharded ``batched_rollout``'s and the
+   statistics within rtol 1e-6; two processes on the card over gloo
+   (tools/distributed_rollout_torch.py, B = 256, 5 steps: equal statistics
+   on both ranks, within 1e-6 of one process); ``entry()`` and
+   ``dryrun_multichip(1)``; and ``examples/run_walking_torch.py`` (B = 64,
+   300 ticks), ``examples/run_soak_torch.py`` (3 windows of 500, killed
+   before its second chunk and resumed) and
+   ``tools/verify_fused_sharded_torch.py`` through their ``main``;
 6. with CUDA events at B = 1, 1024 and 4096: the time per tick of each
    tick form through ``plant_step`` and of its plain version, the tick
    kernel alone (also replayed from a CUDA graph: the device time of a
@@ -2204,6 +2214,164 @@ def main() -> int:
     say("v_des_schedule", card=smi, **{k: v for k, v in q.items()
                                        if k.startswith("vdes_")})
 
+    # ---- 5c. the scenario mesh, two processes, the entry, the examples --
+    # [mesh]: both sharding styles of parallel/mesh.py over a mesh of the
+    # one card and of 4 shards on it, truth and KF walking at full width,
+    # B = 256, 10 steps: the final state bit for bit the unsharded
+    # batched_rollout's (each scenario is its own block of the tick
+    # kernel), the statistics within rtol 1e-6 of scenario_stats of its
+    # metrics (bit for bit with one shard), one tick launch a shard a step
+    from mpc_limx_control_tpu_torch import entry as pentry
+    from mpc_limx_control_tpu_torch.parallel import mesh as pmesh
+    Bm, Tm = 256, 10
+    for label, c in (("walk", wcfg), ("walk_kf", kcfg)):
+        kname = tfc.tick_kernels(c)[(c.estimator_mode == "kf", False)].name
+        s0m = perturbed_states(c, Bm, seed=11, device=dev, yaw=0.0)
+        f_ref, m_ref = ro.batched_rollout(c, s0m, Tm)
+        st_ref = pmesh.scenario_stats(m_ref)
+        for shards in (1, 4):
+            mesh_m = pmesh.make_mesh([dev] * shards)
+            for style, make in (("gspmd", pmesh.sharded_rollout),
+                                ("shard_map", pmesh.shard_map_rollout)):
+                got_m = {}
+
+                def run_mesh():
+                    got_m["out"] = make(c, mesh_m, Tm)(s0m, 0.0)
+
+                case = f"{label}_{style}_x{shards}"
+                path(f"mesh_{case}", run_mesh, {kname: shards * Tm})
+                fin, st = got_m["out"]
+                g = fin.gather()
+                pairs = [(f, getattr(g, f), getattr(f_ref, f))
+                         for f in ("xi", "q", "foot_l", "foot_r", "qp_z",
+                                   "qp_lam", "ref_anchor", "prev_v",
+                                   "prev_q") if getattr(f_ref, f) is not None]
+                if c.estimator_mode == "kf":
+                    pairs += [("kf_x", g.kf.x_hat, f_ref.kf.x_hat),
+                              ("kf_p", g.kf.p_cov, f_ref.kf.p_cov)]
+                differ = [f for f, a, b in pairs if not torch.equal(a, b)]
+                rel = {k: float(((st[k] - st_ref[k]).abs()
+                                 / st_ref[k].abs().clamp_min(1e-30)).max())
+                       for k in st if k != "best_scenario"}
+                say("mesh", case=case, B=Bm, steps=Tm, bit_equal=not differ,
+                    stats_rel_err=rel, best_scenario_equal=bool(
+                        torch.equal(st["best_scenario"],
+                                    st_ref["best_scenario"]))
+                    if "best_scenario" in st else None)
+                # one shard: the reduction is scenario_stats' own
+                # arithmetic, so the statistics are bit for bit too
+                check(not differ and max(rel.values()) <= 1e-6
+                      and (shards > 1 or all(torch.equal(st[k], st_ref[k])
+                                             for k in st)),
+                      f"mesh {case}: fields {differ} differ, stats {rel}")
+    q["mesh_ok"] = True
+
+    # [distributed]: two processes on the one card over gloo, each
+    # initialize_multihost + shard_map_rollout on its half of B = 256, 5
+    # steps (tools/distributed_rollout_torch.py: a group timeout, a
+    # deadline for the ranks): equal statistics on both ranks (atol 0),
+    # within 1e-6 of one process, five tick launches a rank
+    t_d = time.perf_counter()
+    dist_out = "chiprun_out/distributed_torch.json"
+    proc = subprocess.run(
+        [sys.executable, "tools/distributed_rollout_torch.py",
+         "--processes", "2", "--batch", "256", "--steps", "5",
+         "--device", "cuda", "--timeout", "120", "--out", dist_out],
+        capture_output=True, text=True, timeout=360)
+    check(proc.returncode == 0, "distributed rollout failed: "
+          + proc.stdout[-2000:] + proc.stderr[-2000:])
+    with open(dist_out) as fh:
+        dres = json.load(fh)
+    say("distributed", processes=2, B=256, steps=5,
+        ranks_equal=dres["ranks_equal"],
+        max_abs_err_vs_one_process=dres["max_abs_err_vs_one_process"],
+        rank_launches=[r["launches"] for r in dres["ranks"]],
+        reduce_device=[r["reduce_device"] for r in dres["ranks"]],
+        seconds=time.perf_counter() - t_d)
+    check(dres["ok"] and all(r["launches"] == {"walking_tick": 5}
+                             for r in dres["ranks"]),
+          f"distributed: {dres}")
+    q["distributed_ok"] = True
+
+    # [entry]: the one-scenario step of entry() and dryrun_multichip(1)
+    # (one step of each style, the 5-step sharded rollout against the
+    # unsharded one, the KF sharded step)
+    def run_entry():
+        step_e, args_e = pentry.entry()
+        s_e, m_e = step_e(*args_e)
+        check(s_e.xi.shape == (13,) and bool(torch.isfinite(s_e.xi).all()),
+              "entry step")
+        pentry.dryrun_multichip(1)
+
+    path("entry", run_entry, {"walking_tick": 13, "walking_tick_kf": 1})
+    q["entry_ok"] = True
+
+    # [examples]: run_walking_torch (B = 64, 300 ticks), run_soak_torch (3
+    # windows of 500, killed before its second chunk and resumed) and
+    # verify_fused_sharded_torch (B = 256, 10 steps, truth and KF), each
+    # through its main
+    import importlib.util
+    import tempfile
+
+    def script(rel):
+        spec = importlib.util.spec_from_file_location(
+            rel.replace("/", "_")[:-3], rel)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    with tempfile.TemporaryDirectory() as tmp_x:
+        got_x = {}
+        path("example_run_walking", lambda: got_x.update(
+            walk=script("examples/run_walking_torch.py").main(
+                ["--batch", "64", "--steps", "300", "--out", tmp_x])),
+            {"walking_tick": 310})
+        soak_mod = script("examples/run_soak_torch.py")
+        soak_args = ["--batch", "64", "--windows", "3", "--window", "500",
+                     "--checkpoint-every", "2", "--out", tmp_x]
+        real_soak = soak_mod.ro.soak_rollout
+        chunks = []
+
+        class Killed(Exception):
+            pass
+
+        def soak_killed(*a, **kw):
+            chunks.append(1)
+            if len(chunks) == 2:
+                raise Killed("killed between chunks")
+            return real_soak(*a, **kw)
+
+        def run_soak_resumed():
+            soak_mod.ro.soak_rollout = soak_killed
+            try:
+                soak_mod.main(soak_args)
+            except Killed:
+                pass
+            finally:
+                soak_mod.ro.soak_rollout = real_soak
+            got_x["soak"] = soak_mod.main(soak_args + ["--resume"])
+            with open(f"{tmp_x}/stats_truth.jsonl") as fh:
+                got_x["soak_windows"] = [json.loads(ln)["window"]
+                                         for ln in fh]
+
+        path("example_run_soak", run_soak_resumed, {"walking_tick": 1500})
+        path("tool_verify_fused_sharded", lambda: got_x.update(
+            verify=script("tools/verify_fused_sharded_torch.py").main(
+                ["--out", f"{tmp_x}/verify.json"])),
+            {"walking_tick": 60, "walking_tick_kf": 60})
+    walk_x, soak_x, ver_x = got_x["walk"], got_x["soak"], got_x["verify"]
+    say("examples", card=smi, run_walking=walk_x,
+        run_soak={k: soak_x[k] for k in ("windows", "height_min",
+                                         "nonfinite_ticks")},
+        soak_windows=got_x["soak_windows"],
+        verify_ok=ver_x["ok"],
+        verify_wall_s={e: ver_x[e]["wall_s"] for e in ("truth", "kf")})
+    check(walk_x["finite"] and walk_x["height_min"] > 0.6
+          and got_x["soak_windows"] == [0, 1, 2]
+          and soak_x["nonfinite_ticks"] == 0 and soak_x["height_min"] > 0.6
+          and ver_x["ok"], f"examples: {got_x}")
+    q["examples_ok"] = True
+
     q["main_path_s"] = time.perf_counter() - t_main
     say("quality", launches=launches, **q)
     for k in ("walk_ok", "turn_ok", "push_ok", "terrain_ok", "ctrl_tick_ok",
@@ -2223,7 +2391,8 @@ def main() -> int:
               "n30_stand_ok", "inv_stand_ok", "inv_kf_stand_ok",
               "inv_stand_ctrl_tick_ok", "resident_ok", "session_graph_ok",
               "session_walk_ok", "session_kf_ok", "session_async_ok",
-              "session_stand_ok", "v_des_schedule_ok"):
+              "session_stand_ok", "v_des_schedule_ok", "mesh_ok",
+              "distributed_ok", "entry_ok", "examples_ok"):
         check(q[k], f"quality gate {k} failed: {q}")
     for k in kernels:
         summary[k]["launches"] = launches[k]
@@ -2298,7 +2467,6 @@ def main() -> int:
     # and the kernel alone (repeated launches on fixed buffers; the host
     # enqueues a launch in ~0.01 ms, so this is the device time of any
     # launch longer than that)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     forms = [(cfg, kcfg, VARIANTS), (scfg, kscfg, STAND_VARIANTS)]
     for c_truth, c_kf, names in forms:
         for (est_kf, hold), name in names.items():
@@ -2329,15 +2497,12 @@ def main() -> int:
                     anc, it, vd, torch.zeros(Bt, device=dev),
                     grf_held=held, cfg=c, **kf_args)
                 vt[Bt]["kernel_ms"] = cuda_time_ms(
-                    lambda: plan.kernel.launch(plan.params, plan.ptrs,
-                                               plan.batch, stream),
+                    plan.launch,
                     reps[Bt][0])
                 # the same launches replayed from a CUDA graph: the device
                 # time of a launch shorter than the host's cost of one
                 vt[Bt]["kernel_graph_ms"] = graph_time_ms(
-                    lambda: plan.kernel.launch(
-                        plan.params, plan.ptrs, plan.batch,
-                        torch.cuda.current_stream(dev).cuda_stream),
+                    plan.launch,
                     reps[Bt][0])
             say("timing", kernel=name, card=smi,
                 **{f"B{k}": v for k, v in vt.items()})
@@ -2458,8 +2623,7 @@ def main() -> int:
             check(plan.kernel.name == name, f"{name}: plan picked "
                   f"{plan.kernel.name}")
             vt[Bt]["kernel_ms"] = cuda_time_ms(
-                lambda: plan.kernel.launch(plan.params, plan.ptrs,
-                                           plan.batch, stream), reps[Bt][0])
+                plan.launch, reps[Bt][0])
         say("timing", kernel=name, card=smi,
             **{f"B{k}": v for k, v in vt.items()})
         tb = tick_bound(c, 4096, est_kf, False)
@@ -2502,9 +2666,7 @@ def main() -> int:
             check(plan.kernel.name == name, f"{name}: plan picked "
                   f"{plan.kernel.name}")
             vt[Bt]["kernel_ms"] = graph_time_ms(
-                lambda: plan.kernel.launch(
-                    plan.params, plan.ptrs, plan.batch,
-                    torch.cuda.current_stream(dev).cuda_stream), reps[Bt][0])
+                plan.launch, reps[Bt][0])
         say("timing", kernel=name, card=smi, N=8,
             **{f"B{k}": v for k, v in vt.items()})
         tb = tick_bound(c, 4096, est_kf, False)

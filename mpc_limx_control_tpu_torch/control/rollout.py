@@ -531,9 +531,7 @@ def batched_rollout_resident(cfg: ControllerConfig, state0: PlantState,
         src, dst = bufs[i], bufs[1 - i]
         torch.add(start, t_idx, out=it)
         if cuda:
-            p = plans[i]
-            p.kernel.launch(p.params, p.ptrs, p.batch,
-                            torch.cuda.current_stream(device).cuda_stream)
+            plans[i].launch()
         else:
             args, kw = inputs(src)
             for d, o in zip(outputs(dst),
@@ -560,7 +558,7 @@ def batched_rollout_resident(cfg: ControllerConfig, state0: PlantState,
     pairs = (steps - 1) // 2
     if pairs > 0 and cuda:
         graph = graphs.Graph(lambda: (tick(1), tick(0)),
-                             name="batched_rollout_resident")
+                             name="batched_rollout_resident", device=device)
         for _ in range(pairs):
             graph.replay()
     else:

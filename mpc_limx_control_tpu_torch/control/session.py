@@ -366,7 +366,8 @@ class ControlSession:
                 for fn in self._fns.values():
                     fn()
         torch.cuda.current_stream(self.device).wait_stream(side)
-        out = {name: graphs.Graph(fn, name=f"ControlSession.{name}")
+        out = {name: graphs.Graph(fn, name=f"ControlSession.{name}",
+                                  device=self.device)
                for name, fn in self._fns.items()}
         for t, v in zip(state, saved):
             t.copy_(v)

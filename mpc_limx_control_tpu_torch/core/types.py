@@ -22,6 +22,18 @@ def default_device(device=None) -> torch.device:
     return torch.device("cuda" if device is None else device)
 
 
+def require_device(name: str = "cuda") -> torch.device:
+    """The device an example or tool runs on (its ``--device``): the card
+    unless asked for the CPU; a card this process does not have raises
+    here, before any work."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device "
+                           "(torch.cuda.is_available() is False); pass "
+                           "--device cpu to run on the CPU")
+    return device
+
+
 def constant(values, dtype, device) -> torch.Tensor:
     """A tensor of configuration values (a float or nested tuples of
     floats) on `device`, made once per (values, dtype, device). A tensor

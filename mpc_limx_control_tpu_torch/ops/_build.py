@@ -11,7 +11,8 @@ reused. Nothing is built or loaded when this module is imported.
 Each kernel entry point takes its parameters as a pointer to a
 ``ctypes.Structure``, device pointers and the CUDA stream as ``void*`` and
 the batch size as ``int``, and returns ``cudaGetLastError()`` right after
-the launch; :class:`Kernel` raises on a non-zero code and counts launches.
+the launch; :class:`Kernel` launches it under the device of its tensors,
+raises on a non-zero code and counts launches.
 """
 
 from __future__ import annotations
@@ -192,7 +193,14 @@ class Kernel:
         return fn, lib
 
     def launch(self, params: ctypes.Structure, ptrs, batch: int,
-               stream: int) -> None:
+               device: torch.device) -> None:
+        """Launch on `device`, the CUDA device of the kernel's tensors, in
+        its current stream. The library sets the kernel's shared-memory
+        attribute and launches on the current device, so the launch runs
+        with `device` made current (a tensor on ``cuda:1`` would otherwise
+        be launched on ``cuda:0`` into a stream of ``cuda:1``). The stream
+        is read at the launch: inside a CUDA graph capture it is the
+        capture's."""
         if len(ptrs) != self.n_ptr:
             raise ValueError(f"{self.name}: {len(ptrs)} pointers, "
                              f"expected {self.n_ptr}")
@@ -202,8 +210,10 @@ class Kernel:
             raise RuntimeError(
                 f"{self.name}: parameter structure is {ctypes.sizeof(params)}"
                 f" bytes in Python but {sizer()} in the library")
-        rc = fn(ctypes.cast(ctypes.pointer(params), ctypes.c_void_p),
-                *ptrs, int(batch), stream)
+        with torch.cuda.device(device):
+            rc = fn(ctypes.cast(ctypes.pointer(params), ctypes.c_void_p),
+                    *ptrs, int(batch),
+                    torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
             msg = lib.mpc_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.name} launch failed: CUDA error "

@@ -78,7 +78,7 @@ def _launch(kernel, tensors_in, out, n, k):
     dev = out.device
     prm = CholParams(n=n, k=k)
     kernel.launch(prm, [t.data_ptr() for t in tensors_in] + [out.data_ptr()],
-                  out.shape[0], torch.cuda.current_stream(dev).cuda_stream)
+                  out.shape[0], dev)
     return out
 
 

@@ -26,21 +26,28 @@ from mpc_limx_control_tpu_torch.ops import _build
 
 
 class Graph:
-    """`fn()` captured as a CUDA graph on the current device.
+    """`fn()` captured as a CUDA graph on `device` (default: the current
+    device).
 
-    ``out`` is what `fn` returned while capturing (tensors in the graph's
-    pool, rewritten by every replay). ``launches`` maps each kernel that
-    `fn` launches to its launches a replay.
+    Capture and every replay run with `device` current, so that a graph of
+    tensors on another card than the current one is captured and replayed
+    on their card. ``out`` is what `fn` returned while capturing (tensors
+    in the graph's pool, rewritten by every replay). ``launches`` maps
+    each kernel that `fn` launches to its launches a replay.
     """
 
-    def __init__(self, fn, name: str = "graph"):
+    def __init__(self, fn, name: str = "graph", device=None):
         self.name = name
+        dev = torch.device("cuda" if device is None else device)
+        self.device = dev if dev.index is not None else torch.device(
+            "cuda", torch.cuda.current_device())
         before = [k.launches for k in _build.KERNELS]
         self.graph = torch.cuda.CUDAGraph()
         gc_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.device(self.device), \
+                    torch.cuda.graph(self.graph):
                 self.out = fn()
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of {name} failed: "
@@ -55,7 +62,8 @@ class Graph:
                          zip(_build.KERNELS, after, before) if a != b}
 
     def replay(self) -> None:
-        """Launch the graph on the current stream."""
-        self.graph.replay()
+        """Launch the graph on its device's current stream."""
+        with torch.cuda.device(self.device):
+            self.graph.replay()
         for k, n in self.launches.items():
             k.launches += n

@@ -324,8 +324,7 @@ def fused_walking_qp_prep(arms, x0, v_des, yaw_rate, z_warm, y_warm,
     ins = (x0, arms, v_des, yaw_rate, z_warm, y_warm, anchor)
     outs = (z, y, res, xp)
     (WALKING_MPC_PREP_INV if inv else WALKING_MPC_PREP).launch(
-        mpc_params(cfg), [t.data_ptr() for t in ins + outs], B,
-        torch.cuda.current_stream(dev).cuda_stream)
+        mpc_params(cfg), [t.data_ptr() for t in ins + outs], B, dev)
     return z, y, res, xp
 
 
@@ -473,8 +472,7 @@ def fused_walking_qp(Ad, Bd_t, x_ref, x0, z_warm, y_warm, *, N: int,
     res = torch.empty((B,), dtype=torch.float32, device=dev)
     (FUSED_QP_INV if solve_form == "inv" else FUSED_QP)[nu].launch(
         prm, [t.data_ptr() for _, t, _ in ins]
-        + [t.data_ptr() for t in (z, y, res)], B,
-        torch.cuda.current_stream(dev).cuda_stream)
+        + [t.data_ptr() for t in (z, y, res)], B, dev)
     return z, y, res
 
 

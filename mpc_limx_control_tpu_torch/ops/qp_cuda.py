@@ -195,6 +195,5 @@ def pdip_fused(H, f, G, h, z0, s0, lam0, iters: int = 6):
 
     outs = (empty(B, n), empty(B), empty(B, n), empty(B, m))
     PDIP_FUSED.launch(PdipParams(n=n, m=m, iters=iters),
-                      [t.data_ptr() for t in ins + outs], B,
-                      torch.cuda.current_stream(dev).cuda_stream)
+                      [t.data_ptr() for t in ins + outs], B, dev)
     return outs

@@ -360,8 +360,7 @@ def fused_walking_tick(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
     plan = prepare_tick_launch(xi, q, foot_l, foot_r, z_warm, y_warm, anchor,
                                it, v_des, yaw_rate, kf_x, kf_p, prev_v,
                                prev_q, grf_held, cfg=cfg)
-    plan.kernel.launch(plan.params, plan.ptrs, plan.batch,
-                       torch.cuda.current_stream(xi.device).cuda_stream)
+    plan.launch()
     return plan.results
 
 
@@ -378,6 +377,13 @@ class TickLaunch(NamedTuple):
     batch: int
     results: tuple
     inputs: tuple
+
+    def launch(self) -> None:
+        """Launch the kernel on its tensors' device, in that device's
+        current stream (a plan launched later, from a CUDA graph or the
+        resident rollout, launches where its tensors live)."""
+        self.kernel.launch(self.params, self.ptrs, self.batch,
+                           self.inputs[0].device)
 
 
 def prepare_tick_launch(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,

@@ -10,7 +10,8 @@ Counterpart of ``mpc_limx_control_tpu.utils.profiling``:
   results are CUDA tensors;
 * :class:`MetricsLogger`: structured per-step metrics as JSON lines;
 * :func:`trace`: a ``torch.profiler`` scope (CPU, and the card's kernels
-  where there is one) that writes a Chrome trace.
+  where there is one) that writes a Chrome trace;
+* :func:`card`: the card's name and power limit, to keep beside a time.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import subprocess
 import time
 from pathlib import Path
 from typing import Callable
@@ -143,3 +145,18 @@ def trace(log_dir: str = "torch-trace"):
     with torch.profiler.profile(activities=acts) as prof:
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
+
+
+def card() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    of the first card ("" where there is none): a card set below its
+    power maximum runs slower under load."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return ""
+    lines = out.stdout.strip().splitlines()
+    return lines[0].strip() if out.returncode == 0 and lines else ""

@@ -1517,3 +1517,74 @@ def test_loopback_session_walks_on_the_card(cuda_device):
         assert stats["tick_latency_p50"] > 0.0
     finally:
         plant.close()
+
+
+# ---- the scenario mesh (parallel/mesh.py) -----------------------------------
+
+@pytest.mark.parametrize("style", ["gspmd", "shard_map"])
+@pytest.mark.parametrize("est", ["truth", "kf"])
+@pytest.mark.parametrize("shards", [1, 4])
+def test_mesh_equals_batched_rollout(cuda_device, shards, est, style):
+    """A mesh of the card and of 4 shards on it, walking at full width,
+    B = 256, 10 steps: the final state bit for bit the unsharded
+    batched_rollout's (each scenario is its own block of the tick kernel),
+    the mean height within rtol 1e-6 (one shard: every statistic bit for
+    bit), one tick launch a shard a step."""
+    from mpc_limx_control_tpu_torch.parallel import mesh as pmesh
+
+    cfg = dataclasses.replace(ControllerConfig.walking(), estimator_mode=est)
+    s0 = _states(cfg, 256, seed=11, device=cuda_device, yaw=0.0)
+    ref, m_ref = ro.batched_rollout(cfg, s0, 10)
+    mesh = pmesh.make_mesh([cuda_device] * shards)
+    make = (pmesh.sharded_rollout if style == "gspmd"
+            else pmesh.shard_map_rollout)
+    kern = tfc.tick_kernels(cfg)[(est == "kf", False)]
+    kern.reset()
+    final, stats = make(cfg, mesh, 10)(s0, 0.0)
+    torch.cuda.synchronize()
+    assert kern.launches == shards * 10
+    got = final.gather()
+    assert [p.xi.device for p in final.parts] == [cuda_device] * shards
+    for f in ("xi", "q", "foot_l", "foot_r", "qp_z", "qp_lam", "ref_anchor"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    if est == "kf":
+        assert torch.equal(got.kf.p_cov, ref.kf.p_cov)
+    want = pmesh.scenario_stats(m_ref)
+    mean = want["mean_height"]
+    assert float(((stats["mean_height"] - mean).abs() / mean).max()) <= 1e-6
+    assert torch.equal(stats["max_qp_residual"], want["max_qp_residual"])
+    if shards == 1:
+        # one shard: scenario_stats' own arithmetic
+        for k, v in stats.items():
+            assert torch.equal(v, want[k]), k
+
+
+def test_two_processes_share_the_card_over_gloo(cuda_device, tmp_path):
+    """tools/distributed_rollout_torch.py on the card: two ranks on it over
+    gloo, B = 256, 5 steps, equal statistics, within 1e-6 of one
+    process."""
+    import json
+    import subprocess
+    import sys
+
+    out = tmp_path / "dist.json"
+    proc = subprocess.run(
+        [sys.executable, "tools/distributed_rollout_torch.py", "--batch",
+         "256", "--steps", "5", "--device", "cuda", "--timeout", "120",
+         "--out", str(out)],
+        cwd=str(Path(__file__).resolve().parent.parent), capture_output=True,
+        text=True, timeout=360)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    res = json.loads(out.read_text())
+    assert res["ok"] and res["ranks_equal"]
+    assert [r["reduce_device"] for r in res["ranks"]] == ["cpu", "cpu"]
+    assert all(r["launches"] == {"walking_tick": 5} for r in res["ranks"])
+
+
+def test_dryrun_multichip_one_card(cuda_device):
+    from mpc_limx_control_tpu_torch import entry
+
+    tfc.WALKING_TICK.reset()
+    entry.dryrun_multichip(1)
+    torch.cuda.synchronize()
+    assert tfc.WALKING_TICK.launches == 12

@@ -142,8 +142,7 @@ def tick_call(cfg, B: int, seed: int, dev, hold: bool = False):
         # the plan carries raw pointers: `inputs` (and `s`, which holds the
         # filter state) stay referenced here for as long as it is launched,
         # whatever the checkout's plan keeps
-        plan.kernel.launch(plan.params, plan.ptrs, plan.batch,
-                           torch.cuda.current_stream(dev).cuda_stream)
+        plan.launch()
         return inputs, s, held
 
     fields = TICK_FIELDS[:len(plan.results)]
