@@ -6,6 +6,8 @@ src/QPSolver.cpp:31-81), batch-first: :func:`prediction_matrices`,
 B and time-varying (Ad_t, Bd_t) inputs over the horizon. The cached form
 for LTI MPC (:func:`condense_cache`, :func:`linear_terms`) keeps ONE
 system's x0-independent matrices, shared by every scenario of a batch.
+:func:`condense_lti_diag` is the band form of :func:`condense` for a
+step-invariant Ad and diagonal weights, with any leading batch dims.
 
 Shapes: Ad [B,nx,nx] or [B,N,nx,nx]; Bd [B,nx,nu] or [B,N,nx,nu];
 A_blocks [B,N+1,nx,nx] (A_blocks[i] = Ad_{i-1}...Ad_0);
@@ -116,6 +118,78 @@ def condense(Ad: torch.Tensor, Bd: torch.Tensor, Q: torch.Tensor,
     h = torch.cat(h_parts, -1)
     return CondensedQP(H=H, f=f, G=G, h=h, A_blocks=A_blocks,
                        B_blocks=B_blocks)
+
+
+def condense_lti_diag(Ad: torch.Tensor, Bd_t: torch.Tensor,
+                      q_diag, r_diag, p_diag, N: int,
+                      x0: torch.Tensor, x_ref: torch.Tensor):
+    """Band-form condensation for LTI Ad + LTV Bd + DIAGONAL weights.
+
+    The (H, f) of :func:`condense` (reference cost layout,
+    src/QPSolver.cpp:50-60) without the prediction matrix B_mat
+    [(N+1)nx, N nu] or QB, from the block-Toeplitz structure of B'Q̄B when
+    Ad is step-invariant (the shared-yaw SRBD linearization):
+
+        H[j,k]/2 = Bd_j' (Ad')^{k-j} W_k Bd_k + delta_jk R      (j <= k)
+        W_k      = Q + Ad' W_{k+1} Ad,   W_{N-1} = P            (backward)
+        f[j]/2   = Bd_j' s_j,   s_j = Q_{j+1} err_{j+1} + Ad' s_{j+1}
+
+    Ad [..., nx, nx]; Bd_t [..., N, nx, nu]; q_diag / r_diag / p_diag of
+    length nx / nu / nx; x0 [..., nx]; x_ref [..., N+1, nx], with any
+    leading batch dims (broadcast). Returns (H [..., nz, nz], f [..., nz]),
+    nz = N nu.
+    """
+    nx = Ad.shape[-1]
+    nu = Bd_t.shape[-1]
+    dtype, device = x0.dtype, x0.device
+    nz = N * nu
+    q = torch.as_tensor(q_diag, dtype=dtype, device=device)
+    r = torch.as_tensor(r_diag, dtype=dtype, device=device)
+    p = torch.as_tensor(p_diag, dtype=dtype, device=device)
+    lead = torch.broadcast_shapes(Ad.shape[:-2], Bd_t.shape[:-3],
+                                  x0.shape[:-1], x_ref.shape[:-2])
+    AdT = Ad.transpose(-1, -2)
+
+    # ---- W_k backward recursion (cost-to-go Gramians) ------------------
+    Ws = [torch.diag(p).expand(*Ad.shape[:-2], nx, nx)]
+    for _ in range(N - 1):
+        Ws.append(torch.diag(q) + AdT @ Ws[-1] @ Ad)
+    Ws = torch.stack(Ws[::-1], -3)                      # [..., N, nx, nx]
+    V = Ws @ Bd_t                                       # W_k Bd_k
+
+    # ---- band assembly: S[j, j+d] = Bd_j' (Ad')^d V_{j+d} --------------
+    S = torch.zeros((*lead, N, N, nu, nu), dtype=dtype, device=device)
+    BdT = Bd_t.transpose(-1, -2)
+    T = V
+    for d in range(N):
+        if d > 0:
+            T = AdT[..., None, :, :] @ T                # Ad' T_{d-1}[k]
+        j = torch.arange(N - d, device=device)
+        S[..., j, j + d, :, :] = BdT[..., :N - d, :, :] @ T[..., d:, :, :]
+
+    U = S.transpose(-3, -2).reshape(*lead, nz, nz)      # upper incl. diag
+    j = torch.arange(N, device=device)
+    D = torch.zeros_like(S)
+    D[..., j, j, :, :] = S[..., j, j, :, :]
+    Dmat = D.transpose(-3, -2).reshape(*lead, nz, nz)
+    R_bar = torch.diag(r.repeat(N))
+    H = 2.0 * (U + U.transpose(-1, -2) - Dmat + R_bar)
+
+    # ---- f: adjoint (backward) sweep instead of QB' err ----------------
+    xs = [x0]
+    for _ in range(N):
+        xs.append((Ad @ xs[-1][..., None])[..., 0])
+    err = torch.stack(xs, -2) - x_ref                   # [..., N+1, nx]
+    qw = torch.cat([q.expand(N - 1, nx), p[None]], 0)   # Q_1..Q_N
+    qerr = qw * err[..., 1:, :]                         # [..., N, nx]
+    s = torch.zeros_like(qerr[..., 0, :])
+    ss = []
+    for k in range(N - 1, -1, -1):
+        s = qerr[..., k, :] + (AdT @ s[..., None])[..., 0]
+        ss.append(s)
+    s = torch.stack(ss[::-1], -2)                       # s_j [..., N, nx]
+    f = 2.0 * (BdT @ s[..., None])[..., 0].reshape(*lead, nz)
+    return H, f
 
 
 class CondensationCache(NamedTuple):

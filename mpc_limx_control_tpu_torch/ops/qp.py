@@ -12,6 +12,9 @@ Counterpart of ``mpc_limx_control_tpu.ops.qp`` for
 * :func:`_batched_admm` / :func:`make_admm_warm`: over-relaxed ADMM with
   one factorization of K = H + rho G'G + reg I per solve, warm-started
   with (z, scaled dual y).
+* :func:`_batched_admm_kron` / :func:`make_admm_warm_kron`: the same ADMM
+  ("kinv" form) for a block-diagonal G = kron(I_N, Gu), which is never
+  formed.
 * :func:`admm_qp`: the two-sided form l <= Gz <= u.
 * :func:`ruiz_equilibrate`: OSQP-style scaling of an ill-conditioned QP.
 
@@ -356,6 +359,73 @@ def make_admm_warm(iters: int = 10, rho: float = 1.0, alpha: float = 1.6,
                                (2, 1, 2, 1, 1, 1))
         sol, (z, y) = _batched_admm(*args, iters, rho, alpha,
                                     plain_twins=plain_twins)
+        if batched:
+            return sol, (z, y)
+        return _unbatch_sol(sol), (z[0], y[0])
+
+    return solve
+
+
+def _batched_admm_kron(H, f, Gu, h, z_warm, y_warm, iters: int, rho: float,
+                       alpha: float, plain_twins: bool = False):
+    """:func:`_batched_admm` ("kinv" form) for G = kron(I_N, Gu).
+
+    The per-step friction cone gives every horizon step the same [mu,nu]
+    block (models/srbd.py:friction_cone_rows), so G is never formed:
+    G'G = kron(I_N, Gu'Gu), M1 = rho K^-1 G' is a per-block [n,N,nu] x
+    [mu,nu] contraction and the iterations' G mat-vecs contract over nu.
+    The same iterates as :func:`_batched_admm` on the expanded G.
+
+    H [B,n,n]; f [B,n]; Gu [mu,nu] (shared by the batch and the horizon);
+    h [B,m], z_warm [B,n], y_warm [B,m] with n = N nu, m = N mu. The
+    factorization of K is the ``cholesky`` kernel on CUDA tensors.
+    """
+    dtype, device = H.dtype, H.device
+    B, n = f.shape
+    Gu = torch.as_tensor(Gu, dtype=dtype, device=device)
+    mu_, nu_ = Gu.shape
+    N = n // nu_
+    m = N * mu_
+    reg = _consts(dtype)[2]
+    eye = torch.eye(n, dtype=dtype, device=device)
+    GtG = torch.kron(torch.eye(N, dtype=dtype, device=device), Gu.T @ Gu)
+    K = H + (rho * GtG + reg * eye)
+    L = _posdef_chol(K, 0.0, plain_twins)
+    Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    Kinv = Linv.transpose(-1, -2) @ Linv
+    M1 = rho * (Kinv.reshape(B, n, N, nu_) @ Gu.T).reshape(B, n, m)
+    z_base = -_mv(Kinv, f)
+
+    def g_mv(z):                                        # G z, [B,m]
+        return (z.reshape(B, N, nu_) @ Gu.T).reshape(B, m)
+
+    v = torch.minimum(g_mv(z_warm), h)
+    y = y_warm
+    for _ in range(iters):
+        z = z_base + _mv(M1, v - y)
+        gz_relaxed = alpha * g_mv(z) + (1.0 - alpha) * v
+        v_new = torch.minimum(gz_relaxed + y, h)
+        y = y + gz_relaxed - v_new
+        v = v_new
+    z = z_base + _mv(M1, v - y)
+
+    r_prim = torch.amax(torch.abs(g_mv(z) - v), -1)
+    residual = r_prim / (1.0 + torch.amax(torch.abs(f), -1))
+    return QPSolution(u=z, iterations=iters, residual=residual), (z, y)
+
+
+def make_admm_warm_kron(Gu: torch.Tensor, iters: int = 10, rho: float = 1.0,
+                        alpha: float = 1.6, plain_twins: bool = False):
+    """Warm-started ADMM for G = kron(I_N, Gu): fn(H, f, h, z_warm,
+    y_warm) -> (QPSolution, (z, y)); one problem or a batch. Gu [mu,nu]
+    (the friction-cone block) is closed over; the expanded G is never
+    formed. The factorization of K is the ``cholesky`` kernel on CUDA
+    tensors."""
+    def solve(H, f, h, z_warm, y_warm):
+        args, batched = _batch((H, f, h, z_warm, y_warm), (2, 1, 1, 1, 1))
+        sol, (z, y) = _batched_admm_kron(args[0], args[1], Gu, *args[2:],
+                                         iters, rho, alpha,
+                                         plain_twins=plain_twins)
         if batched:
             return sol, (z, y)
         return _unbatch_sol(sol), (z[0], y[0])

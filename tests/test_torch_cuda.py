@@ -1588,3 +1588,87 @@ def test_dryrun_multichip_one_card(cuda_device):
     entry.dryrun_multichip(1)
     torch.cuda.synchronize()
     assert tfc.WALKING_TICK.launches == 12
+
+
+# ---- the band condensation, the Kronecker-cone ADMM and the corpus ------
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_admm_warm_kron_runs_one_cholesky_kernel(cuda_device):
+    """make_admm_warm_kron factors K with the ``cholesky`` kernel, once a
+    call, and equals its plain twin (plain factorization) within 1e-4 of
+    1 + the largest entry (the f32 rounding of two factorizations through
+    the explicit K^-1)."""
+    smoke = _smoke()
+    cfg = ControllerConfig.walking()
+    args, k, Gu, h = smoke.band_kron_inputs(cfg, 257, 40, cuda_device)
+    from mpc_limx_control_tpu_torch.ops import condense as cnd
+
+    H, f = cnd.condense_lti_diag(args[0], args[1], k["q_diag"], k["r_diag"],
+                                 k["p_diag"], k["N"], args[3], args[2])
+    solve = dict(iters=k["iters"], rho=k["rho"], alpha=k["alpha"])
+    chol = chol_cuda.KERNELS["cholesky"]
+    before = chol.launches
+    _, (z, y) = qps.make_admm_warm_kron(Gu, **solve)(H, f, h, args[4],
+                                                     args[5])
+    assert chol.launches == before + 1
+    _, (z_t, y_t) = qps.make_admm_warm_kron(Gu, plain_twins=True, **solve)(
+        H, f, h, args[4], args[5])
+    assert chol.launches == before + 1
+    for a, b in ((z, z_t), (y, y_t)):
+        assert float((a - b).abs().max()) <= 1e-4 * (float(b.abs().max())
+                                                     + 1.0)
+
+
+def test_band_kron_matches_dense_and_fused_qp(cuda_device):
+    """chip_smoke.py's ``[band_kron]`` checks at B = 257: the band
+    condensation against the dense one in f64, the kron ADMM against the
+    dense ADMM on the expanded G and its plain twin, and the composition
+    against the ``fused_qp_nu3`` kernel at 2e-3 * scale."""
+    e = _smoke().band_kron_check(ControllerConfig.walking(), 257, 41,
+                                 cuda_device)
+    assert e["ok"], e
+
+
+@pytest.mark.parametrize("mode", ["walk", "stand"])
+def test_corpus_on_the_card_within_the_oracle_bands(cuda_device, mode):
+    """The corpora of tests/test_active_set_oracle.py captured on the card
+    (the fused tick kernels, one launch a tick) against the f64 active-set
+    oracle with chip_smoke.py's ``corpus_report`` bands: the in-loop force,
+    the f32 ``pdip_qp`` on the K8 kernels and K9 ``pdip_fused`` (20 Newton
+    steps; a band miss other than the known ones of
+    ``F32_BAND_FAULTS`` fails), K9 also held against its plain version by
+    ``pdip_check`` after its 20 steps (the floor over eight arithmetic
+    orders)."""
+    from mpc_limx_control_tpu_torch.ops import qp_cuda
+    from mpc_limx_control_tpu_torch.oracle import corpus
+
+    smoke = _smoke()
+    names = ("walk_steady", "walk_pushed") if mode == "walk" else ("stand",)
+    tick = tfc.TICK_KERNELS[(False, False)] if mode == "walk" \
+        else tfc.STAND_KERNELS[(False, False)]
+    before = tick.launches
+    cqs = []
+    for name in names:
+        _, ticks, every, skip, kick = smoke.CORPORA[name]
+        cfg = ControllerConfig.walking() if mode == "walk" \
+            else ControllerConfig.standing()
+        cqs += corpus.capture_corpus(cfg, ticks, every, skip_first=skip,
+                                     kick=kick)
+        assert cqs[-1].u_loop.dtype == np.float64
+    assert tick.launches - before == (140 if mode == "walk" else 300)
+    batch = smoke.corpus_batch(cqs, torch.float32, cuda_device)
+    k9_args = smoke.pdip_start(*batch)
+    sols = {"pdip": qps.pdip_qp(*batch, iters=20).u.cpu().numpy(),
+            "k9": qp_cuda.pdip_fused(*k9_args, iters=20)[0].cpu().numpy()}
+    e = smoke.corpus_report(cqs, sols)
+    assert e["ok"], e
+    check = smoke.pdip_check(k9_args, 20, smoke.pdip_floor(k9_args, 20,
+                                                           orders=8))
+    assert check["ok"], check
