@@ -1,0 +1,1 @@
+"""portbench: the benchmark of the PyTorch/CUDA port (see run.py)."""
