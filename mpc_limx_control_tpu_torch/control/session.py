@@ -30,10 +30,16 @@ graph replays, and one device-to-host copy of the packed 30-float command
 ``cuda_graphs=False`` runs the functions eagerly on the card instead (the
 same kernels, launched one by one), and CPU tensors (``device="cpu"``)
 always run them eagerly.
+
+Every tick of ``run`` is logged in the session's ``tick_log``
+(``utils/profiling.TickLog``): the stamps of its phases, its kind, and the
+device time of each graph it replayed, timed by two events recorded
+inside the graph's capture (its first node to its last).
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Optional
 
@@ -48,6 +54,7 @@ from mpc_limx_control_tpu_torch.core.types import (ImuData, JointState,
 from mpc_limx_control_tpu_torch.control import controller as ctrl
 from mpc_limx_control_tpu_torch.control import estimator as est
 from mpc_limx_control_tpu_torch.control import gait as gaitmod
+from mpc_limx_control_tpu_torch.utils import profiling as prof
 from mpc_limx_control_tpu_torch.utils import rotations as rotu
 
 
@@ -238,11 +245,13 @@ class ControlSession:
                    if self._warm else {"cold": self._cold_fn})
         self._fns = fns
         self._graphs = None
+        self._timers = {}           # graph name -> (start, end) events
         if self._cuda:
             self._side = torch.cuda.Stream(dev)
             self._taken = [torch.cuda.Event() for _ in range(SLOTS)]
             if cuda_graphs is None or cuda_graphs:
                 self._graphs = self._capture()
+        self.tick_log = prof.TickLog()
         # the link last: nothing above can leave it open by raising
         self.link = rt.RobotLink(host_ip, state_port, cmd_port)
         # calibration-diagnostic abort gate: set False the moment a
@@ -366,7 +375,22 @@ class ControlSession:
                 for fn in self._fns.values():
                     fn()
         torch.cuda.current_stream(self.device).wait_stream(side)
-        out = {name: graphs.Graph(fn, name=f"ControlSession.{name}",
+        # two timing events recorded inside each capture (event-record
+        # nodes): a replay's device time from its first node to its last
+        self._timers = {name: tuple(torch.cuda.Event(enable_timing=True,
+                                                     external=True)
+                                    for _ in range(2))
+                        for name in self._fns}
+
+        def timed(fn, start, end):
+            def call():
+                start.record()
+                fn()
+                end.record()
+            return call
+
+        out = {name: graphs.Graph(timed(fn, *self._timers[name]),
+                                  name=f"ControlSession.{name}",
                                   device=self.device)
                for name, fn in self._fns.items()}
         for t, v in zip(state, saved):
@@ -381,6 +405,7 @@ class ControlSession:
             self._fns[name]()
 
     def close(self):
+        self.tick_log.close()
         self.link.close()
 
     def __enter__(self):
@@ -533,11 +558,21 @@ class ControlSession:
         odometry + covariance diagonal is published back over the wire
         every `est_odom_every` ticks (include/stateEstimator.h:404-419).
 
-        Stats: per-tick host latency (seconds, state receipt to command
-        send) `tick_latency_p50/p95/max`, `solve_latency_p50`,
-        `hold_latency_p50`, `ticks_over_1ms`, `solves_over_5ms`; counters
-        `sent`, `stale`, `missed_deadlines`, `est_odom_published`,
-        `mpc_solves`, `mpc_holds`.
+        Every tick is logged in ``tick_log`` (``profiling.TickLog``: the
+        phases poll, wire_in, fill, launch, wait, wire_out, sleep; the
+        kind, hold / solve / cold; the device time of each graph the tick
+        replayed). Stats, from the log's ticks of this call (its last
+        ``TickLog.CAPACITY``): per-tick host latency (seconds, state
+        receipt to the call of send_cmd) `tick_latency_p50/p95/max`,
+        `solve_latency_p50` (solving ticks, warm or cold),
+        `hold_latency_p50`, `ticks_over_1ms` (over the period),
+        `solves_over_5ms`, `phase_p50_ms` (ms by span name, e.g.
+        "session.wait"), and on CUDA graphs `hold_graph_device_p50_ms` /
+        `solve_graph_device_p50_ms` (the hold / warm graph's device time a
+        replay; the warm graph is not timed under async dispatch, whose
+        solves the host does not wait for); counters `sent`, `stale`,
+        `missed_deadlines`, `est_odom_published`, `mpc_solves`,
+        `mpc_holds`.
 
         `async_dispatch`: every tick runs the held-force tick with the
         force of the newest completed solve, while the solves run on a
@@ -552,8 +587,6 @@ class ControlSession:
         stats = {"sent": 0, "stale": 0, "missed_deadlines": 0,
                  "est_odom_published": 0, "mpc_solves": 0, "mpc_holds": 0,
                  "solves_dispatched": 0, "solves_adopted": 0}
-        lat_solve: list = []
-        lat_hold: list = []
         staleness: list = []
         pending: list = []      # async: (tick, slot, event), not adopted
         held_it = None          # tick the adopted force was solved at
@@ -562,10 +595,10 @@ class ControlSession:
                              "(qp_warm_start) production path")
         if self._cuda:
             torch.cuda.current_stream(self.device).wait_stream(self._side)
+        log = self.tick_log
         it = 0
-        with rt.Rate(hz) as rate:
+        with rt.Rate(hz) as rate, log.running():
             while it < iterations:
-                t_tick0 = time.perf_counter()
                 self._poll_diagnostics()
                 if not self.calibrated:
                     self.damping()
@@ -576,6 +609,7 @@ class ControlSession:
                     stats["stale"] += 1
                     rate.sleep()
                     continue
+                log.mark(prof.WIRE_IN)
                 imu_raw = self.link.recv_imu()
                 if use_kf and imu_raw is None:
                     # the IMU datagram trails the state packet on the wire;
@@ -590,7 +624,9 @@ class ControlSession:
                         rate.sleep()
                         continue
                 odom_raw = self.link.recv_odom()
+                log.mark(prof.FILL)
                 self._fill_sensors(it, state, imu_raw, odom_raw, use_kf)
+                log.mark(prof.LAUNCH)
                 pub = False
                 if use_kf:
                     self._run("est")
@@ -634,10 +670,15 @@ class ControlSession:
                             pending.clear()
                             stats["solves_adopted"] += 1
                     solve_now = False
+                    kind = prof.HOLD
                     self._run("hold")
                     packed = self._hold_out
-                    staleness.append(it - held_it)
+                    if held_it is not None:
+                        # (None: the force of an earlier run() call, held
+                        # until this call's first solve is adopted)
+                        staleness.append(it - held_it)
                 elif warm and solve_now:
+                    kind = prof.SOLVE
                     self._solve_in.copy_(self._packet[:, :SOLVE_IN])
                     self._run("warm")
                     # the next anchor and the force, into the packet
@@ -650,12 +691,16 @@ class ControlSession:
                     self._held = True
                     packed = w[:, :CMD]
                 elif warm:
+                    kind = prof.HOLD
                     self._run("hold")
                     packed = self._hold_out
                 else:
+                    kind = prof.COLD
                     self._run("cold")
                     packed = self._cold_out
+                log.mark(prof.WAIT)
                 p = self._fetch(packed, pub)
+                log.mark(prof.WIRE_OUT)
                 if pub:
                     e = self._pub_h.numpy()[0]
                     self.link.send_est_odom(
@@ -663,33 +708,22 @@ class ControlSession:
                         v_ori=e[10:13], cov_diag=e[13:25],
                         stamp_ns=rt.now_ns())
                     stats["est_odom_published"] += 1
+                log.mark(prof.SLEEP)
                 self.link.send_cmd(
                     q=p[0:6], dq=p[6:12], tau=p[12:18], kp=p[18:24],
                     kd=p[24:30])
-                (lat_solve if solve_now else lat_hold).append(
-                    time.perf_counter() - t_tick0)
+                if self._timers:
+                    # the device times of the graphs the tick waited for,
+                    # read once the command is out
+                    self._time_graphs(kind, use_kf)
                 stats["mpc_solves" if solve_now else "mpc_holds"] += 1
                 stats["sent"] += 1
                 it += 1
                 stats["missed_deadlines"] += rate.sleep()
+                log.end(kind, use_kf)
         if self._cuda:
             torch.cuda.current_stream(self.device).wait_stream(self._side)
-        lat_all = sorted(lat_solve + lat_hold)
-        if lat_all:
-            def pct(xs, p):
-                return float(xs[min(len(xs) - 1, int(p * len(xs)))])
-            stats["tick_latency_p50"] = pct(lat_all, 0.50)
-            stats["tick_latency_p95"] = pct(lat_all, 0.95)
-            stats["tick_latency_max"] = float(lat_all[-1])
-            stats["ticks_over_1ms"] = int(
-                sum(1 for x in lat_all if x > 1.0 / hz))
-            if lat_solve:
-                ls = sorted(lat_solve)
-                stats["solve_latency_p50"] = pct(ls, 0.50)
-                stats["solves_over_5ms"] = int(
-                    sum(1 for x in ls if x > 0.005))
-            if lat_hold:
-                stats["hold_latency_p50"] = pct(sorted(lat_hold), 0.50)
+        stats.update(_tick_stats(log.view(first_run=log.runs - 1), hz))
         if staleness:
             ss = sorted(staleness)
             stats["grf_staleness_p50"] = float(ss[len(ss) // 2])
@@ -697,3 +731,43 @@ class ControlSession:
                 ss[min(len(ss) - 1, int(0.95 * len(ss)))])
             stats["grf_staleness_max"] = float(ss[-1])
         return stats
+
+    def _time_graphs(self, kind: int, use_kf: bool) -> None:
+        """Log the device time of each graph the tick replayed on the
+        main stream (after its synchronize: the events are done)."""
+        start, end = self._timers[prof.KIND_GRAPHS[kind]]
+        est = self._timers["est"]
+        self.tick_log.device(start.elapsed_time(end),
+                             est[0].elapsed_time(est[1]) if use_kf
+                             else math.nan)
+
+
+def _pct(xs, p: float) -> float:
+    """The run statistics' percentile of sorted samples."""
+    return float(xs[min(len(xs) - 1, int(p * len(xs)))])
+
+
+def _tick_stats(ticks: prof.Ticks, hz: float) -> dict:
+    """``run()``'s statistics of logged ticks (latency in seconds, phases
+    and graph device times in ms)."""
+    if not len(ticks):
+        return {}
+    lat = ticks.latency_ns() * 1e-9
+    solving = ticks.kind != prof.HOLD
+    out = {"tick_latency_p50": _pct(np.sort(lat), 0.50),
+           "tick_latency_p95": _pct(np.sort(lat), 0.95),
+           "tick_latency_max": float(lat.max()),
+           "ticks_over_1ms": int((lat > 1.0 / hz).sum()),
+           "phase_p50_ms": {span: _pct(np.sort(ticks.phase_ms(phase)), 0.50)
+                            for phase, span in zip(prof.PHASES, prof.SPANS)}}
+    if solving.any():
+        out["solve_latency_p50"] = _pct(np.sort(lat[solving]), 0.50)
+        out["solves_over_5ms"] = int((lat[solving] > 0.005).sum())
+    if not solving.all():
+        out["hold_latency_p50"] = _pct(np.sort(lat[~solving]), 0.50)
+    for key, graph in (("hold_graph_device_p50_ms", "hold"),
+                       ("solve_graph_device_p50_ms", "warm")):
+        ms = ticks.device_ms(graph)
+        if ms.size:
+            out[key] = _pct(np.sort(ms), 0.50)
+    return out

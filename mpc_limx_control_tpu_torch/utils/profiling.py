@@ -5,9 +5,9 @@ Counterpart of ``mpc_limx_control_tpu.utils.profiling``:
 * :class:`Timer`: wall-clock scope timer that synchronizes the card at
   both ends when given a CUDA device or tensor (kernels run after the
   host returns; a host clock without a synchronize measures the enqueue);
-* :func:`measure_throughput`: solves/s and latency percentiles of any step
-  function, synchronizing the card after each call when its arguments or
-  results are CUDA tensors;
+* :class:`TickLog`: the live session's per-tick phase log (a ring of
+  preallocated arrays, always on), with a weak registry of the logs of
+  open sessions (:func:`tick_logs`);
 * :class:`MetricsLogger`: structured per-step metrics as JSON lines;
 * :func:`trace`: a ``torch.profiler`` scope (CPU, and the card's kernels
   where there is one) that writes a Chrome trace;
@@ -18,14 +18,17 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
+import math
 import subprocess
 import time
+import weakref
 from pathlib import Path
-from typing import Callable
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 
 def _cuda_devices(tree) -> set:
@@ -70,31 +73,224 @@ class Timer:
         self.elapsed = time.perf_counter() - self._t0
 
 
-def measure_throughput(step_fn: Callable, args: tuple, batch: int,
-                       iters: int = 10, warmup: int = 1) -> dict:
-    """Time `iters` calls of step_fn(*args), the card synchronized after
-    each call where the arguments or results are CUDA tensors.
+# -- the live session's tick log ----------------------------------------------
 
-    Returns dict with solves/s (batch*iters/total) and per-call latency
-    stats (p50/p90/max), all in seconds.
+# The phases of a tick, in order; a tick's eight stamps bound them.
+PHASES = ("poll", "wire_in", "fill", "launch", "wait", "wire_out", "sleep")
+POLL, WIRE_IN, FILL, LAUNCH, WAIT, WIRE_OUT, SLEEP = range(len(PHASES))
+SPANS = tuple(f"session.{p}" for p in PHASES)
+# what a tick ran: the held force, a warm solve, a cold solve; the session
+# graph that a tick of each kind replays (and, on a KF tick, "est" first)
+KINDS = ("hold", "solve", "cold")
+HOLD, SOLVE, COLD = range(len(KINDS))
+KIND_GRAPHS = ("hold", "warm", "cold")
+_STAMPS = len(PHASES) + 1
+_clock = time.perf_counter_ns
+# torch.profiler's light record function (the one torch's compiled code
+# emits): ~1 us to enter against tens of us for record_function, whose
+# enter is itself a traced operator
+_RecordFunctionFast = torch._C._profiler._RecordFunctionFast
+_TICK_LOGS: "weakref.WeakValueDictionary[int, TickLog]" = \
+    weakref.WeakValueDictionary()
+_KEYS = itertools.count()
+
+
+def tick_logs() -> list:
+    """The tick logs of the open sessions, oldest first (held weakly: a
+    closed or collected session's log is gone)."""
+    return [log for _, log in sorted(_TICK_LOGS.items())]
+
+
+def _epoch_offset_ns(samples: int = 9) -> int:
+    """``time.time_ns() - time.perf_counter_ns()`` from the pair of reads
+    that lie closest together: added to a ``perf_counter_ns`` stamp it
+    places the stamp on the Unix-epoch clock of torch.profiler's events."""
+    best = None
+    for _ in range(samples):
+        a = _clock()
+        epoch = time.time_ns()
+        b = _clock()
+        if best is None or b - a < best[0]:
+            best = (b - a, epoch - (a + b) // 2)
+    return best[1]
+
+
+@dataclasses.dataclass
+class Ticks:
+    """Ticks of a :class:`TickLog` in the order they ran."""
+
+    stamps: np.ndarray      # [n, 8] int64 perf_counter_ns, the phases' bounds
+    kind: np.ndarray        # [n] int8, an index into KINDS
+    est: np.ndarray         # [n] bool, the estimator ran
+    run: np.ndarray         # [n] int32, the run() call (0: the first)
+    profiled: np.ndarray    # [n] bool, a torch profiler was active
+    graph_ms: np.ndarray    # [n, 2] float32 device ms of the kind's graph
+                            # and of "est" (NaN: not replayed or not timed)
+
+    def __len__(self) -> int:
+        return len(self.kind)
+
+    def phase_ms(self, phase: str) -> np.ndarray:
+        """[n] milliseconds of one phase (a name of PHASES)."""
+        k = PHASES.index(phase)
+        return (self.stamps[:, k + 1] - self.stamps[:, k]) * 1e-6
+
+    def latency_ns(self) -> np.ndarray:
+        """[n] state receipt to the call of send_cmd: wire_in + fill +
+        launch + wait + wire_out, exactly."""
+        return self.stamps[:, WIRE_OUT + 1] - self.stamps[:, WIRE_IN]
+
+    def take(self, keep) -> "Ticks":
+        """The ticks that `keep` (a mask or indices) selects."""
+        return Ticks(stamps=self.stamps[keep], kind=self.kind[keep],
+                     est=self.est[keep], run=self.run[keep],
+                     profiled=self.profiled[keep],
+                     graph_ms=self.graph_ms[keep])
+
+    def device_ms(self, graph: str) -> np.ndarray:
+        """The device times of the ticks that replayed `graph` (a name of
+        KIND_GRAPHS, or "est") and timed it."""
+        if graph == "est":
+            x = self.graph_ms[:, 1]
+        else:
+            x = self.graph_ms[self.kind == KIND_GRAPHS.index(graph), 0]
+        return x[~np.isnan(x)]
+
+
+class TickLog:
+    """The per-tick phase log of a live session (``ControlSession.run``),
+    always on: a ring of the last `capacity` ticks in preallocated numpy
+    arrays, one row a tick.
+
+    A tick's eight ``time.perf_counter_ns`` stamps bound its seven phases
+    (PHASES): ``poll`` from the wake-up to a fresh state (diagnostics,
+    ``recv_state``, stale polls), ``wire_in`` (the IMU and odometry
+    reads), ``fill`` (the sensor packet and its host-to-device copy),
+    ``launch`` (the graph replays and the copies around them), ``wait``
+    (the device-to-host copy and the wait for the device), ``wire_out``
+    (up to the call of ``send_cmd``) and ``sleep`` (``send_cmd``, the
+    graphs' device times read, the rate's sleep). The tick's latency is
+    wire_in to wire_out. A row also holds the tick's kind (KINDS), whether
+    the estimator ran, the index of its run() call, whether a torch
+    profiler was active, and the device time of each graph that the tick
+    replayed and timed (the kind's, KIND_GRAPHS, and the estimator's).
+
+    While a torch profiler is active each phase is also a record-function
+    span of the profiler's named after it (SPANS), within microseconds of
+    the stamps, and ``epoch_offset_ns`` (measured once) places any stamp
+    on the profiler's clock. The log registers itself (:func:`tick_logs`) until
+    :meth:`close`.
     """
-    for _ in range(warmup):
-        _sync(args, step_fn(*args))
-    lat = []
-    for _ in range(iters):
-        _sync(args)
-        t0 = time.perf_counter()
-        _sync(args, step_fn(*args))
-        lat.append(time.perf_counter() - t0)
-    lat = np.asarray(lat)
-    total = float(lat.sum())
-    return {
-        "solves_per_s": batch * iters / total,
-        "p50_s": float(np.percentile(lat, 50)),
-        "p90_s": float(np.percentile(lat, 90)),
-        "max_s": float(lat.max()),
-        "total_s": total,
-    }
+
+    CAPACITY = 65536
+
+    def __init__(self, capacity: int = CAPACITY):
+        self.capacity = capacity
+        # one row more than the ticks kept: the tick in progress writes
+        # into a row that no reader is shown
+        self._rows = rows = capacity + 1
+        self.stamps = np.zeros((rows, _STAMPS), np.int64)
+        # kind | est << 2 | profiled << 3 | run << 8: one store a tick
+        self.info = np.zeros(rows, np.int64)
+        self.graph_ms = np.full((rows, 2), np.nan, np.float32)
+        self.count = 0          # ticks logged; the ring holds the last ones
+        self.runs = 0           # run() calls begun
+        self.epoch_offset_ns = _epoch_offset_ns()
+        # the per-tick stores go through flat memoryviews of the arrays
+        # (a fraction of a numpy item store's cost)
+        self._st = memoryview(self.stamps.reshape(-1))
+        self._info = memoryview(self.info)
+        self._gms = memoryview(self.graph_ms.reshape(-1))
+        self._row = self._base = 0
+        self._profiling = False
+        self._span = None
+        self._key = next(_KEYS)
+        _TICK_LOGS[self._key] = self
+
+    # -- the stamps of a tick, in order
+    @contextlib.contextmanager
+    def running(self):
+        """The scope of a run() call: its first tick wakes up on entry; the
+        span left open is closed on exit."""
+        self.runs += 1
+        self._open_row(self._wake_up())
+        try:
+            yield self
+        finally:
+            if self._span is not None:
+                self._span.__exit__(None, None, None)
+                self._span = None
+
+    def mark(self, phase: int) -> None:
+        """`phase` (an index into PHASES) begins now."""
+        if self._span is None:
+            self._st[self._base + phase] = _clock()
+        else:
+            # the next span is entered before the stamp and the last one
+            # left after it: the profiler stamps a span's start at the end
+            # of its enter and its end at the start of its exit
+            span = _RecordFunctionFast(SPANS[phase])
+            span.__enter__()
+            self._st[self._base + phase] = _clock()
+            self._span.__exit__(None, None, None)
+            self._span = span
+
+    def device(self, ms: float, est_ms: float = math.nan) -> None:
+        """The device times of this tick's graph (its kind's) and of the
+        estimator's graph (NaN: not replayed). A log that is given none
+        keeps NaN in every row."""
+        self._gms[2 * self._row] = ms
+        self._gms[2 * self._row + 1] = est_ms
+
+    def end(self, kind: int, est: bool) -> None:
+        """The tick's sleep ends, the next tick's poll begins: commit the
+        row."""
+        if self._span is None and \
+                not _autograd_profiler._is_profiler_enabled:
+            t = _clock()                # (_wake_up's path with no spans)
+        else:
+            t = self._wake_up()
+        self._st[self._base + _STAMPS - 1] = t
+        self._info[self._row] = (kind | est << 2 | self._profiling << 3
+                                 | (self.runs - 1) << 8)
+        self.count += 1
+        self._open_row(t)
+
+    def _wake_up(self) -> int:
+        """The wake-up's stamp; with a profiler active the poll span is
+        entered (as in mark)."""
+        span = None
+        if _autograd_profiler._is_profiler_enabled:
+            span = _RecordFunctionFast(SPANS[POLL])
+            span.__enter__()
+        t = _clock()
+        if self._span is not None:
+            self._span.__exit__(None, None, None)
+        self._span = span
+        return t
+
+    def _open_row(self, t: int) -> None:
+        self._row = i = self.count % self._rows
+        self._base = i * _STAMPS
+        self._st[self._base] = t
+        self._profiling = self._span is not None
+
+    # -- reading
+    def view(self, first_run: int = 0) -> Ticks:
+        """The logged ticks still in the ring, in order, of run() calls
+        from `first_run` on."""
+        n = min(self.count, self.capacity)
+        idx = np.arange(self.count - n, self.count) % self._rows
+        info = self.info[idx]
+        ticks = Ticks(stamps=self.stamps[idx],
+                      kind=(info & 3).astype(np.int8), est=(info & 4) != 0,
+                      run=(info >> 8).astype(np.int32),
+                      profiled=(info & 8) != 0, graph_ms=self.graph_ms[idx])
+        return ticks.take(ticks.run >= first_run)
+
+    def close(self) -> None:
+        """Leave the registry (the arrays stay readable)."""
+        _TICK_LOGS.pop(self._key, None)
 
 
 class MetricsLogger:

@@ -1,0 +1,31 @@
+"""The median device time of the session's `hold` CUDA graph a replay, in
+ms: two timing events recorded inside the graph's capture, its first
+node to its last (no host launch latency in front of it).
+
+Read from the port's tick log (utils/profiling.TickLog, the newest open
+session's): the ticks of the run() calls after the first (set-up's) that
+ran before any profiled tick. Once torch.profiler has run, the process
+stays slower (a traced run's later ticks come at a fraction of the rate),
+so a traced run reads the ticks before its traced chunk. None where the
+port keeps no tick log."""
+
+import numpy as np
+
+from mpc_limx_control_tpu_torch.utils import profiling
+
+
+def _ticks():
+    logs = getattr(profiling, "tick_logs", list)()
+    if not logs:
+        return None
+    ticks = logs[-1].view(first_run=1)
+    ticks = ticks.take(np.cumsum(ticks.profiled) == 0)
+    return ticks if len(ticks) else None
+
+
+def read(record):
+    ticks = _ticks()
+    if ticks is None:
+        return None
+    ms = ticks.device_ms("hold")
+    return float(np.median(ms)) if ms.size else None

@@ -57,15 +57,6 @@ def test_checkpoint_plant_state_and_template(tmp_path):
             "it": torch.zeros(4, dtype=torch.long), "none": None})
 
 
-def test_measure_throughput():
-    x = torch.ones((64, 8))
-    stats = prof.measure_throughput(lambda a: a * 2.0, (x,), batch=64,
-                                    iters=3)
-    assert stats["solves_per_s"] > 0
-    assert stats["p50_s"] >= 0
-    assert stats["max_s"] >= stats["p50_s"]
-
-
 def test_metrics_logger(tmp_path):
     p = tmp_path / "m.jsonl"
     with prof.MetricsLogger(p) as log:
