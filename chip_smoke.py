@@ -148,10 +148,12 @@ with code 1 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -183,6 +185,8 @@ PDIP_TPU = "mpc_limx_control_tpu/ops/qp_pallas.py:206"
 PREP_TPU = "mpc_limx_control_tpu/ops/mpc_fused_pallas.py:374"
 QP_TPU = "mpc_limx_control_tpu/ops/mpc_fused_pallas.py:355"
 TICK_TPU = "mpc_limx_control_tpu/ops/tick_fused_pallas.py:130"
+SESSION_JAX = ("mpc_limx_control_tpu/control/session.py (XLA's fusion of "
+               "the jax.jit tick closures)")
 # (est_kf, hold) -> kernel name; the four forms of the TPU tick kernel
 VARIANTS = {(False, False): "walking_tick", (False, True): "walking_tick_hold",
             (True, False): "walking_tick_kf",
@@ -290,6 +294,159 @@ def perturbed_states(cfg, B: int, seed: int, device, yaw: float = 0.1):
     xi[:, 10] += 0.05 * noise[1]
     xi[:, 2] += yaw * noise[2]
     return s0.replace(xi=xi)
+
+
+def session_packets(cfg, B: int, seed: int, device):
+    """B session packets (control/session.py's layout) of walking states
+    three plain ticks in (perturbed_states, staggered phases, a pair of
+    rows on each side of both phase switches), the odometry's quaternion
+    from its roll, pitch and yaw, every fourth anchor 0.3 m outside its
+    band, the held force of the last tick; and the QP warm state (z, y)
+    of those ticks."""
+    from mpc_limx_control_tpu_torch.control import rollout as ro
+    from mpc_limx_control_tpu_torch.control import session as ses
+    from mpc_limx_control_tpu_torch.utils import rotations as rot
+
+    s0 = perturbed_states(cfg, B, seed, device)
+    pattern = torch.tensor([0.0, 40.0, 180.0, 296.0, 297.0, 455.0, 596.0,
+                            597.0], device=device)
+    its = pattern.repeat(B // len(pattern) + 1)[:B]
+    for j in range(3):
+        s0, m0 = ro._plant_step_ref(cfg, s0, its + j, solve_form="subst")
+    pk = torch.zeros((B, ses.PACKET), dtype=torch.float32, device=device)
+    xi = s0.xi
+    pk[:, ses.Q] = s0.q
+    pk[:, ses.POS] = xi[:, 3:6]
+    pk[:, ses.ORI] = xi[:, 0:3]
+    pk[:, ses.OQUAT] = rot.rpy_to_quat(xi[:, 0:3])
+    pk[:, ses.VPOS] = xi[:, 9:12]
+    pk[:, ses.VORI] = xi[:, 6:9]
+    pk[:, ses.IT] = (its + 3.0)[:, None]
+    anchor = s0.ref_anchor.clone()
+    anchor[::4, 0] += 0.3
+    pk[:, ses.ANCHOR] = anchor
+    pk[:, ses.GRF] = m0["grf"]
+    return pk, (s0.qp_z.contiguous(), s0.qp_lam.contiguous())
+
+
+def session_tick_plain(cfg, packet, z=None, y=None, solve_form=None):
+    """controller.tick on session packets, as ControlSession's plain tick
+    functions call it: the held force (z None), or a warm solve from
+    (z, y) (``solve_form`` None: the walking_mpc_prep kernel on the card,
+    as _warm_fn). Returns (the command [B, 30], the next anchor, the force,
+    the QP warm state)."""
+    from mpc_limx_control_tpu_torch.control import controller as ctrl
+    from mpc_limx_control_tpu_torch.control import session as ses
+
+    p = packet
+    odom, joints, it = ses._odom(p), ses._joints(p), p[:, ses.IT][:, 0]
+    if z is None:
+        cmd, d = ctrl.tick(cfg, odom, joints, it, grf_override=p[:, ses.GRF],
+                           ref_anchor=p[:, ses.ANCHOR])
+    else:
+        cmd, d = ctrl.tick(cfg, odom, joints, it, qp_warm=(z, y),
+                           ref_anchor=p[:, ses.ANCHOR], solve_form=solve_form)
+    return ses._packed(cmd), d.ref_anchor, d.grf, d.qp_state
+
+
+def session_kernel_report(cfg, device, log: str, plain_form=None) -> dict:
+    """[session_kernel]: csrc/session_tick.cu against the plain tick
+    functions it replaces, and what each costs a replay on the card.
+
+    (a) one held and one solving tick of 257 session packets through the
+    kernels and through controller.tick (`plain_form` None: with the
+    walking_mpc_prep kernel, as the session's plain _warm_fn), the widest
+    gap of each output; (b) each tick kind's device time a graph replay,
+    CUDA events recorded inside the capture as the session records them,
+    the plain function's graph ("before") and the kernel's ("after"), B =
+    1, medians of 300 replays; (c) the ptxas resource lines of the batched
+    entry points (every source but session_tick.cu) from the build's
+    `log`."""
+    from mpc_limx_control_tpu_torch.control import session as ses
+    from mpc_limx_control_tpu_torch.ops import _build, graphs
+    from mpc_limx_control_tpu_torch.ops import tick_fused_cuda as tfc
+
+    out = {}
+    pk, (z, y) = session_packets(cfg, 257, seed=12, device=device)
+    B = pk.shape[0]
+    # (a) held force
+    cmd_p, anc_p, _, _ = session_tick_plain(cfg, pk)
+    pk_k = pk.clone()
+    cmd_k = torch.empty((B, ses.CMD), device=device)
+    tfc.walking_session_tick_hold(cfg, pk_k, cmd_k)
+    torch.cuda.synchronize()
+    out["hold_gap"] = {k: maxerr(cmd_k[:, sl], cmd_p[:, sl]) for k, sl in
+                       (("q", ses.Q), ("dq", ses.DQ), ("tau", ses.TAU),
+                        ("kp", slice(18, 24)), ("kd", slice(24, 30)))}
+    out["hold_gap"]["anchor"] = maxerr(pk_k[:, ses.ANCHOR], anc_p)
+    # (a) solve
+    cmd_p, anc_p, grf_p, (z_p, y_p) = session_tick_plain(
+        cfg, pk, z, y, solve_form=plain_form)
+    zk, yk = z.clone(), y.clone()
+    w = torch.empty((B, ses.W_GRF.stop), device=device)
+    tfc.walking_session_tick(cfg, pk[:, :ses.SOLVE_IN].contiguous(), zk, yk,
+                             w)
+    torch.cuda.synchronize()
+    out["solve_gap"] = {k: maxerr(w[:, sl], cmd_p[:, sl]) for k, sl in
+                        (("q", ses.Q), ("dq", ses.DQ), ("tau", ses.TAU),
+                         ("kp", slice(18, 24)), ("kd", slice(24, 30)))}
+    out["solve_gap"].update(anchor=maxerr(w[:, ses.W_ANCHOR], anc_p),
+                            grf=maxerr(w[:, ses.W_GRF], grf_p),
+                            z=maxerr(zk, z_p), y=maxerr(yk, y_p),
+                            z_scale=float(z_p.abs().max()))
+
+    # (b) the graphs' device time a replay, before and after
+    s = ses.ControlSession(cfg, state_port=19990, cmd_port=19991,
+                           device=device, cuda_graphs=False)
+    s.link.close()
+    s._packet.copy_(pk[:1])
+    s._solve_in.copy_(pk[:1, :ses.SOLVE_IN])
+    s._z.copy_(z[:1])
+    s._y.copy_(y[:1])
+    saved = [t.clone() for t in (s._packet, s._z, s._y)]
+
+    def replay_ms(fn, reps=300):
+        start, end = (torch.cuda.Event(enable_timing=True, external=True)
+                      for _ in range(2))
+
+        def call():
+            start.record()
+            fn()
+            end.record()
+
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        g = graphs.Graph(call, name="session_kernel", device=device)
+        ms = []
+        for _ in range(reps):
+            g.replay()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        for t, v in zip((s._packet, s._z, s._y), saved):
+            t.copy_(v)
+        return float(np.median(ms)), sum(g.launches.values()) or None
+
+    for kind, plain, kern in (("hold", s._hold_fn, s._hold_kernel),
+                              ("warm", s._warm_fn, s._warm_kernel)):
+        out[f"{kind}_graph_device_ms_before"], _ = replay_ms(plain)
+        out[f"{kind}_graph_device_ms_after"], n = replay_ms(kern)
+        out[f"{kind}_kernel_launches_a_replay"] = n
+    s.close()
+
+    # (c) the batched entry points' ptxas lines
+    res = _build.ptxas_resources(log)
+    batched = {f"{src}:{name}": v for (src, name), v in sorted(res.items())
+               if src != "session_tick.cu"}
+    out["ptxas_batched_entries"] = len(batched)
+    out["ptxas_batched_sha256"] = hashlib.sha256(
+        json.dumps(batched, sort_keys=True).encode()).hexdigest()[:16]
+    out["ptxas_session"] = {name: v for (src, name), v in res.items()
+                            if src == "session_tick.cu"}
+    Path("chiprun_out").mkdir(exist_ok=True)
+    Path("chiprun_out/ptxas_batched.json").write_text(
+        json.dumps(batched, indent=1, sort_keys=True))
+    return out
 
 
 def tick_both(cfg, s_k, s_p, its, held=None):
@@ -949,6 +1106,7 @@ def main() -> int:
                     for kf in STAND_INV_TICKS})
     kernels["fused_qp_nu6_inv"] = mfc.FUSED_QP_NU6_INV
     kernels["pdip_fused"] = qp_cuda.PDIP_FUSED
+    kernels.update({k.name: k for k in tfc.SESSION_KERNELS})
     for name, kern in kernels.items():
         check(kern.name == name, f"kernel {kern.name} listed as {name}")
 
@@ -1035,6 +1193,11 @@ def main() -> int:
     summary["fused_qp_nu6_inv"].update(source=QP_SRC, replaces=QP_TPU)
     summary["pdip_fused"].update(source=PDIP_SRC, replaces=PDIP_TPU,
                                  library="none")
+    # the live session's ticks: the counterpart of XLA's fusion of the JAX
+    # session's jax.jit closures (no Pallas kernel)
+    for k in tfc.SESSION_KERNELS:
+        summary[k.name].update(source=CSRC + "session_tick.cu",
+                               replaces=SESSION_JAX, library="none")
     # no single PyTorch call computes a whole tick or a condensed-QP ADMM
     # solve: only the four kernels of csrc/chol.cu get a library yardstick
     # (timed in phase 7)
@@ -2218,7 +2381,8 @@ def main() -> int:
                                   est_odom_every=5)
 
         path(f"session_graph_{label}", graphed,
-             {"walking_mpc_prep" if c.mode == "walk" else "fused_qp_nu6": 2})
+             {"walking_session_tick": 2, "walking_session_tick_hold": 8}
+             if c.mode == "walk" else {"fused_qp_nu6": 2})
         runs_g[False] = sessions[False].run(10, hz=1000.0, use_kf=kf_,
                                             est_odom_every=5)
         sent = {g: (sg.link.cmds, sg.link.est)
@@ -2238,6 +2402,35 @@ def main() -> int:
         check(same, f"session graphs differ from the eager functions "
                     f"({label})")
     q["session_graph_ok"] = True
+
+    # [session_kernel]: the walking session's solve and held-force ticks as
+    # one kernel each (csrc/session_tick.cu) against the plain tick
+    # functions (on the packets of 257 states; the card tests' bands),
+    # their graphs' device time a replay before and after, and the batched
+    # entry points' ptxas lines (chiprun_out/ptxas_batched.json)
+    sk = session_kernel_report(wcfg, dev, info["log"])
+    say("session_kernel", card=smi, **sk)
+    hg, sg_ = sk["hold_gap"], sk["solve_gap"]
+    check(hg["q"] <= 5e-4 and hg["tau"] <= 1e-3 and hg["anchor"] <= 1e-5
+          and sg_["q"] <= 5e-4 and sg_["tau"] <= 5e-2 and sg_["grf"] <= 5e-2
+          and sg_["anchor"] <= 1e-5
+          and max(hg["dq"], hg["kp"], hg["kd"], sg_["dq"], sg_["kp"],
+                  sg_["kd"]) == 0.0,
+          f"session kernels against the plain tick: {hg}, {sg_}")
+    check(sk["hold_kernel_launches_a_replay"] == 1
+          and sk["warm_kernel_launches_a_replay"] == 1,
+          "a session kernel graph launches more than its kernel")
+    # the summary's entries: the widest command gap against the plain
+    # function, its graph's device time a replay after (ms) and before
+    # (plain_ms); the bound model has no B = 1 session tick
+    for kern, kind, gap in ((tfc.WALKING_SESSION_TICK, "warm", sg_),
+                            (tfc.WALKING_SESSION_TICK_HOLD, "hold", hg)):
+        summary[kern.name].update(
+            max_abs_err=max(v for k, v in gap.items() if k != "z_scale"),
+            ms=sk[f"{kind}_graph_device_ms_after"],
+            plain_ms=sk[f"{kind}_graph_device_ms_before"], bound_ms=None,
+            bound_by="not modelled")
+    q["session_kernel_ok"] = True
 
     # [session]: loopback UDP sessions on the card against the WirePlant
     # on the CPU (a thread), with the JAX tests' iteration counts and
@@ -2259,14 +2452,20 @@ def main() -> int:
                     x[6:9] = plant.foot_l[0]
                     x[9:12] = plant.foot_r[0]
                     sg.kf = sg.kf.replace(x_hat=x)
-                kern = ("walking_mpc_prep" if c.mode == "walk"
+                kern = ("walking_session_tick" if c.mode == "walk"
                         else "fused_qp_nu6")
                 out = {}
 
                 def drive():
                     out["stats"] = sg.run(iterations=iters, hz=1000.0, **kw)
 
-                path(f"session_{label}", drive, {kern: iters // 5})
+                want = {kern: iters // 5}
+                if c.mode == "walk":
+                    # the held-force kernel on every tick that holds
+                    want["walking_session_tick_hold"] = (
+                        iters if kw.get("async_dispatch")
+                        else iters - iters // 5)
+                path(f"session_{label}", drive, want)
                 st = out["stats"]
                 est_err = (float(np.linalg.norm(
                     sg.kf.x_hat[0:3].cpu().numpy()
@@ -2619,8 +2818,8 @@ def main() -> int:
               "n22_stand_ok", "n22_stand_admm_ok",
               "n30_stand_ok", "inv_stand_ok", "inv_kf_stand_ok",
               "inv_stand_ctrl_tick_ok", "resident_ok", "session_graph_ok",
-              "session_walk_ok", "session_kf_ok", "session_async_ok",
-              "session_stand_ok", "v_des_schedule_ok", "mesh_ok",
+              "session_kernel_ok", "session_walk_ok", "session_kf_ok",
+              "session_async_ok", "session_stand_ok", "v_des_schedule_ok", "mesh_ok",
               "distributed_ok", "entry_ok", "examples_ok", "band_kron_ok",
               "corpus_ok", "rnea_oracle_ok"):
         check(q[k], f"quality gate {k} failed: {q}")
@@ -3000,6 +3199,8 @@ def main() -> int:
     model = roofline.kernel_bounds(4096)
     printed = {}
     for k in kernels:
+        if summary[k]["bound_ms"] is None:
+            continue            # the session's B = 1 ticks: not modelled
         if k in chol_cuda.KERNELS or k == "pdip_fused":
             printed[f"{k}_n60"] = summary[k]["bound_ms"]
             printed[f"{k}_n120"] = summary[k]["bound_ms_n120"]

@@ -31,6 +31,15 @@ graph replays, and one device-to-host copy of the packed 30-float command
 same kernels, launched one by one), and CPU tensors (``device="cpu"``)
 always run them eagerly.
 
+On the card a walking session whose config the tick kernels implement
+(``tick_fused_cuda.runs_session_kernel``) runs its solve and held-force
+ticks as one kernel launch each (``walking_session_tick`` /
+``walking_session_tick_hold``, csrc/session_tick.cu) instead of the plain
+``controller.tick``: the counterpart of XLA's fusion of the JAX session's
+closures. Its graphs are then the kernel between their two timing events.
+Standing sessions, CPU sessions and the configs the tick kernels refuse
+keep the plain functions.
+
 Every tick of ``run`` is logged in the session's ``tick_log``
 (``utils/profiling.TickLog``): the stamps of its phases, its kind, and the
 device time of each graph it replayed, timed by two events recorded
@@ -54,6 +63,7 @@ from mpc_limx_control_tpu_torch.core.types import (ImuData, JointState,
 from mpc_limx_control_tpu_torch.control import controller as ctrl
 from mpc_limx_control_tpu_torch.control import estimator as est
 from mpc_limx_control_tpu_torch.control import gait as gaitmod
+from mpc_limx_control_tpu_torch.ops import tick_fused_cuda as tfc
 from mpc_limx_control_tpu_torch.utils import profiling as prof
 from mpc_limx_control_tpu_torch.utils import rotations as rotu
 
@@ -240,9 +250,16 @@ class ControlSession:
         self._pub_h = torch.zeros((1, EST_PUB), dtype=f32, pin_memory=pin)
         self._sens_np = self._sens_h.numpy()[0]
         self._last_odom = None      # host copy of the last truth odometry
+        # the solve and held-force ticks: one kernel launch each where the
+        # tick kernels implement the walking config on the card
+        self._kernel = tfc.runs_session_kernel(c, self.device)
         fns = {"est": self._est_fn}
-        fns.update({"warm": self._warm_fn, "hold": self._hold_fn}
-                   if self._warm else {"cold": self._cold_fn})
+        if self._kernel:
+            fns.update({"warm": self._warm_kernel, "hold": self._hold_kernel})
+        elif self._warm:
+            fns.update({"warm": self._warm_fn, "hold": self._hold_fn})
+        else:
+            fns["cold"] = self._cold_fn
         self._fns = fns
         self._graphs = None
         self._timers = {}           # graph name -> (start, end) events
@@ -343,6 +360,19 @@ class ControlSession:
         self._hold_out.copy_(_packed(cmd))
         if self._has_anchor:
             p[:, ANCHOR].copy_(diag.ref_anchor)
+
+    def _warm_kernel(self):
+        """_warm_fn as one ``walking_session_tick`` launch."""
+        tfc.walking_session_tick(self.cfg, self._solve_in, self._z, self._y,
+                                 self._warm_out)
+
+    def _hold_kernel(self):
+        """_hold_fn as one ``walking_session_tick_hold`` launch."""
+        tfc.walking_session_tick_hold(self.cfg, self._packet,
+                                      self._hold_out)
+
+    def _kernel_launches(self) -> int:
+        return sum(k.launches for k in tfc.SESSION_KERNELS)
 
     def _cold_fn(self):
         """Tick without warm start (a cold solve every tick)."""
@@ -572,7 +602,10 @@ class ControlSession:
         replay; the warm graph is not timed under async dispatch, whose
         solves the host does not wait for); counters `sent`, `stale`,
         `missed_deadlines`, `est_odom_published`, `mpc_solves`,
-        `mpc_holds`.
+        `mpc_holds`, `kernel_ticks` (ticks that launched a session tick
+        kernel, ``walking_session_tick*``: every tick of a walking session
+        on the card whose config the tick kernels implement, 0 on the
+        plain path).
 
         `async_dispatch`: every tick runs the held-force tick with the
         force of the newest completed solve, while the solves run on a
@@ -586,7 +619,8 @@ class ControlSession:
         warm = self._warm
         stats = {"sent": 0, "stale": 0, "missed_deadlines": 0,
                  "est_odom_published": 0, "mpc_solves": 0, "mpc_holds": 0,
-                 "solves_dispatched": 0, "solves_adopted": 0}
+                 "solves_dispatched": 0, "solves_adopted": 0,
+                 "kernel_ticks": 0}
         staleness: list = []
         pending: list = []      # async: (tick, slot, event), not adopted
         held_it = None          # tick the adopted force was solved at
@@ -596,6 +630,7 @@ class ControlSession:
         if self._cuda:
             torch.cuda.current_stream(self.device).wait_stream(self._side)
         log = self.tick_log
+        seen = self._kernel_launches()
         it = 0
         with rt.Rate(hz) as rate, log.running():
             while it < iterations:
@@ -716,6 +751,10 @@ class ControlSession:
                     # the device times of the graphs the tick waited for,
                     # read once the command is out
                     self._time_graphs(kind, use_kf)
+                if self._kernel:
+                    # a tick whose calls launched a session tick kernel
+                    before, seen = seen, self._kernel_launches()
+                    stats["kernel_ticks"] += int(seen != before)
                 stats["mpc_solves" if solve_now else "mpc_holds"] += 1
                 stats["sent"] += 1
                 it += 1

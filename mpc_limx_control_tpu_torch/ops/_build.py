@@ -21,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -51,7 +52,8 @@ HOLD_ENTRIES = ("walking_tick_hold", "walking_tick_kf_hold",
                 "standing_tick_hold", "standing_tick_kf_hold")
 HOLD_SIZERS = tuple(f"{e}_blocks_per_sm" for e in HOLD_ENTRIES)
 PARAMS_SIZERS = ("walking_mpc_params_bytes", "walking_tick_params_bytes",
-                 "chol_params_bytes", "pdip_params_bytes")
+                 "chol_params_bytes", "pdip_params_bytes",
+                 "walking_session_params_bytes")
 # those that take two sizes: the matrix order n and the number of
 # right-hand sides k (csrc/chol.cu), or n and the inequality rows m
 # (csrc/pdip_fused.cu)
@@ -158,6 +160,33 @@ def build_library(defines: tuple = ()) -> dict:
         getattr(lib, name).restype = ctypes.c_int
     return {"lib": lib, "path": str(out), "seconds": seconds,
             "built": built, "log": log}
+
+
+def ptxas_resources(log: str) -> dict:
+    """The resource use ptxas reports for each kernel of a build's log
+    (:func:`build_library`'s ``log``, compiled with ``-Xptxas -v``):
+    {(source, mangled kernel name): "Used ... registers, ... smem ...;
+    ... spill stores, ... spill loads"}. The tag nvcc gives an unnamed
+    namespace differs from build to build and is left out of the name
+    (``_GLOBAL__N__<hex>_`` -> ``_GLOBAL__N__``)."""
+    out, source, entry = {}, None, None
+    spills = {}
+    for line in log.splitlines():
+        line = line.strip()
+        if line.startswith("--- "):
+            source = line[4:]
+        elif "Compiling entry function" in line or \
+                "Function properties for" in line:
+            entry = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__",
+                           line.split("'")[1] if "'" in line
+                           else line.split()[-1])
+        elif "bytes spill stores" in line and entry is not None:
+            spills[(source, entry)] = line
+        elif line.startswith("ptxas info") and "Used" in line \
+                and entry is not None:
+            key = (source, entry)
+            out[key] = line.split(":", 1)[1].strip()
+    return {k: f"{v}; {spills.get(k, '')}" for k, v in out.items()}
 
 
 # every Kernel made, so that a CUDA graph can keep their counters true

@@ -31,6 +31,12 @@ n = nu N <= 64; the substitution sweeps beyond, as the TPU kernel does,
 mpc_fused_pallas.py:249); hold ticks run no solve.
 
 :func:`supports_fused_tick` accepts only what these kernels run.
+
+The live session's walking ticks at batch 1 have two entry points of their
+own (``csrc/session_tick.cu``): ``walking_session_tick`` (the warm solve
+tick) and ``walking_session_tick_hold`` (the held-force tick), which read
+the session's packet and write its command, with no plant step;
+:func:`runs_session_kernel` says which sessions take them.
 """
 
 from __future__ import annotations
@@ -162,6 +168,93 @@ def tick_params(cfg) -> TickParams:
         else:
             setattr(p, k, v)
     return p
+
+
+class SessionParams(ctypes.Structure):
+    """Mirror of ``mpc::SessionParams`` in csrc/session_tick.cu."""
+
+    _fields_ = [("tick", TickParams), ("vdes", ctypes.c_float * 3),
+                ("wdes", ctypes.c_float), ("kp", ctypes.c_float),
+                ("kd", ctypes.c_float), ("anchor", ctypes.c_int),
+                ("inv", ctypes.c_int)]
+
+
+# The live session's walking tick at batch 1 (csrc/session_tick.cu): the
+# warm solve tick (the packet's first 50 floats, z and y in place, out
+# [command, next anchor, force]) and the held-force tick (the packet, the
+# next anchor written into it, out the command)
+_SESSION_SIZER = "walking_session_params_bytes"
+WALKING_SESSION_TICK = _build.Kernel("walking_session_tick", n_ptr=4,
+                                     params_sizer=_SESSION_SIZER)
+WALKING_SESSION_TICK_HOLD = _build.Kernel("walking_session_tick_hold",
+                                          n_ptr=2,
+                                          params_sizer=_SESSION_SIZER)
+SESSION_KERNELS = (WALKING_SESSION_TICK, WALKING_SESSION_TICK_HOLD)
+# the packet's row and the outputs' (control/session.py's layout, which
+# csrc/session_tick.cu reads)
+SESSION_PACKET, SESSION_SOLVE_IN = 56, 50
+SESSION_CMD, SESSION_WARM_OUT = 30, 39
+
+
+@functools.lru_cache(maxsize=16)
+def session_params(cfg) -> SessionParams:
+    """Constants of the session kernels for a (frozen, hashable) walking
+    config: the tick's, the commanded velocity and yaw rate, the gains,
+    whether the held tick writes the next anchor back (an anchor band) and
+    the solve form. Cached; callers must not mutate it."""
+    p = SessionParams()
+    p.tick = tick_params(cfg)
+    p.vdes[:] = [float(v) for v in cfg.desired_velocity]
+    p.wdes = float(cfg.desired_yaw_rate)
+    p.kp, p.kd = float(cfg.kp), float(cfg.kd)
+    p.anchor = int(cfg.ref_anchor_band > 0.0)
+    p.inv = int(cfg.srbd.solver.solve_form == "inv")
+    return p
+
+
+def runs_session_kernel(cfg, device) -> bool:
+    """True when a ``ControlSession`` on `device` runs its solve and
+    held-force ticks as the ``walking_session_tick`` kernels: a CUDA
+    device and a walking config that the tick kernels implement
+    (:func:`supports_fused_tick`). Standing sessions, CPU sessions and
+    configs the tick kernels refuse keep the plain tick functions."""
+    return (torch.device(device).type == "cuda" and cfg.mode == "walk"
+            and supports_fused_tick(cfg))
+
+
+def _session_checks(cfg, tensors, device) -> int:
+    if not runs_session_kernel(cfg, device):
+        raise ValueError("the session kernels run walking configs that the "
+                         "tick kernels implement, on CUDA tensors")
+    B = tensors[0][1].shape[0]
+    for name, t, width in tensors:
+        _build.check_tensor(name, t, (B, width), device)
+    return B
+
+
+def walking_session_tick(cfg, solve_in, z, y, out) -> None:
+    """The session's warm solve tick: solve_in [B, 50] (the packet's
+    sensors and anchor), z [B, 3N] and y [B, 6N] updated in place, out
+    [B, 39] = [command (30), next anchor (3), force (L, R)]; one launch."""
+    n = 3 * int(cfg.srbd.horizon)
+    B = _session_checks(cfg, (("solve_in", solve_in, SESSION_SOLVE_IN),
+                              ("z", z, n), ("y", y, 2 * n),
+                              ("out", out, SESSION_WARM_OUT)),
+                        solve_in.device)
+    WALKING_SESSION_TICK.launch(session_params(cfg),
+                                [t.data_ptr() for t in (solve_in, z, y, out)],
+                                B, solve_in.device)
+
+
+def walking_session_tick_hold(cfg, packet, out) -> None:
+    """The session's held-force tick: packet [B, 56] (its anchor slice
+    advanced in place when the config tracks an anchor), out [B, 30] the
+    command; one launch."""
+    B = _session_checks(cfg, (("packet", packet, SESSION_PACKET),
+                              ("out", out, SESSION_CMD)), packet.device)
+    WALKING_SESSION_TICK_HOLD.launch(session_params(cfg),
+                                     [packet.data_ptr(), out.data_ptr()], B,
+                                     packet.device)
 
 
 def supports_fused_tick(cfg) -> bool:

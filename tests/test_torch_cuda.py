@@ -1453,14 +1453,17 @@ def test_session_capture_counts_replays_not_the_capture(cuda_device):
     from mpc_limx_control_tpu_torch.ops import _build
 
     cfg = ControllerConfig.walking()
-    kern = mfc.WALKING_MPC_PREP
-    before = kern.launches
+    solve, hold = tfc.WALKING_SESSION_TICK, tfc.WALKING_SESSION_TICK_HOLD
+    before = (solve.launches, hold.launches, mfc.WALKING_MPC_PREP.launches)
     s, stats = _scripted_session(cfg, True, 19940, 10, False)
     s.close()
-    # two eager warm-up launches when the session was made, then one a
-    # solve tick (0 and 5)
-    assert kern.launches - before == 2 + 2
-    assert stats["mpc_solves"] == 2
+    # two eager warm-up launches of each tick kernel when the session was
+    # made, then one a solve tick (0 and 5) and one a held tick; the plain
+    # tick's MPC kernel is off the walking session's path
+    assert solve.launches - before[0] == 2 + 2
+    assert hold.launches - before[1] == 2 + 8
+    assert mfc.WALKING_MPC_PREP.launches == before[2]
+    assert stats["mpc_solves"] == 2 and stats["kernel_ticks"] == 10
     assert all(k.launches >= 0 for k in _build.KERNELS)
 
 
@@ -1499,7 +1502,9 @@ def test_graph_capture_survives_dead_graphs_in_cycles(cuda_device):
 def test_loopback_session_walks_on_the_card(cuda_device):
     """A 200-tick walking session on the card over the UDP loopback,
     truth odometry, against the torch WirePlant on the CPU: every tick
-    sent, one walking_mpc_prep launch a solve, upright at the height."""
+    sent, one walking_session_tick launch a solve and one
+    walking_session_tick_hold launch a held tick, upright at the
+    height."""
     from mpc_limx_control_tpu_torch.control import session as ses
     from test_torch_session_walking import WirePlant
 
@@ -1508,10 +1513,13 @@ def test_loopback_session_walks_on_the_card(cuda_device):
     try:
         with ses.ControlSession(cfg, state_port=19944, cmd_port=19945,
                                 device="cuda") as s:
-            mfc.WALKING_MPC_PREP.reset()
+            for k in tfc.SESSION_KERNELS:
+                k.reset()
             stats = s.run(200, hz=1000.0)
         assert stats["sent"] == 200 and stats["mpc_solves"] == 40
-        assert mfc.WALKING_MPC_PREP.launches == 40
+        assert tfc.WALKING_SESSION_TICK.launches == 40
+        assert tfc.WALKING_SESSION_TICK_HOLD.launches == 160
+        assert stats["kernel_ticks"] == 200
         xi = plant.xi[0].numpy()
         assert 0.6 < xi[5] < 0.7 and abs(xi[0]) < 0.1 and abs(xi[1]) < 0.1
         assert stats["tick_latency_p50"] > 0.0
@@ -1672,3 +1680,125 @@ def test_corpus_on_the_card_within_the_oracle_bands(cuda_device, mode):
     check = smoke.pdip_check(k9_args, 20, smoke.pdip_floor(k9_args, 20,
                                                            orders=8))
     assert check["ok"], check
+
+
+# ---- the live session's tick kernels (csrc/session_tick.cu) -------------
+def _cmd_fields():
+    from mpc_limx_control_tpu_torch.control import session as ses
+
+    return (("q", ses.Q), ("dq", ses.DQ), ("tau", ses.TAU),
+            ("kp", slice(18, 24)), ("kd", slice(24, 30)))
+
+
+@pytest.mark.parametrize("phases", ["staggered", "phase_switch"])
+@pytest.mark.parametrize("form", ["hold", "solve"])
+def test_session_kernels_match_plain_tick(cuda_device, form, phases):
+    """walking_session_tick_hold / walking_session_tick against the plain
+    controller.tick (exact-solve ADMM) on the same 257 session packets:
+    left- and right-swing phases, every fourth anchor outside its band;
+    "phase_switch" moves every packet to within two ticks of a swing /
+    stance switch. The bands of test_tick_variant_matches_plain; the
+    torque within the force's band (the Jacobian's entries are under 1 m)
+    where the force is solved, within 1e-3 where it is held."""
+    from mpc_limx_control_tpu_torch.control import session as ses
+
+    smoke = _smoke()
+    cfg = ControllerConfig.walking()
+    pk, (z, y) = smoke.session_packets(cfg, 257, 30, cuda_device)
+    if phases == "phase_switch":
+        it = pk[:, ses.IT]
+        pk[:, ses.IT] = torch.where(it % 600 < 300, 298.0, 598.0) \
+            + it % 4.0
+    B = pk.shape[0]
+    if form == "hold":
+        kern = tfc.WALKING_SESSION_TICK_HOLD
+        cmd_p, anc_p, _, _ = smoke.session_tick_plain(cfg, pk)
+        pk_k = pk.clone()
+        out = torch.empty((B, ses.CMD), device=cuda_device)
+        before = kern.launches
+        tfc.walking_session_tick_hold(cfg, pk_k, out)
+        assert kern.launches == before + 1
+        anc_k, tau_band = pk_k[:, ses.ANCHOR], 1e-3
+        # only the anchor of the packet is written
+        head = slice(0, ses.ANCHOR.start)
+        assert torch.equal(pk_k[:, head], pk[:, head])
+        assert torch.equal(pk_k[:, ses.GRF], pk[:, ses.GRF])
+    else:
+        kern = tfc.WALKING_SESSION_TICK
+        cmd_p, anc_p, grf_p, (z_p, y_p) = smoke.session_tick_plain(
+            cfg, pk, z, y, solve_form="subst")
+        zk, yk = z.clone(), y.clone()
+        out = torch.empty((B, ses.W_GRF.stop), device=cuda_device)
+        before = kern.launches
+        tfc.walking_session_tick(cfg, pk[:, :ses.SOLVE_IN].contiguous(),
+                                 zk, yk, out)
+        assert kern.launches == before + 1
+        anc_k, tau_band = out[:, ses.W_ANCHOR], 5e-2
+        torch.testing.assert_close(out[:, ses.W_GRF], grf_p, atol=5e-2,
+                                   rtol=0)
+        torch.testing.assert_close(zk[:, :9], z_p[:, :9], atol=5e-2, rtol=0)
+    bands = {"q": 5e-4, "dq": 0.0, "tau": tau_band, "kp": 0.0, "kd": 0.0}
+    for k, sl in _cmd_fields():
+        torch.testing.assert_close(out[:, sl], cmd_p[:, sl], atol=bands[k],
+                                   rtol=0, msg=k)
+    torch.testing.assert_close(anc_k, anc_p, atol=1e-5, rtol=0)
+
+
+def test_session_kernel_chains_25_warm_solves(cuda_device):
+    """25 warm solves of 257 session packets, the QP state threaded through
+    the kernel (in place) and through the plain tick, the iteration
+    advancing by mpc_step between solves as in the session: the commands,
+    the force and the warm start within the five-tick chain's bands of
+    test_tick_variant_matches_plain; 25 launches."""
+    from mpc_limx_control_tpu_torch.control import session as ses
+
+    smoke = _smoke()
+    cfg = ControllerConfig.walking()
+    pk, (z, y) = smoke.session_packets(cfg, 257, 31, cuda_device)
+    B = pk.shape[0]
+    zk, yk, zp, yp = z.clone(), y.clone(), z, y
+    out = torch.empty((B, ses.W_GRF.stop), device=cuda_device)
+    kern = tfc.WALKING_SESSION_TICK
+    before = kern.launches
+    for j in range(25):
+        p = pk.clone()
+        p[:, ses.IT] += float(cfg.gait.mpc_step * j)
+        tfc.walking_session_tick(cfg, p[:, :ses.SOLVE_IN].contiguous(), zk,
+                                 yk, out)
+        cmd_p, _, grf_p, (zp, yp) = smoke.session_tick_plain(
+            cfg, p, zp, yp, solve_form="subst")
+    assert kern.launches == before + 25
+    torch.testing.assert_close(out[:, ses.Q], cmd_p[:, ses.Q], atol=1e-3,
+                               rtol=0)
+    torch.testing.assert_close(out[:, ses.W_GRF], grf_p, atol=2e-1, rtol=0)
+    torch.testing.assert_close(out[:, ses.TAU], cmd_p[:, ses.TAU], atol=2e-1,
+                               rtol=0)
+    torch.testing.assert_close(zk[:, :9], zp[:, :9], atol=2e-1, rtol=0)
+
+
+def test_session_graphs_replay_one_kernel(cuda_device):
+    """A walking session's hold and warm graphs each launch one kernel a
+    replay, the session kernel (its launch map, and torch.profiler's
+    device kernels of one replay); run() counts every tick a kernel
+    tick."""
+    from torch.autograd import DeviceType
+
+    cfg = ControllerConfig.walking()
+    s, stats = _scripted_session(cfg, True, 19946, 10, False)
+    assert stats["kernel_ticks"] == 10
+    want = {"hold": tfc.WALKING_SESSION_TICK_HOLD,
+            "warm": tfc.WALKING_SESSION_TICK}
+    try:
+        for name, kern in want.items():
+            g = s._graphs[name]
+            assert g.launches == {kern: 1}
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+                g.replay()
+                torch.cuda.synchronize()
+            names = [e.name for e in p.events()
+                     if e.device_type == DeviceType.CUDA]
+            assert len(names) == 1 and "walking_session_kernel" in names[0], \
+                names
+    finally:
+        s.close()

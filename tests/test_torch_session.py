@@ -345,3 +345,148 @@ def test_session_initial_state_matches_jax(robot_ports):
     with pytest.raises(ValueError, match="warm"):
         with _session(sp, cp, TCfg()) as ts:
             ts.run(1, async_dispatch=True)
+
+
+def _variant(name):
+    """The walking tuning changed in one respect (or standing)."""
+    from mpc_limx_control_tpu_torch.core.config import SolverConfig
+
+    cfg = TCfg.walking()
+    srbd, solver = cfg.srbd, cfg.srbd.solver
+    changes = {
+        "walk": {},
+        "walk_kf": {"estimator_mode": "kf"},
+        "walk_inv": {"srbd": dataclasses.replace(srbd, solver=dataclasses
+                                                 .replace(solver,
+                                                          solve_form="inv"))},
+        "walk_reference_placement": {"placement_mode": "reference"},
+        "stand": None,
+        "pdip": {"srbd": dataclasses.replace(srbd, solver=SolverConfig(
+            method="pdip"))},
+        "riccati": {"srbd": dataclasses.replace(srbd, solver=dataclasses
+                                                .replace(solver,
+                                                         method="riccati"))},
+        "cold": {"qp_warm_start": False},
+        "damped_ls": {"ik_method": "damped_ls"},
+        "log6": {"ik_method": "log6"},
+        "receding": {"srbd": dataclasses.replace(srbd,
+                                                 attitude_ref="receding")},
+        "horizon_86": {"srbd": dataclasses.replace(srbd, horizon=86)},
+    }[name]
+    return TCfg.standing() if changes is None else \
+        dataclasses.replace(cfg, **changes)
+
+
+KERNEL_SESSIONS = ("walk", "walk_kf", "walk_inv", "walk_reference_placement")
+
+
+@pytest.mark.parametrize("name", KERNEL_SESSIONS + (
+    "stand", "pdip", "riccati", "cold", "damped_ls", "log6", "receding",
+    "horizon_86"))
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_session_kernel_gate(name, device):
+    """Which sessions run their solve and held-force ticks as the
+    walking_session_tick kernels, decided from the config and the device
+    alone (no card needed): walking admm_fused with the analytic IK and a
+    level reference on a CUDA device; standing, PDIP, Riccati, cold
+    starts, the iterative IKs, the receding reference, a horizon past the
+    tick kernels' and every CPU session keep the plain functions."""
+    from mpc_limx_control_tpu_torch.ops import tick_fused_cuda as tfc
+
+    cfg = _variant(name)
+    want = device == "cuda" and name in KERNEL_SESSIONS
+    assert tfc.runs_session_kernel(cfg, torch.device(device)) is want
+    assert tfc.runs_session_kernel(cfg, device) is want
+    if want:
+        p = tfc.session_params(cfg)
+        assert p.tick.mpc.N == cfg.srbd.horizon
+        assert (p.kp, p.kd) == (cfg.kp, cfg.kd)
+        assert list(p.vdes) == list(cfg.desired_velocity)
+        assert p.anchor == int(cfg.ref_anchor_band > 0.0)
+        assert p.inv == int(name == "walk_inv")
+
+
+def test_cpu_session_reports_no_kernel_ticks():
+    """A CPU session keeps the plain tick functions, and run() counts no
+    tick of the session kernels."""
+    cfg = TCfg.walking()
+    with ses.ControlSession(cfg, state_port=19580, cmd_port=19581,
+                            device="cpu") as s:
+        assert not s._kernel
+        assert s._fns["warm"] == s._warm_fn and s._fns["hold"] == s._hold_fn
+        link, stats = _run_scripted(s, scripted_sensors(cfg, 7, seed=2),
+                                    False)
+    assert stats["sent"] == 7 and stats["kernel_ticks"] == 0
+
+
+def test_session_kernel_reads_the_session_packet_layout():
+    """csrc/session_tick.cu reads the session's packet and writes its
+    outputs at the offsets control/session.py lays them out at."""
+    import re
+    from pathlib import Path
+
+    from mpc_limx_control_tpu_torch.ops import tick_fused_cuda as tfc
+
+    src = (Path(tfc.__file__).parent / "csrc" / "session_tick.cu").read_text()
+    const = {k: int(v) for k, v in
+             re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert {k: const[k] for k in ("PK_Q", "PK_POS", "PK_ORI", "PK_QUAT",
+                                  "PK_VPOS", "PK_VORI", "PK_IT",
+                                  "PK_ANCHOR", "PK_GRF")} == {
+        "PK_Q": ses.Q.start, "PK_POS": ses.POS.start,
+        "PK_ORI": ses.ORI.start, "PK_QUAT": ses.OQUAT.start,
+        "PK_VPOS": ses.VPOS.start, "PK_VORI": ses.VORI.start,
+        "PK_IT": ses.IT.start, "PK_ANCHOR": ses.ANCHOR.start,
+        "PK_GRF": ses.GRF.start}
+    assert (const["PK_SOLVE_IN"], const["PK_PACKET"], const["OUT_CMD"],
+            const["OUT_ANCHOR"], const["OUT_GRF"], const["OUT_WARM"]) == (
+        ses.SOLVE_IN, ses.PACKET, ses.CMD, ses.W_ANCHOR.start,
+        ses.W_GRF.start, ses.W_GRF.stop)
+    assert (tfc.SESSION_PACKET, tfc.SESSION_SOLVE_IN, tfc.SESSION_CMD,
+            tfc.SESSION_WARM_OUT) == (ses.PACKET, ses.SOLVE_IN, ses.CMD,
+                                      ses.W_GRF.stop)
+
+
+def test_ptxas_resources_reads_each_kernels_line():
+    """_build.ptxas_resources keys each kernel's resource line by its source
+    and name (the card's session-kernel check compares the batched entry
+    points' lines with the parent's build through it)."""
+    from mpc_limx_control_tpu_torch.ops import _build
+
+    log = """--- walking_tick.cu
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__455d510a_3fooPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN48_GLOBAL__N__455d510a_3fooPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers, 408 bytes cmem[0]
+--- session_tick.cu
+ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'
+ptxas info    : Function properties for _Z3barv
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, 384 bytes cmem[0]
+"""
+    res = _build.ptxas_resources(log)
+    assert res == {
+        ("walking_tick.cu", "_ZN48_GLOBAL__N__3fooPf"):
+            "Used 80 registers, used 1 barriers, 408 bytes cmem[0]; "
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        ("session_tick.cu", "_Z3barv"):
+            "Used 40 registers, 384 bytes cmem[0]; "
+            "8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads"}
+
+
+@pytest.mark.parametrize("case", ["cpu_tensors", "stand"])
+def test_session_kernel_wrappers_refuse_what_they_do_not_run(case):
+    """The session kernels' wrappers raise, before any launch, for CPU
+    tensors and for a config the session keeps on the plain functions."""
+    from mpc_limx_control_tpu_torch.ops import tick_fused_cuda as tfc
+
+    cfg = TCfg.walking() if case == "cpu_tensors" else TCfg.standing()
+    n = 3 * cfg.srbd.horizon
+    with pytest.raises(ValueError, match="session kernels"):
+        tfc.walking_session_tick(cfg, torch.zeros(1, ses.SOLVE_IN),
+                                 torch.zeros(1, n), torch.zeros(1, 2 * n),
+                                 torch.zeros(1, ses.W_GRF.stop))
+    with pytest.raises(ValueError, match="session kernels"):
+        tfc.walking_session_tick_hold(cfg, torch.zeros(1, ses.PACKET),
+                                      torch.zeros(1, ses.CMD))

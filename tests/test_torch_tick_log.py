@@ -226,9 +226,14 @@ def cuda_device():
 @pytest.mark.cuda
 def test_graph_device_time_on_the_card(cuda_device):
     """Each graph a tick replays is timed by the events inside its
-    capture: more than 0 and at most the tick's latency; the hold graph's
-    median agrees within 20 % with its kernels' span (first start to last
-    end) in a profiler trace of other held ticks."""
+    capture: more than 0 and at most the tick's latency. The hold graph is
+    one kernel (walking_session_tick_hold) between its two events: the
+    events' median lies between that kernel's median duration in a
+    profiler trace of other held ticks and that duration plus 0.01 ms,
+    the launch latencies of the event nodes around it (a 20 % band, which
+    a graph of ~340 kernels met, is narrower than those latencies). The
+    events read 4x the kernels inside a traced graph under CUPTI, which
+    this check would refuse."""
     cfg = ControllerConfig.walking()
     with _scripted(cfg, 240, device=cuda_device) as s:
         st = s.run(200, hz=1000.0)
@@ -237,8 +242,6 @@ def test_graph_device_time_on_the_card(cuda_device):
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as p:
             s.run(40, hz=1000.0)
-        traced = s.tick_log.view(first_run=1)
-        off = s.tick_log.epoch_offset_ns
     lat_ms = untraced.latency_ns() * 1e-6
     ms = untraced.graph_ms[:, 0]
     assert (ms > 0).all() and (ms <= lat_ms).all()
@@ -248,22 +251,11 @@ def test_graph_device_time_on_the_card(cuda_device):
     assert st["hold_graph_device_p50_ms"] == pytest.approx(
         float(np.sort(untraced.device_ms("hold"))[len(
             untraced.device_ms("hold")) // 2]))
-    dev = sorted((e.start_ns() - off, e.start_ns() - off + e.duration_ns())
-                 for e in p.profiler.kineto_results.events()
-                 if str(e.device_type()).endswith("CUDA")
-                 and not e.name().startswith(("Memcpy", "Memset",
-                                              "session.")))
-    starts = np.asarray([a for a, _ in dev])
-    spans = []
-    for row, kind in zip(traced.stamps, traced.kind):
-        if kind != prof.HOLD:
-            continue
-        lo, hi = np.searchsorted(starts, [row[prof.LAUNCH],
-                                          row[prof.WIRE_OUT]])
-        if hi > lo:
-            spans.append(1e-6 * (max(e for _, e in dev[lo:hi])
-                                 - dev[lo][0]))
-    assert len(spans) >= 20
+    spans = [1e-6 * e.duration_ns()
+             for e in p.profiler.kineto_results.events()
+             if str(e.device_type()).endswith("CUDA")
+             and "walking_session_kernel<false" in e.name()]
+    assert len(spans) == 32                  # the traced run's held ticks
     event_ms = float(np.median(untraced.device_ms("hold")))
-    assert abs(float(np.median(spans)) - event_ms) <= 0.2 * event_ms, \
-        (np.median(spans), event_ms)
+    span_ms = float(np.median(spans))
+    assert span_ms <= event_ms <= span_ms + 0.01, (span_ms, event_ms)
