@@ -506,6 +506,11 @@ def batched_rollout_resident(cfg: ControllerConfig, state0: PlantState,
     widths = [_METRIC_WIDTH[k][0] if _METRIC_WIDTH[k] else 1 for k in keys]
     packed = torch.empty((B, steps, sum(widths)), dtype=dtype,
                          device=device)
+    # a tick's metric row and its parts, written in place: the captured
+    # ticks allocate nothing, so a graph's private pool stays empty
+    row_buf = torch.empty((B, sum(widths)), dtype=dtype, device=device)
+    est_err = torch.zeros((B,), dtype=dtype, device=device)
+    est_diff = torch.empty((B, 3), dtype=dtype, device=device)
     cuda = device.type == "cuda"
 
     def inputs(src):
@@ -539,14 +544,13 @@ def batched_rollout_resident(cfg: ControllerConfig, state0: PlantState,
                 d.copy_(o)
         xi, (res, grf, tgt) = dst[0], dst[n_state:]
         if est_kf:
-            est_err = torch.linalg.vector_norm(
-                dst[7][:, 0:3] - src[0][:, 3:6], dim=-1)
+            torch.sub(dst[7][:, 0:3], src[0][:, 3:6], out=est_diff)
+            torch.linalg.vector_norm(est_diff, dim=-1, out=est_err)
             cov = torch.diagonal(dst[8], dim1=-2, dim2=-1)
-        else:
-            est_err = torch.zeros_like(res)
         row = [est_err[:, None], xi[:, 5:6], xi[:, 9:12], grf, res[:, None],
                tgt] + ([cov[:, 0:3], cov[:, 3:6]] if est_kf else [])
-        packed.index_copy_(1, t_idx, torch.cat(row, -1)[:, None])
+        torch.cat(row, -1, out=row_buf)
+        packed.index_copy_(1, t_idx, row_buf[:, None])
         if est_kf:
             # the filter's input was the pre-step truth (plant_step)
             dst[9].copy_(src[0][:, 9:12])

@@ -14,15 +14,29 @@ A capture that fails raises; nothing falls back to eager launches. The
 cyclic garbage collector is off while capturing: a collection then could
 free another graph (a session is a reference cycle), and destroying a
 graph is a CUDA call that invalidates the capture in progress.
+
+A capture is ``torch.cuda.graph``'s less its emptying of the caching
+allocators: the card is synchronized, then the function is captured on a
+side stream of the graph's card (one a card). The resident rollout
+captures a graph every call; there emptying the caches freed and
+re-allocated every cached block each call (~0.5 GB a 100-tick chunk at
+16,384 scenarios, tens of milliseconds of ``cudaFree`` / ``cudaMalloc``).
 """
 
 from __future__ import annotations
 
+import functools
 import gc
 
 import torch
 
 from mpc_limx_control_tpu_torch.ops import _build
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    """The side stream that graphs of `device` are captured on."""
+    return torch.cuda.Stream(device)
 
 
 class Graph:
@@ -46,9 +60,14 @@ class Graph:
         gc_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.device(self.device), \
-                    torch.cuda.graph(self.graph):
-                self.out = fn()
+            with torch.cuda.device(self.device):
+                torch.cuda.synchronize()
+                with torch.cuda.stream(_capture_stream(self.device)):
+                    self.graph.capture_begin()
+                    try:
+                        self.out = fn()
+                    finally:
+                        self.graph.capture_end()
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of {name} failed: "
                                f"{e}") from e

@@ -25,12 +25,23 @@ spans every process: process p holds the p-th block of rows and the
 statistics of both styles are all-reduced across processes (NCCL between
 distinct cards, gloo on the CPU or when processes share a card).
 
-Each tick kernel computes a scenario on its own, so on the card a sharded
-run's state equals the unsharded run's bit for bit; only the cross-shard
+The start iteration of a step or rollout is a scalar, or one a scenario
+of the global batch (``[B]``: staggered gait phases), split into the same
+blocks of rows as the state. Each shard's rollout is the resident rollout
+(``batched_rollout_resident``: the tick kernel on the card, its plain
+version on the CPU) where the tick kernels take the config. Each tick
+kernel computes a scenario on its own, so on the card a sharded run's
+state equals the unsharded run's bit for bit (on the CPU the plain
+version's matrix products round by the batch size); only the cross-shard
 reductions may differ in their last bits. The rollouts reduce each
 statistic's ``[steps]`` vector once, at the end, where JAX reduces inside
 its scan at every step: the same values, one collective instead of
 `steps`.
+
+Every sharded call is logged in ``utils.profiling.mesh_log()``: its host
+spans (``mesh.rollout``, ``mesh.reduce``), the device time of each
+shard's work and of the reduction (timing events on each shard's stream,
+read after the call), the collectives made and the bytes reduced.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ import torch.distributed as dist
 from mpc_limx_control_tpu_torch.control import rollout as ro
 from mpc_limx_control_tpu_torch.core.config import ControllerConfig
 from mpc_limx_control_tpu_torch.ops import tick_fused_cuda as tfc
+from mpc_limx_control_tpu_torch.utils import profiling
 
 # how long a process group waits for its peers (rendezvous and collectives)
 TIMEOUT = datetime.timedelta(seconds=300)
@@ -291,22 +303,27 @@ def scenario_stats(metrics: dict) -> dict:
             "grf_mean_fz": (grf[..., 2] + grf[..., 5]).sum(0) / n}
 
 
-def _all_reduce(t: torch.Tensor, op, mesh: Mesh) -> torch.Tensor:
-    """`t` reduced over the mesh's processes (itself in one process)."""
+def _all_reduce(t: torch.Tensor, op, mesh: Mesh,
+                call: Optional[profiling.MeshCall] = None) -> torch.Tensor:
+    """`t` reduced over the mesh's processes (itself in one process); the
+    collective is counted in `call`."""
     if mesh.process_count == 1:
         return t
     x = t.to(mesh.reduce_device)
     with _on(mesh.reduce_device):
         dist.all_reduce(x, op=op)
+    if call is not None:
+        call.collective(x.numel() * x.element_size())
     return x.to(t.device)
 
 
-def _reduce_stats(parts: list, offsets: tuple, mesh: Mesh,
-                  full: bool) -> dict:
+def _reduce_stats(parts: list, offsets: tuple, mesh: Mesh, full: bool,
+                  call: Optional[profiling.MeshCall] = None) -> dict:
     """The statistics of the global batch from each shard's metrics
     ([b] or [b, T]), on the mesh's first device. ``full``: all of
     :func:`scenario_stats` (the GSPMD style); else the mean height and the
-    largest residual (shard_map's psum / pmax)."""
+    largest residual (shard_map's psum / pmax). The collectives are
+    counted in `call`."""
     out_dev = mesh.devices[0]
     scalar = parts[0]["height"].ndim == 1
 
@@ -323,14 +340,15 @@ def _reduce_stats(parts: list, offsets: tuple, mesh: Mesh,
     count = sum(x.shape[0] for x in h)
     packed.append(torch.full((1,), float(count), dtype=h[0].dtype,
                              device=out_dev))
-    total = _all_reduce(torch.cat(packed), dist.ReduceOp.SUM, mesh)
+    total = _all_reduce(torch.cat(packed), dist.ReduceOp.SUM, mesh, call)
     T = h[0].shape[1]
     n = total[-1]
     mean = total[:T] / n
     res = torch.stack([cols(m["qp_residual"]).amax(0).to(out_dev)
                        for m in parts]).amax(0)
     stats = {"mean_height": mean,
-             "max_qp_residual": _all_reduce(res, dist.ReduceOp.MAX, mesh)}
+             "max_qp_residual": _all_reduce(res, dist.ReduceOp.MAX, mesh,
+                                            call)}
     if full:
         stats["grf_mean_fz"] = total[T:2 * T] / n
         # each shard's nearest scenario to the global mean, then the
@@ -342,52 +360,60 @@ def _reduce_stats(parts: list, offsets: tuple, mesh: Mesh,
             vals.append(d.gather(0, i[None])[0].to(out_dev))
             idx.append((i + o).to(out_dev))
         vals, idx = torch.stack(vals), torch.stack(idx)
-        vmin = _all_reduce(vals.amin(0), dist.ReduceOp.MIN, mesh)
+        vmin = _all_reduce(vals.amin(0), dist.ReduceOp.MIN, mesh, call)
         big = torch.iinfo(torch.int64).max
         cand = torch.where(vals == vmin, idx, torch.full_like(idx, big))
         stats["best_scenario"] = _all_reduce(cand.amin(0), dist.ReduceOp.MIN,
-                                             mesh)
+                                             mesh, call)
     return {k: (v[0] if scalar else v) for k, v in stats.items()}
 
 
-def _check_scalar(name: str, value) -> None:
-    if isinstance(value, torch.Tensor) and value.numel() != 1:
-        raise ValueError(f"{name} is replicated over the mesh: a scalar, "
-                         f"got shape {tuple(value.shape)}")
-
-
-def _step_parts(cfg, sharded: Sharded, iteration):
-    _check_scalar("iteration", iteration)
-    outs = []
-    for s, d in zip(sharded.parts, sharded.mesh.devices):
-        with _on(d):
-            outs.append(ro.plant_step(cfg, s, iteration))
-    return outs
+def _starts(name: str, value, sharded: Sharded) -> list:
+    """Each shard's start iteration: a scalar as given, or a [B] tensor of
+    the global batch split into the shards' blocks of rows."""
+    if not isinstance(value, torch.Tensor) or value.numel() == 1:
+        return [value] * len(sharded.parts)
+    rows = [_leaves(p)[0].shape[0] for p in sharded.parts]
+    B = rows[0] * sharded.mesh.size
+    if value.ndim != 1 or value.shape[0] != B:
+        raise ValueError(f"{name}: a scalar or one a scenario of the global "
+                         f"batch ({B}), got shape {tuple(value.shape)}")
+    return [value[o:o + b].to(d) for o, b, d in
+            zip(sharded.offsets, rows, sharded.mesh.devices)]
 
 
 def _shard_rollout(cfg, s, steps: int, start):
-    """One shard's closed loop: the resident rollout (bit for bit
-    ``batched_rollout`` on the card) where the tick kernels take the
-    config, else ``batched_rollout``."""
-    if s.xi.is_cuda and tfc.supports_fused_tick(cfg):
+    """One shard's closed loop: the resident rollout (the tick kernel on
+    the card, its plain version on the CPU; on the card bit for bit
+    ``batched_rollout``) where the tick kernels take the config, else
+    ``batched_rollout``."""
+    if tfc.supports_fused_tick(cfg):
         return ro.batched_rollout_resident(cfg, s, steps,
                                            start_iteration=start)
     return ro.batched_rollout(cfg, s, steps, start_iteration=start)
 
 
-def _rollout_parts(cfg, sharded: Sharded, steps: int, start):
-    _check_scalar("start_iteration", start)
-    outs = []
-    for s, d in zip(sharded.parts, sharded.mesh.devices):
-        with _on(d):
-            outs.append(_shard_rollout(cfg, s, steps, start))
-    return outs
-
-
-def _result(outs, sharded: Sharded, full: bool):
+def _run(sharded: Sharded, shard_fn, start_name: str, start, full: bool,
+         metrics: bool = False):
+    """Each shard's `shard_fn(state, start)` on its device, then the
+    statistics of the global batch, logged as one call. Returns (the
+    Sharded new state, the statistics), and with `metrics` also the
+    Sharded per-scenario metrics."""
+    starts = _starts(start_name, start, sharded)
+    mesh = sharded.mesh
+    with profiling.mesh_log().call(mesh.devices) as call:
+        outs = []
+        for j, (s, d) in enumerate(zip(sharded.parts, mesh.devices)):
+            with _on(d), call.shard(j):
+                outs.append(shard_fn(s, starts[j]))
+        call.reducing()
+        stats = _reduce_stats([o[1] for o in outs], sharded.offsets, mesh,
+                              full, call)
     final = dataclasses.replace(sharded, parts=tuple(o[0] for o in outs))
-    return final, _reduce_stats([o[1] for o in outs], sharded.offsets,
-                                sharded.mesh, full)
+    if metrics:
+        return final, stats, dataclasses.replace(
+            sharded, parts=tuple(o[1] for o in outs))
+    return final, stats
 
 
 def sharded_batch_step(cfg: ControllerConfig, mesh: Mesh,
@@ -397,28 +423,33 @@ def sharded_batch_step(cfg: ControllerConfig, mesh: Mesh,
     Returns step(state, iteration) -> (Sharded new state, stats of
     :func:`scenario_stats`, scalars on the mesh's first device). `state`
     is a :class:`Sharded` of this mesh or the global batch (then sharded
-    first); `iteration` a scalar.
+    first); `iteration` a scalar or a [B] tensor of the global batch.
     """
     def step(state, iteration):
         sh = shard_leading(state, mesh, axis_name)
-        return _result(_step_parts(cfg, sh, iteration), sh, True)
+        return _run(sh, lambda s, it: ro.plant_step(cfg, s, it),
+                    "iteration", iteration, True)
 
     return step
 
 
 def sharded_rollout(cfg: ControllerConfig, mesh: Mesh, steps: int,
-                    axis_name: str = "data") -> Callable:
+                    axis_name: str = "data",
+                    return_metrics: bool = False) -> Callable:
     """Multi-step closed loop under scenario sharding: each shard runs the
     whole rollout on its device with no host round trip per tick.
 
     Returns run(state, start_iteration) -> (final Sharded state, stats of
     :func:`scenario_stats` a step, [steps] tensors on the mesh's first
-    device).
+    device); `start_iteration` a scalar or a [B] tensor of the global
+    batch. With `return_metrics` run also returns each scenario's
+    metrics ([b, steps, ...] a shard) as a :class:`Sharded` laid out as
+    the state.
     """
     def run(state, start_iteration):
         sh = shard_leading(state, mesh, axis_name)
-        return _result(_rollout_parts(cfg, sh, steps, start_iteration), sh,
-                       True)
+        return _run(sh, lambda s, it: _shard_rollout(cfg, s, steps, it),
+                    "start_iteration", start_iteration, True, return_metrics)
 
     return run
 
@@ -431,8 +462,8 @@ def shard_map_rollout(cfg: ControllerConfig, mesh: Mesh, steps: int,
     two statistics."""
     def run(state, start_iteration):
         sh = shard_leading(state, mesh, axis_name)
-        return _result(_rollout_parts(cfg, sh, steps, start_iteration), sh,
-                       False)
+        return _run(sh, lambda s, it: _shard_rollout(cfg, s, steps, it),
+                    "start_iteration", start_iteration, False)
 
     return run
 
@@ -441,9 +472,11 @@ def shard_map_step(cfg: ControllerConfig, mesh: Mesh,
                    axis_name: str = "data") -> Callable:
     """Explicit-collective step: each shard's plant step, then the summed
     heights and counts and the largest residual reduced across shards and
-    processes."""
+    processes; `iteration` a scalar or a [B] tensor of the global
+    batch."""
     def step(state, iteration):
         sh = shard_leading(state, mesh, axis_name)
-        return _result(_step_parts(cfg, sh, iteration), sh, False)
+        return _run(sh, lambda s, it: ro.plant_step(cfg, s, it),
+                    "iteration", iteration, False)
 
     return step

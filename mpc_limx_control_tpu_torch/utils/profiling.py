@@ -8,6 +8,9 @@ Counterpart of ``mpc_limx_control_tpu.utils.profiling``:
 * :class:`TickLog`: the live session's per-tick phase log (a ring of
   preallocated arrays, always on), with a weak registry of the logs of
   open sessions (:func:`tick_logs`);
+* :class:`MeshLog`: the scenario mesh's log of sharded calls (spans, the
+  device times of each shard's rollout and reduction, the collectives;
+  always on), one a process (:func:`mesh_log`);
 * :class:`MetricsLogger`: structured per-step metrics as JSON lines;
 * :func:`trace`: a ``torch.profiler`` scope (CPU, and the card's kernels
   where there is one) that writes a Chrome trace;
@@ -16,8 +19,10 @@ Counterpart of ``mpc_limx_control_tpu.utils.profiling``:
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -291,6 +296,182 @@ class TickLog:
     def close(self) -> None:
         """Leave the registry (the arrays stay readable)."""
         _TICK_LOGS.pop(self._key, None)
+
+
+# -- the scenario mesh's call log ---------------------------------------------
+
+# a sharded call's two host spans: each shard's enqueue, then the
+# statistics' reduction and collectives
+MESH_SPANS = ("mesh.rollout", "mesh.reduce")
+
+
+@dataclasses.dataclass
+class MeshCalls:
+    """Calls of a :class:`MeshLog` in the order they ran, one row a call.
+    Device times are NaN on CPU shards and past a call's own shards."""
+
+    profiled: np.ndarray       # [n] bool, a torch profiler was active
+    collectives: np.ndarray    # [n] int32, all_reduce calls made
+    reduced_bytes: np.ndarray  # [n] int64, bytes those calls reduced
+    rollout_ms: np.ndarray     # [n, shards] float64, each shard's step or
+                               # rollout on its stream
+    reduce_ms: np.ndarray      # [n, shards] float64, the reduction and
+                               # collectives on each shard's stream
+
+    def __len__(self) -> int:
+        return len(self.profiled)
+
+
+class MeshCall:
+    """One sharded call being logged (made by :meth:`MeshLog.call`): on
+    each CUDA shard's current stream a pair of timing events around the
+    shard's work (:meth:`shard`) and a pair around the reduction
+    (:meth:`reducing` to the call's end); the collectives counted by
+    :meth:`collective`."""
+
+    def __init__(self, devices):
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.events = [[None] * 4 for _ in self.devices]
+        self.collectives = self.reduced_bytes = 0
+        self.profiled = bool(_autograd_profiler._is_profiler_enabled)
+        self._span = None
+        self._switch(0)
+
+    def _switch(self, k) -> None:
+        """Close the open span; with a profiler active open MESH_SPANS[k]
+        (None: open none)."""
+        if self._span is not None:
+            self._span.__exit__(None, None, None)
+            self._span = None
+        if k is not None and self.profiled:
+            self._span = _RecordFunctionFast(MESH_SPANS[k])
+            self._span.__enter__()
+
+    def _record(self, j: int, k: int) -> None:
+        d = self.devices[j]
+        if d.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.device(d):
+                ev.record(torch.cuda.current_stream(d))
+            self.events[j][k] = ev
+
+    @contextlib.contextmanager
+    def shard(self, j: int):
+        """The scope of shard j's step or rollout."""
+        self._record(j, 0)
+        yield
+        self._record(j, 1)
+
+    def reducing(self) -> None:
+        """Every shard's work is enqueued; the reduction begins."""
+        for j in range(len(self.devices)):
+            self._record(j, 2)
+        self._switch(1)
+
+    def collective(self, nbytes: int) -> None:
+        self.collectives += 1
+        self.reduced_bytes += int(nbytes)
+
+    def _end(self) -> None:
+        for j in range(len(self.devices)):
+            self._record(j, 3)
+        self._switch(None)
+
+    def done(self) -> bool:
+        """Whether every event has completed (a query, no wait)."""
+        return all(ev is None or ev.query() for evs in self.events
+                   for ev in evs)
+
+    def device_ms(self) -> tuple:
+        """(each shard's work, each shard's reduction) in device ms, NaN
+        where untimed; waits for the events."""
+        def ms(a, b):
+            if a is None or b is None:
+                return math.nan
+            b.synchronize()
+            return a.elapsed_time(b)
+
+        return (tuple(ms(e[0], e[1]) for e in self.events),
+                tuple(ms(e[2], e[3]) for e in self.events))
+
+
+class MeshLog:
+    """The log of the scenario mesh's sharded calls in this process
+    (``parallel.mesh``: every sharded step and rollout, both styles),
+    always on: the last CAPACITY calls.
+
+    While a torch profiler is active a call's host work is two
+    record-function spans (MESH_SPANS): ``mesh.rollout``, each shard's
+    step or rollout enqueued, and ``mesh.reduce``, the statistics reduced
+    and their collectives (``all_reduce`` over the processes) enqueued. On
+    each CUDA shard's stream two pairs of timing events give the device
+    time of the shard's work and of the reduction; with one process a
+    card, the reduction's time on a card includes its wait for the slowest
+    peer. The events are read once they have completed, at a later call or
+    at :meth:`view`: the log adds no synchronization to the call. A row
+    also holds whether a profiler was active, the collectives made and the
+    bytes they reduced.
+    """
+
+    CAPACITY = 4096
+
+    def __init__(self):
+        self._rows = collections.deque(maxlen=self.CAPACITY)
+        self._pending = collections.deque()
+
+    @contextlib.contextmanager
+    def call(self, devices):
+        """The scope of one sharded call over `devices`, the mesh's
+        shards; a call that raises is not logged."""
+        self._resolve(wait=False)
+        c = MeshCall(devices)
+        try:
+            yield c
+        except BaseException:
+            c._switch(None)
+            raise
+        c._end()
+        self._pending.append(c)
+
+    def _resolve(self, wait: bool) -> None:
+        """Move the calls whose events have completed (all, with `wait`)
+        into the ring, in order."""
+        while self._pending and (wait or self._pending[0].done()):
+            c = self._pending.popleft()
+            roll, red = c.device_ms()
+            self._rows.append((c.profiled, c.collectives, c.reduced_bytes,
+                               roll, red))
+
+    def clear(self) -> None:
+        """Forget every call logged so far."""
+        self._rows.clear()
+        self._pending.clear()
+
+    def view(self) -> MeshCalls:
+        """The logged calls in the ring, in order (waits for their
+        events)."""
+        self._resolve(wait=True)
+        rows = list(self._rows)
+        width = max((len(r[3]) for r in rows), default=0)
+
+        def padded(col):
+            out = np.full((len(rows), width), np.nan)
+            for i, r in enumerate(rows):
+                out[i, :len(r[col])] = r[col]
+            return out
+
+        return MeshCalls(
+            profiled=np.array([r[0] for r in rows], bool),
+            collectives=np.array([r[1] for r in rows], np.int32),
+            reduced_bytes=np.array([r[2] for r in rows], np.int64),
+            rollout_ms=padded(3), reduce_ms=padded(4))
+
+
+@functools.lru_cache(maxsize=None)
+def mesh_log() -> MeshLog:
+    """This process's log of the mesh's sharded calls (made at first
+    use)."""
+    return MeshLog()
 
 
 class MetricsLogger:

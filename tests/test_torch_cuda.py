@@ -1567,6 +1567,51 @@ def test_mesh_equals_batched_rollout(cuda_device, shards, est, style):
             assert torch.equal(v, want[k]), k
 
 
+@pytest.mark.parametrize("layout", ["1x1", "1x4", "2x1", "4x1"])
+def test_mesh_with_staggered_start_equals_resident(cuda_device, layout):
+    """A [B] staggered start through a mesh in one process, cards x shards
+    a card (one shard, four shards on card 0, or one shard on each of 2 or
+    4 cards; skipped with fewer cards), walking at full width, B = 512,
+    11 steps: the final state and every scenario's metrics bit for bit
+    batched_rollout_resident's on card 0 with the same start; the largest
+    residual exactly, the mean height within rtol 1e-6; the call's row of
+    the mesh log times each shard's rollout and reduction on its card."""
+    from mpc_limx_control_tpu_torch.parallel import mesh as pmesh
+    from mpc_limx_control_tpu_torch.utils import profiling
+
+    cards, per_card = (int(x) for x in layout.split("x"))
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} cards, "
+                    f"{torch.cuda.device_count()} present")
+    cfg = ControllerConfig.walking()
+    B, steps = 512, 11
+    s0 = _states(cfg, B, seed=23, device=cuda_device, yaw=0.0)
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    start = torch.randint(0, 600, (B,), generator=gen,
+                          device=cuda_device).to(torch.float32)
+    want, m_want = ro.batched_rollout_resident(cfg, s0, steps,
+                                               start_iteration=start)
+    mesh = pmesh.make_mesh([torch.device("cuda", c) for c in range(cards)
+                            for _ in range(per_card)])
+    log = profiling.mesh_log()
+    log.clear()
+    final, stats, m = pmesh.sharded_rollout(cfg, mesh, steps,
+                                            return_metrics=True)(s0, start)
+    got = final.gather(cuda_device)
+    for f in ("xi", "q", "foot_l", "foot_r", "qp_z", "qp_lam"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    gm = m.gather(cuda_device)
+    for k, v in m_want.items():
+        assert torch.equal(gm[k], v), k
+    ref = pmesh.scenario_stats(m_want)
+    assert torch.equal(stats["max_qp_residual"], ref["max_qp_residual"])
+    mean = ref["mean_height"]
+    assert float(((stats["mean_height"] - mean).abs() / mean).max()) <= 1e-6
+    calls = log.view()
+    assert len(calls) == 1 and calls.rollout_ms.shape == (1, cards * per_card)
+    assert (calls.rollout_ms > 0).all() and (calls.reduce_ms > 0).all()
+
+
 def test_two_processes_share_the_card_over_gloo(cuda_device, tmp_path):
     """tools/distributed_rollout_torch.py on the card: two ranks on it over
     gloo, B = 256, 5 steps, equal statistics, within 1e-6 of one

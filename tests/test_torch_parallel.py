@@ -287,8 +287,9 @@ def test_shard_leading_and_replicate(cfg):
     for p in rep.parts:
         np.testing.assert_array_equal(p.xi.numpy(), s8.xi.numpy())
     np.testing.assert_array_equal(rep.gather().q.numpy(), s8.q.numpy())
-    with pytest.raises(ValueError, match="scalar"):
-        pmesh.sharded_batch_step(cfg, mesh)(sh, torch.zeros(8))
+    # an iteration is a scalar or one a scenario of the global batch
+    with pytest.raises(ValueError, match="scalar or one a scenario"):
+        pmesh.sharded_batch_step(cfg, mesh)(sh, torch.zeros(6))
 
 
 def test_kernel_launch_runs_under_its_tensors_device(monkeypatch):
@@ -338,3 +339,163 @@ def test_kernel_launch_runs_under_its_tensors_device(monkeypatch):
     kern.launch(P(), [0], 1, torch.device("cuda", 1))
     assert seen == [(1, 1001)] and current["dev"] == 0
     assert kern.launches == 1
+
+
+# ---- per-scenario starts and the mesh's log ---------------------------------
+
+def _small(cfg):
+    """The walking config at horizon 8 (the resident rollout's CPU loop is
+    the tick's plain version)."""
+    return dataclasses.replace(cfg, srbd=dataclasses.replace(cfg.srbd,
+                                                             horizon=8))
+
+
+def _staggered(B, seed):
+    """Start iterations staggered over the 600-tick gait cycle."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 600, (B,), generator=gen).to(torch.float32)
+
+
+def _same_state(a, b):
+    for f in FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert (x is None) == (y is None), f
+        if x is not None:
+            assert torch.equal(x, y), f
+
+
+def _resident_blocks(cfg, s0, steps, start, shards):
+    """batched_rollout_resident on each block of rows a mesh of `shards`
+    would hold, with the block's start, concatenated."""
+    b = s0.xi.shape[0] // shards
+    outs = [ro.batched_rollout_resident(
+        cfg, ro._map_state(s0, lambda x, o=o: x[o:o + b].clone()), steps,
+        start_iteration=start[o:o + b]) for o in range(0, b * shards, b)]
+    final = ro._map_state(outs[0][0], lambda x: x)
+    final = dataclasses.replace(final, **{
+        f: torch.cat([getattr(o[0], f) for o in outs])
+        for f in FIELDS if getattr(outs[0][0], f) is not None})
+    return final, {k: torch.cat([o[1][k] for o in outs]) for k in outs[0][1]}
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+@pytest.mark.parametrize("style", ["gspmd", "shard_map"])
+def test_staggered_start_equals_resident_rollout(style, shards):
+    """A [B] staggered start through a mesh of 1 or 4 CPU shards (B = 16,
+    N = 8, 7 steps): the final state and (sharded_rollout's) every
+    scenario's metrics bit for bit batched_rollout_resident's on each
+    shard's rows with their starts (one shard: the unsharded batch; the CPU's matrix products round by
+    the batch size, the card's tick kernel does not), within 1e-5 of the
+    unsharded run; the mesh's statistics those of scenario_stats on its
+    metrics (the largest residual exactly, the sums within rtol 1e-6, the
+    nearest scenario within 1e-6 of the mean of the nearest)."""
+    cfg = _small(ControllerConfig.walking())
+    B, steps = 16, 7
+    s0, start = _kicked(cfg, B, seed=4), _staggered(B, 4)
+    want, m_want = _resident_blocks(cfg, s0, steps, start, shards)
+    if style == "gspmd":
+        final, stats, m_sh = pmesh.sharded_rollout(
+            cfg, _mesh(shards), steps, return_metrics=True)(s0, start)
+        got = m_sh.gather()
+        assert set(got) == set(m_want)
+        for k, v in m_want.items():
+            assert torch.equal(got[k], v), k
+    else:
+        final, stats = pmesh.shard_map_rollout(cfg, _mesh(shards), steps)(
+            s0, start)
+    _same_state(final.gather(), want)
+    whole, _ = ro.batched_rollout_resident(cfg, s0, steps,
+                                           start_iteration=start)
+    for f in FIELDS:
+        torch.testing.assert_close(getattr(final.gather(), f),
+                                   getattr(whole, f), rtol=1e-5, atol=1e-5)
+    ref = pmesh.scenario_stats(m_want)
+    assert set(stats) == (set(ref) if style == "gspmd"
+                          else {"mean_height", "max_qp_residual"})
+    assert torch.equal(stats["max_qp_residual"], ref["max_qp_residual"])
+    torch.testing.assert_close(stats["mean_height"], ref["mean_height"],
+                               rtol=1e-6, atol=0)
+    if style == "gspmd":
+        # the nearest scenario to the mean: as near as scenario_stats'
+        # (two may lie within the sums' last bits of each other)
+        d = (m_want["height"] - ref["mean_height"]).abs()
+        picked = d.gather(0, stats["best_scenario"][None])[0]
+        assert float((picked - d.amin(0)).max()) <= \
+            1e-6 * float(ref["mean_height"].max())
+        torch.testing.assert_close(stats["grf_mean_fz"], ref["grf_mean_fz"],
+                                   rtol=1e-6, atol=0)
+    # the starts differ across the scenarios: lockstep would not do
+    lock, _ = ro.batched_rollout_resident(cfg, s0, steps,
+                                          start_iteration=start[0])
+    assert not torch.equal(lock.foot_l, whole.foot_l)
+
+
+def test_scalar_start_behaves_as_before():
+    """A scalar start is every scenario's: the mesh's run equals the one
+    with the scalar repeated as a [B] start, and the resident rollout's
+    on each shard's rows."""
+    cfg = _small(ControllerConfig.walking())
+    B, steps = 16, 5
+    s0 = _kicked(cfg, B, seed=6)
+    run = pmesh.sharded_rollout(cfg, _mesh(4), steps)
+    f_scalar, st_scalar = run(s0, 250.0)
+    f_rows, st_rows = run(s0, torch.full((B,), 250.0))
+    want, _ = _resident_blocks(cfg, s0, steps, torch.full((B,), 250.0), 4)
+    _same_state(f_scalar.gather(), want)
+    _same_state(f_rows.gather(), want)
+    for k in st_scalar:
+        assert torch.equal(st_scalar[k], st_rows[k]), k
+
+
+@pytest.mark.parametrize("style", ["gspmd", "shard_map"])
+def test_step_takes_a_staggered_iteration(style):
+    """A [B] iteration through the sharded step (4 CPU shards) equals
+    plant_step's on each shard's rows with their iterations, bit for
+    bit."""
+    cfg = _small(ControllerConfig.walking())
+    B = 16
+    s0, it = _kicked(cfg, B, seed=7), _staggered(B, 7)
+    make = (pmesh.sharded_batch_step if style == "gspmd"
+            else pmesh.shard_map_step)
+    out, stats = make(cfg, _mesh(4))(s0, it)
+    got = out.gather()
+    blocks = [ro.plant_step(cfg, ro._map_state(s0, lambda x, o=o: x[o:o + 4]),
+                            it[o:o + 4]) for o in range(0, B, 4)]
+    for f in ("xi", "q", "foot_l", "foot_r", "qp_z", "qp_lam"):
+        want = torch.cat([getattr(b[0], f) for b in blocks])
+        assert torch.equal(getattr(got, f), want), f
+    h = torch.cat([b[1]["height"] for b in blocks])
+    torch.testing.assert_close(stats["mean_height"], h.mean(), rtol=1e-6,
+                               atol=0)
+
+
+def test_every_sharded_call_is_logged():
+    """Each sharded step and rollout is a row of the process's mesh log:
+    no collective in one process, no device time on CPU shards, and under
+    a torch profiler its host spans mesh.rollout and mesh.reduce, in
+    order; a call that raises is not logged."""
+    from mpc_limx_control_tpu_torch.utils import profiling
+
+    cfg = _small(ControllerConfig.walking())
+    log = profiling.mesh_log()
+    log.clear()
+    mesh = _mesh(4)
+    s0 = _kicked(cfg, 8, seed=8)
+    pmesh.sharded_rollout(cfg, mesh, 3)(s0, _staggered(8, 8))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        pmesh.shard_map_step(cfg, mesh)(s0, 0.0)
+    with pytest.raises(ValueError, match="scalar or one a scenario"):
+        pmesh.shard_map_rollout(cfg, mesh, 3)(s0, torch.zeros(5))
+    calls = log.view()
+    assert len(calls) == 2
+    assert list(calls.profiled) == [False, True]
+    spans = sorted((e.time_range.start, e.name) for e in prof.events()
+                   if e.name in profiling.MESH_SPANS)
+    assert [n for _, n in spans] == list(profiling.MESH_SPANS)
+    assert (calls.collectives == 0).all() and (calls.reduced_bytes == 0).all()
+    assert calls.rollout_ms.shape == calls.reduce_ms.shape == (2, 4)
+    assert np.isnan(calls.rollout_ms).all() and np.isnan(
+        calls.reduce_ms).all()
+    log.clear()
+    assert len(log.view()) == 0

@@ -11,13 +11,17 @@ and checks that every rank reports the same statistics (atol 0) and that
 they are within 1e-6 of the one-process run.
 
 The walking config, ``xi[:, 9] += 0.01 * (arange(B) % 8)`` (the kick of
-tests/test_distributed.py at B = 8). The launcher kills the ranks
-``--timeout`` seconds after it starts them (a stuck rendezvous fails
-then, not at the process group's own timeout).
+tests/test_distributed.py at B = 8); with ``--stagger S`` each scenario
+starts at its own iteration, ``(97 * arange(B)) % S`` (staggered gait
+phases, split over the ranks with the state's rows). Each rank also
+reports its call's row of the mesh log (``utils.profiling.mesh_log``):
+the collectives made and the bytes they reduced. The launcher kills the
+ranks ``--timeout`` seconds after it starts them (a stuck rendezvous
+fails then, not at the process group's own timeout).
 
 Usage: python tools/distributed_rollout_torch.py [--processes 2]
            [--batch 256] [--steps 5] [--style shard_map|gspmd]
-           [--device cuda|cpu] [--timeout 120] [--out F]
+           [--stagger 0] [--device cuda|cpu] [--timeout 120] [--out F]
 """
 
 from __future__ import annotations
@@ -42,17 +46,21 @@ from mpc_limx_control_tpu_torch.core.config import ControllerConfig
 from mpc_limx_control_tpu_torch.core.types import require_device
 from mpc_limx_control_tpu_torch.ops import _build
 from mpc_limx_control_tpu_torch.parallel import mesh as pmesh
+from mpc_limx_control_tpu_torch.utils import profiling
 
 STATS = ("mean_height", "max_qp_residual")
 
 
-def problem(B: int, device):
-    """The walking config and the global batch every rank builds."""
+def problem(B: int, device, stagger: int = 0):
+    """The walking config, the global batch every rank builds and its
+    start iteration (a scalar, or one a scenario with `stagger`)."""
     cfg = ControllerConfig.walking()
     s0 = ro.initial_plant_state(cfg, batch=(B,), device=device)
     xi = s0.xi.clone()
     xi[:, 9] += 0.01 * (torch.arange(B, device=device) % 8).to(xi.dtype)
-    return cfg, s0.replace(xi=xi)
+    start = ((97 * torch.arange(B, device=device)) % stagger).to(xi.dtype) \
+        if stagger > 0 else 0.0
+    return cfg, s0.replace(xi=xi), start
 
 
 def run_style(style: str):
@@ -67,10 +75,13 @@ def _rank(args) -> None:
                                    args.processes, args.rank)
     dev = require_device(args.device)
     mesh = pmesh.make_mesh(None if dev.type == "cuda" else [dev])
-    cfg, s0 = problem(args.batch, mesh.devices[0])
+    cfg, s0, start = problem(args.batch, mesh.devices[0], args.stagger)
     for k in _build.KERNELS:
         k.reset()
-    final, stats = run_style(args.style)(cfg, mesh, args.steps)(s0, 0.0)
+    log = profiling.mesh_log()
+    log.clear()
+    final, stats = run_style(args.style)(cfg, mesh, args.steps)(s0, start)
+    calls = log.view()
     with open(args.out, "w") as fh:
         json.dump({"rank": args.rank, "ndev": n,
                    "device": str(mesh.devices[0]),
@@ -79,6 +90,9 @@ def _rank(args) -> None:
                             final.offsets[0] + final.parts[0].xi.shape[0]],
                    "launches": {k.name: k.launches for k in _build.KERNELS
                                 if k.launches},
+                   "calls": len(calls),
+                   "collectives": calls.collectives.tolist(),
+                   "reduced_bytes": calls.reduced_bytes.tolist(),
                    **{k: stats[k].cpu().tolist() for k in STATS}}, fh)
     torch.distributed.destroy_process_group()
 
@@ -92,7 +106,8 @@ def _launch(args) -> list:
     base = [sys.executable, str(Path(__file__).resolve()),
             "--processes", str(args.processes), "--batch", str(args.batch),
             "--steps", str(args.steps), "--style", args.style,
-            "--device", args.device, "--port", str(port)]
+            "--stagger", str(args.stagger), "--device", args.device,
+            "--port", str(port)]
     with tempfile.TemporaryDirectory(prefix="dist_rollout_") as tmpd:
         tmp = Path(tmpd)
         outs = [tmp / f"rank{i}.json" for i in range(args.processes)]
@@ -133,6 +148,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--style", choices=("shard_map", "gspmd"),
                     default="shard_map")
+    ap.add_argument("--stagger", type=int, default=0,
+                    help="start each scenario at its own iteration, "
+                         "(97 * index) %% STAGGER")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--timeout", type=float, default=120.0)
     ap.add_argument("--out", default="chiprun_out/distributed_torch.json")
@@ -148,14 +166,15 @@ def main(argv=None) -> dict:
     # the same problem in one process, on a mesh of as many shards
     mesh = pmesh.make_mesh([ranks[0]["device"] if dev.type == "cuda"
                             else "cpu"] * args.processes)
-    cfg, s0 = problem(args.batch, mesh.devices[0])
-    _, ref = run_style(args.style)(cfg, mesh, args.steps)(s0, 0.0)
+    cfg, s0, start = problem(args.batch, mesh.devices[0], args.stagger)
+    _, ref = run_style(args.style)(cfg, mesh, args.steps)(s0, start)
     ref = {k: ref[k].cpu().tolist() for k in STATS}
     equal = all(r[k] == ranks[0][k] for r in ranks for k in STATS)
     err = max(float(np.max(np.abs(np.subtract(ranks[0][k], ref[k]))))
               for k in STATS)
     out = {"processes": args.processes, "batch": args.batch,
-           "steps": args.steps, "style": args.style, "ranks": ranks,
+           "steps": args.steps, "style": args.style,
+           "stagger": args.stagger, "ranks": ranks,
            "one_process": ref, "ranks_equal": equal,
            "max_abs_err_vs_one_process": err,
            "ok": bool(equal and err <= 1e-6)}
