@@ -8,6 +8,8 @@ reference's quatToZyx (include/stateEstimator.h:76-84).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -41,6 +43,19 @@ def quat_to_rpy(q: torch.Tensor) -> torch.Tensor:
     """[..., 4] -> [..., 3] (roll, pitch, yaw), the layout of
     OdomState.ori (include/state_estimator_fake.h:62-67)."""
     return quat_to_zyx(q).flip(-1)
+
+
+def quat_to_rpy_host(x: float, y: float, z: float,
+                     w: float) -> tuple[float, float, float]:
+    """quat_to_rpy of one quaternion in Python floats, without torch (the
+    session's host fill of the truth odometry): quat_to_zyx's arithmetic,
+    its clamp included; NaN where torch.asin gives it (math.asin
+    raises)."""
+    as_ = min(-2.0 * (x * z - w * y), 0.99999)
+    yaw = math.atan2(2 * (x * y + w * z), w * w + x * x - y * y - z * z)
+    pitch = math.asin(as_) if as_ >= -1.0 else math.nan
+    roll = math.atan2(2 * (y * z + w * x), w * w - x * x - y * y + z * z)
+    return roll, pitch, yaw
 
 
 def rpy_to_quat(rpy: torch.Tensor) -> torch.Tensor:

@@ -11,6 +11,7 @@ every command they send is compared tick for tick.
 """
 
 import dataclasses
+import math
 import threading
 import time
 
@@ -21,6 +22,8 @@ import torch
 from mpc_limx_control_tpu_torch import runtime as rt
 from mpc_limx_control_tpu_torch.control import session as ses
 from mpc_limx_control_tpu_torch.core.config import ControllerConfig as TCfg
+from mpc_limx_control_tpu_torch.core.types import OdomState
+from mpc_limx_control_tpu_torch.utils import rotations as rot
 
 from test_torch_session_walking import (  # noqa: F401  (a fixture)
     ScriptedLink, _pf_runtime_built, scripted_sensors)
@@ -490,3 +493,151 @@ def test_session_kernel_wrappers_refuse_what_they_do_not_run(case):
     with pytest.raises(ValueError, match="session kernels"):
         tfc.walking_session_tick_hold(cfg, torch.zeros(1, ses.PACKET),
                                       torch.zeros(1, ses.CMD))
+
+
+# ---- the host fill of the truth odometry ------------------------------------
+
+def _wrapped_gap(a, b):
+    """|a - b| of angles, 2 pi apart counted equal; NaN where both are."""
+    d = np.abs((np.asarray(a) - np.asarray(b) + np.pi) % (2 * np.pi) - np.pi)
+    both = np.isnan(a) & np.isnan(b)
+    return np.where(both, 0.0, d)
+
+
+def _quats(case):
+    """[n, 4] float32 quaternions (x, y, z, w) of one case."""
+    rng = np.random.default_rng(21)
+    n = 4096
+    if case == "identity":
+        return np.array([[0.0, 0.0, 0.0, 1.0]], np.float32)
+    if case == "clamp":
+        # pitch within 4e-3 rad of +90 deg: -2 (xz - wy) = sin(pitch) >=
+        # cos(4e-3) > 0.99999
+        rpy = np.stack([rng.uniform(-np.pi, np.pi, n),
+                        np.pi / 2 - rng.uniform(0.0, 4e-3, n),
+                        rng.uniform(-np.pi, np.pi, n)], -1)
+        return rot.rpy_to_quat(torch.from_numpy(rpy)).numpy().astype(
+            np.float32)
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    if case == "non_unit":
+        # norms 0.5-1.5: -2 (xz - wy) runs past both ends of [-1, 1]
+        q *= rng.uniform(0.5, 1.5, (n, 1))
+    return q.astype(np.float32)
+
+
+@pytest.mark.parametrize("case, dtype", [
+    ("random_unit", "float32"), ("random_unit", "float64"),
+    ("non_unit", "float32"), ("non_unit", "float64"), ("clamp", "float64"),
+    ("identity", "float32"), ("identity", "float64")])
+def test_quat_to_rpy_host_matches_quat_to_rpy(case, dtype):
+    """rotations.quat_to_rpy_host (Python floats) against quat_to_rpy on
+    the same float32 quaternions: within 1e-9 rad in float64 (the clamp at
+    0.99999 and torch.asin's NaN below -1 included), within 1e-6 rad in
+    float32. Float32 resolves roll and yaw only away from gimbal lock
+    (its error grows as 1 / cos(pitch): 6.6e-6 rad where sin(pitch) >
+    0.9999), so the float32 comparison takes |sin(pitch)| <= 0.99, and the
+    clamp case (sin(pitch) > 0.99999) is held in float64 alone."""
+    q = _quats(case)
+    host = np.array([rot.quat_to_rpy_host(*map(float, r)) for r in q])
+    ref = rot.quat_to_rpy(torch.from_numpy(q).to(getattr(torch, dtype))) \
+        .double().numpy()
+    x, y, z, w = q.astype(np.float64).T
+    sin_pitch = -2.0 * (x * z - w * y)
+    if dtype == "float32":
+        keep, band = np.abs(sin_pitch) <= 0.99, 1e-6
+    else:
+        keep, band = np.ones(len(q), bool), 1e-9
+    assert keep.mean() > 0.8
+    np.testing.assert_array_equal(np.isnan(host[keep]), np.isnan(ref[keep]))
+    assert _wrapped_gap(host[keep], ref[keep]).max() <= band
+    if case == "clamp":
+        assert (host[:, 1] == math.asin(0.99999)).all()
+    if case == "non_unit":
+        assert (sin_pitch > 0.99999).any() and np.isnan(host[:, 1]).any()
+    if case == "identity":
+        assert host.tolist() == [[0.0, 0.0, 0.0]]
+
+
+def _truth_ticks(cfg):
+    """Four truth-path ticks: no odometry yet, a fresh odometry, none (the
+    last kept), another fresh one; orientations up to 0.6 rad."""
+    rng = np.random.default_rng(5)
+    f32 = np.float32
+    ticks = []
+    for t, fresh in enumerate((False, True, False, True)):
+        state = {k: rng.normal(size=6).astype(f32) for k in ("q", "dq", "tau")}
+        odom = None
+        if fresh:
+            quat = rot.rpy_to_quat(torch.from_numpy(
+                rng.uniform(-0.6, 0.6, 3))).numpy().astype(f32)
+            odom = {"stamp_ns": t, "pos": rng.normal(size=3).astype(f32),
+                    "quat": quat, "v_pos": rng.normal(size=3).astype(f32),
+                    "v_ori": rng.normal(size=3).astype(f32)}
+        ticks.append((state, odom))
+    return ticks
+
+
+def _old_fill(cfg, it, state, odom_raw, last):
+    """The truth path's sensor floats as _fill_sensors wrote them with
+    torch on the host: roll, pitch and yaw through the float32
+    quat_to_rpy, the odometry concatenated and kept, the nominal standing
+    pose rebuilt each tick until the first. Returns (sensors, last)."""
+    if odom_raw is not None:
+        quat = np.asarray(odom_raw["quat"], np.float32)
+        ori = rot.quat_to_rpy(torch.from_numpy(quat)).numpy()
+        last = np.concatenate([odom_raw["pos"], ori, quat, odom_raw["v_pos"],
+                               odom_raw["v_ori"]]).astype(np.float32)
+    if last is not None:
+        odom = last
+    else:
+        o = OdomState.zeros((1,), device="cpu").replace(
+            pos=torch.tensor([[0.0, 0.0, cfg.base_height]]))
+        odom = torch.cat([o.pos, o.ori, o.quat, o.v_pos, o.v_ori],
+                         -1)[0].numpy()
+    s = np.zeros(ses.SENSORS, np.float32)
+    s[ses.Q], s[ses.DQ], s[ses.TAU] = state["q"], state["dq"], state["tau"]
+    s[ses.ODOM] = odom
+    s[ses.IT] = float(it)
+    return s, last
+
+
+def test_fill_sensors_writes_the_packet_the_old_fill_wrote():
+    """A truth-path sequence through _fill_sensors (before any odometry,
+    a fresh one, none, a fresh one): the packet's 47 sensor floats on the
+    device are the ones the torch fill wrote, within 1e-6."""
+    cfg = TCfg.walking()
+    with ses.ControlSession(cfg, state_port=19582, cmd_port=19583,
+                            device="cpu") as s:
+        last = None
+        for it, (state, odom) in enumerate(_truth_ticks(cfg)):
+            s._fill_sensors(it, state, None, odom, use_kf=False)
+            want, last = _old_fill(cfg, it, state, odom, last)
+            got = s._packet[0, :ses.SENSORS].numpy()
+            np.testing.assert_allclose(got, want, atol=1e-6, rtol=0,
+                                       err_msg=f"tick {it}")
+        assert float(s._packet[0, ses.ORI].abs().max()) > 0.1
+
+
+def test_truth_fill_dispatches_one_op_the_copy():
+    """Every truth-path _fill_sensors (before any odometry, with one,
+    without) makes one torch call: the copy of the pinned sensors into
+    the device packet."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    cfg = TCfg.walking()
+    with ses.ControlSession(cfg, state_port=19582, cmd_port=19583,
+                            device="cpu") as s:
+        for it, (state, odom) in enumerate(_truth_ticks(cfg)):
+            with Ops() as m:
+                s._fill_sensors(it, state, None, odom, use_kf=False)
+            assert m.ops == [torch.ops.aten.copy_.default], (it, m.ops)
