@@ -1090,20 +1090,15 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     kernels = {"walking_mpc_prep": mfc.WALKING_MPC_PREP}
-    kernels.update({VARIANTS[v]: k for v, k in tfc.TICK_KERNELS.items()})
-    kernels.update({STAND_VARIANTS[v]: k
-                    for v, k in tfc.STAND_KERNELS.items()})
+    # the tick kernels, each under its entry point's name
+    kernels.update({k.name: k for k in tfc.TICK_TABLE.values()})
     kernels.update({f"fused_qp_nu{nu}": k for nu, k in mfc.FUSED_QP.items()})
     kernels.update(chol_cuda.KERNELS)
     INV_TICKS = {False: "walking_tick_inv", True: "walking_tick_kf_inv"}
     kernels.update({"walking_mpc_prep_inv": mfc.WALKING_MPC_PREP_INV,
                     "fused_qp_nu3_inv": mfc.FUSED_QP_NU3_INV})
-    kernels.update({INV_TICKS[kf]: tfc.TICK_KERNELS_INV[(kf, False)]
-                    for kf in INV_TICKS})
     STAND_INV_TICKS = {False: "standing_tick_inv",
                        True: "standing_tick_kf_inv"}
-    kernels.update({STAND_INV_TICKS[kf]: tfc.STAND_KERNELS_INV[(kf, False)]
-                    for kf in STAND_INV_TICKS})
     kernels["fused_qp_nu6_inv"] = mfc.FUSED_QP_NU6_INV
     kernels["pdip_fused"] = qp_cuda.PDIP_FUSED
     kernels.update({k.name: k for k in tfc.SESSION_KERNELS})
@@ -2202,7 +2197,8 @@ def main() -> int:
     rec = dataclasses.replace(base, srbd=dataclasses.replace(
         base.srbd, attitude_ref="receding"))
     for c in (rcfg, dls, l6, rec):
-        check(tfc.runs_as_composition(c), f"{c} is not a composition")
+        check(ro.tick_route(c).path == "composition",
+              f"{c} is not a composition")
 
     def variant_loop(name, c, steps, floor, batch=None):
         if batch is None:
@@ -2262,7 +2258,8 @@ def main() -> int:
     pw22, ric22, rec22 = n22(pw), n22(rcfg), n22(rec)
     cs22 = n22(with_solver(scfg, warm=False, method="pdip", iters=20))
     for c in (pw22, cs22, ric22, rec22):
-        check(tfc.runs_as_composition(c), f"N = 22: {c} is not run")
+        check(ro.tick_route(c).path == "composition",
+              f"N = 22: {c} is not run")
     T22 = 100
     path("n22_pdip_walk", lambda: variant_loop("n22_pdip_walk", pw22, T22,
                                                0.5, batch=Bg),
@@ -2275,7 +2272,7 @@ def main() -> int:
     path("n22_receding_walk", lambda: variant_loop(
         "n22_receding_walk", rec22, T22, 0.5, batch=Bg), {"cholesky": T22})
     for N in (22, 42):
-        check(tfc.supports_fused_tick(horizon(cfg, N)),
+        check(ro.tick_route(horizon(cfg, N)).path == "kernel",
               f"walking N = {N} is refused")
         path(f"n{N}_walk", lambda: variant_loop(
             f"n{N}_walk", horizon(cfg, N), T22, 0.6, batch=Bg),
@@ -2294,8 +2291,9 @@ def main() -> int:
 
     path("n86_refusals", n86_refusals, {})
     sa22 = n22(with_solver(scfg, method="admm"))
-    check(tfc.supports_fused_tick(n22(scfg))
-          and tfc.runs_as_composition(sa22), "standing N = 22 is refused")
+    check(ro.tick_route(n22(scfg)).path == "kernel"
+          and ro.tick_route(sa22).path == "composition",
+          "standing N = 22 is refused")
     path("n22_stand", lambda: variant_loop("n22_stand", n22(scfg), T22, 0.6,
                                            batch=Bg),
          {"standing_tick": T22})
@@ -2317,7 +2315,7 @@ def main() -> int:
     for label, c in (("walk", wcfg), ("walk_kf", kcfg), ("stand", scfg),
                      ("stand_kf", kscfg)):
         Tr = 200 if c.mode == "walk" else 100
-        kname = tfc.tick_kernels(c)[(c.estimator_mode == "kf", False)].name
+        kname = ro.tick_route(c).solve.name
         for Br in (1, 4096):
             s0r = perturbed_states(c, Br, seed=8, device=dev, yaw=0.0)
             it0r = torch.tensor((np.arange(Br) * 600) // Br,
@@ -2561,7 +2559,7 @@ def main() -> int:
     from mpc_limx_control_tpu_torch.parallel import mesh as pmesh
     Bm, Tm = 256, 10
     for label, c in (("walk", wcfg), ("walk_kf", kcfg)):
-        kname = tfc.tick_kernels(c)[(c.estimator_mode == "kf", False)].name
+        kname = ro.tick_route(c).solve.name
         s0m = perturbed_states(c, Bm, seed=11, device=dev, yaw=0.0)
         f_ref, m_ref = ro.batched_rollout(c, s0m, Tm)
         st_ref = pmesh.scenario_stats(m_ref)

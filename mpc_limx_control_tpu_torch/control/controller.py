@@ -31,6 +31,7 @@ from mpc_limx_control_tpu_torch.core.types import (JointState, OdomState,
 from mpc_limx_control_tpu_torch.control import gait as gaitmod
 from mpc_limx_control_tpu_torch.models import kinematics as kin
 from mpc_limx_control_tpu_torch.models import srbd
+from mpc_limx_control_tpu_torch.ops import chol_cuda
 from mpc_limx_control_tpu_torch.ops import condense as cnd
 from mpc_limx_control_tpu_torch.ops import mpc_fused_cuda as fqp
 from mpc_limx_control_tpu_torch.ops import qp as qps
@@ -53,6 +54,49 @@ def _check_config(cfg: ControllerConfig) -> None:
     if cfg.srbd.solver.method not in SOLVER_METHODS:
         raise ValueError(f"solver method must be one of {SOLVER_METHODS}, "
                          f"got {cfg.srbd.solver.method!r}")
+
+
+def card_refusal(cfg: ControllerConfig) -> str | None:
+    """Why :func:`tick` cannot run the config on CUDA tensors (None: it
+    can): an unknown value; a horizon past the fused MPC kernel its warm
+    ADMM branch launches (``walking_mpc_prep`` for the level-attitude
+    admm_fused walking QP, :func:`stance_mpc_single_support`;
+    ``fused_qp_nu6`` for the admm / admm_fused standing QP,
+    :func:`stance_mpc`); or, on every other branch but the warm Riccati
+    walking ADMM (which launches none), a dense QP past the Cholesky
+    kernels: each launches ``cholesky``, the largest in shared memory of
+    the three K8 kernels a PDIP launches."""
+    s, c = cfg.srbd.solver, cfg.srbd
+    for field, value, known in (
+            ("mode", cfg.mode, ("walk", "stand")),
+            ("estimator_mode", cfg.estimator_mode, ("truth", "kf")),
+            ("ik_method", cfg.ik_method, IK_METHODS),
+            ("solver method", s.method, SOLVER_METHODS),
+            ("placement_mode", cfg.placement_mode, ("capture", "reference"))):
+        if value not in known:
+            return f"{field}={value!r} is unknown"
+    if s.solve_form not in fqp.KERNEL_SOLVE_FORMS:
+        return (f"solve_form={s.solve_form!r} is unknown "
+                f"(the kernels run {fqp.KERNEL_SOLVE_FORMS})")
+    if c.attitude_ref not in ("level", "receding"):
+        return f"attitude_ref={c.attitude_ref!r} is unknown"
+    if c.horizon < 1:
+        return f"horizon={c.horizon} is not a horizon"
+    stand = cfg.mode == "stand"
+    if cfg.qp_warm_start:
+        if stand and s.method in ("admm", "admm_fused"):
+            return fqp.size_reason("fused_qp_nu6", c.horizon)
+        if not stand and s.method == "admm_fused" \
+                and c.attitude_ref == "level":
+            return fqp.size_reason("walking_mpc_prep", c.horizon)
+        if not stand and s.method == "riccati":
+            return None
+    n = c.horizon * (6 if stand else 3)
+    reason = chol_cuda.size_reason("cholesky", n, 1)
+    if reason is None:
+        return None
+    return (f"horizon={c.horizon}: the dense QP (n = {n}) is past "
+            f"the Cholesky kernels' reach ({reason})")
 
 
 def _cone_rows(cfg: ControllerConfig, dtype, device):

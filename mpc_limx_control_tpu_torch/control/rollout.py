@@ -8,27 +8,18 @@ plant truth
 (``estimator_mode="truth"``) or the 12-state Kalman filter's estimate fed
 by sensors synthesized from the truth (``"kf"``). Batch-first throughout.
 
-Dispatch of :func:`plant_step`:
-
-* CUDA tensors and a config :func:`ops.tick_fused_cuda.supports_fused_tick`
-  accepts (walk or stand mode; truth or KF odometry): the whole tick is
-  ONE launch of a ``walking_tick`` / ``standing_tick`` kernel variant,
-  chosen by the mode, the estimator and by whether the tick holds a force
-  (``grf_override``, the dtMPC schedule);
-* CUDA tensors and any other config the port has
-  (``tick_fused_cuda.runs_as_composition``: a cold start, PDIP, the dense
-  ADMM -- ``ControllerConfig()`` itself --, the Riccati solver, the
-  iterative IKs, the receding attitude reference):
-  :func:`_plant_step_ref` on the card, as the JAX package runs the
-  composition for such configs on the TPU; its dense QP solves launch the
-  batched Cholesky / SPD-solve kernels of ``ops/chol_cuda.py``, its warm
-  fused solves the MPC kernels where they apply;
-* CUDA tensors with an unknown value, a horizon past what the MPC kernel
-  the tick would launch takes (85 steps walking, 42 standing), or a dense
-  QP past the Cholesky kernels' order: NotImplementedError naming it,
-  before the tick;
-* CPU tensors: :func:`_plant_step_ref`, the plain composition, as the JAX
-  package runs off the TPU.
+Dispatch of :func:`plant_step`: CPU tensors run :func:`_plant_step_ref`,
+the plain composition, as the JAX package runs off the TPU. CUDA tensors
+take :func:`tick_route`'s path: where the tick kernels implement the
+config, ONE launch a tick of a ``walking_tick`` / ``standing_tick``
+variant (chosen by the mode, the estimator, the solve form and whether the
+tick holds a force, ``grf_override``); else :func:`_plant_step_ref` on the
+card, as the JAX package runs its composition on the TPU (a cold start,
+PDIP, the dense ADMM -- ``ControllerConfig()`` itself --, Riccati, the
+iterative IKs, the receding reference: its dense QP solves launch the
+``ops/chol_cuda.py`` kernels, its warm fused solves the MPC kernels where
+they apply); NotImplementedError, before the tick, where the controller
+cannot run it on the card either.
 
 :func:`rollout` / :func:`batched_rollout` write the per-tick metrics into
 tensors preallocated on the state's device and never synchronize with the
@@ -39,6 +30,7 @@ device and fetches the reductions once.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -51,6 +43,7 @@ from mpc_limx_control_tpu_torch.control import estimator as est
 from mpc_limx_control_tpu_torch.control import gait as gaitmod
 from mpc_limx_control_tpu_torch.models import kinematics as kin
 from mpc_limx_control_tpu_torch.models import srbd
+from mpc_limx_control_tpu_torch.ops import _build
 from mpc_limx_control_tpu_torch.ops import tick_fused_cuda as tfc
 from mpc_limx_control_tpu_torch.utils import rotations as rot
 
@@ -209,6 +202,46 @@ def _kf_metrics(kf: KFState) -> dict:
     return {"kf_cov_pos": d[:, 0:3], "kf_cov_vel": d[:, 3:6]}
 
 
+class TickRoute(NamedTuple):
+    """The path of a config's tick on the card: ``path`` "kernel", with the
+    kernels of its solving and held-force ticks, or "composition" (the
+    plain tick on the card, no kernels named)."""
+
+    path: str
+    solve: _build.Kernel | None = None
+    hold: _build.Kernel | None = None
+
+
+def tick_route(cfg: ControllerConfig) -> TickRoute:
+    """How :func:`plant_step` runs the config on CUDA tensors: the tick
+    kernels where they implement it, else the composition where the
+    controller runs it on the card; NotImplementedError where neither
+    does, with the controller's reason (an unknown value, or the horizon
+    of the kernels its branch launches)."""
+    if tfc.kernel_refusal(cfg) is None:
+        return TickRoute("kernel", tfc.tick_kernel(cfg, False),
+                         tfc.tick_kernel(cfg, True))
+    reason = ctrl.card_refusal(cfg)
+    if reason is not None:
+        raise NotImplementedError(f"the card runs neither the tick kernels "
+                                  f"nor the composition: {reason}")
+    return TickRoute("composition")
+
+
+def _kernel_state_reason(cfg: ControllerConfig, state: PlantState):
+    """Why the tick kernel cannot run `state` (None: it can): it needs the
+    warm QP state, and the filter fields exactly with the KF."""
+    if state.qp_z is None or state.qp_lam is None:
+        return "the tick kernel needs the warm QP state (qp_warm_start)"
+    kf_state = (state.kf is not None and state.prev_v is not None
+                and state.prev_q is not None)
+    if kf_state != (cfg.estimator_mode == "kf"):
+        return (f"estimator_mode={cfg.estimator_mode!r} needs a state "
+                f"{'with' if not kf_state else 'without'} the filter "
+                "fields (kf, prev_v, prev_q)")
+    return None
+
+
 def plant_step(cfg: ControllerConfig, state: PlantState,
                iteration: torch.Tensor, grf_override=None, v_des=None):
     """One 1 kHz simulation tick for a batch of scenarios; returns
@@ -220,13 +253,11 @@ def plant_step(cfg: ControllerConfig, state: PlantState,
     re-solve schedule, include/MPCParam.h:46-47).
     ``v_des`` overrides the configured velocity command. See the module
     docstring for the dispatch."""
-    if state.xi.device.type == "cpu":
+    if (state.xi.device.type == "cpu"
+            or tick_route(cfg).path == "composition"):
         return _plant_step_ref(cfg, state, iteration,
                                grf_override=grf_override, v_des=v_des)
-    if tfc.runs_as_composition(cfg):
-        return _plant_step_ref(cfg, state, iteration,
-                               grf_override=grf_override, v_des=v_des)
-    reason = tfc.unsupported_reason(cfg, state)
+    reason = _kernel_state_reason(cfg, state)
     if reason is not None:
         raise NotImplementedError(f"plant_step on {state.xi.device}: "
                                   f"{reason}")
@@ -246,13 +277,13 @@ def plant_step(cfg: ControllerConfig, state: PlantState,
     kf_args = {} if kf is None else dict(
         kf_x=kf.x_hat, kf_p=kf.p_cov, prev_v=state.prev_v.contiguous(),
         prev_q=state.prev_q)
-    (xi, q, fl, fr, z, y, anc_n, res, grf, tgt, *kf_out) = \
-        tfc.fused_walking_tick(
-            state.xi, state.q, state.foot_l, state.foot_r, state.qp_z,
-            state.qp_lam, anc.contiguous(), it.contiguous(),
-            vd.contiguous(), wd, cfg=cfg, **kf_args,
-            grf_held=(None if grf_override is None
-                      else grf_override.contiguous()))
+    plan = tfc.prepare_tick_launch(
+        state.xi, state.q, state.foot_l, state.foot_r, state.qp_z,
+        state.qp_lam, anc.contiguous(), it.contiguous(), vd.contiguous(), wd,
+        cfg=cfg, **kf_args,
+        grf_held=None if grf_override is None else grf_override.contiguous())
+    plan.launch()
+    (xi, q, fl, fr, z, y, anc_n, res, grf, tgt, *kf_out) = plan.results
     new_state = PlantState(
         xi=xi, q=q, foot_l=fl, foot_r=fr, qp_z=z, qp_lam=y,
         ref_anchor=anc_n if state.ref_anchor is not None else None)
@@ -452,9 +483,9 @@ def batched_rollout_resident(cfg: ControllerConfig, state0: PlantState,
     rollout.py:566-685, which carries the kernel's batch-last layout
     through one ``lax.scan``).
 
-    Takes what ``tick_fused_cuda.supports_fused_tick`` takes (walk or
-    stand, truth or KF odometry, solve_form "subst" or "inv"; ValueError
-    otherwise), every tick solving. State buffers A and B alternate as the
+    Takes what the tick kernels implement (``tick_route``'s "kernel"
+    path: walk or stand, truth or KF odometry, solve_form "subst" or
+    "inv"; ValueError otherwise), every tick solving. State buffers A and B alternate as the
     kernel's input and output; the iteration, the tick index and the
     metrics (``[B, steps, ...]``, JAX's keys, ``est_error`` zero with
     truth odometry) are written on the device. On the card the first tick
@@ -468,7 +499,7 @@ def batched_rollout_resident(cfg: ControllerConfig, state0: PlantState,
     """
     from mpc_limx_control_tpu_torch.ops import graphs
 
-    reason = tfc._config_reason(cfg)
+    reason = tfc.kernel_refusal(cfg)
     if reason is not None:
         raise ValueError("batched_rollout_resident runs the tick kernels, "
                          f"which do not implement this config: {reason}")

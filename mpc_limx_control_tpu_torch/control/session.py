@@ -32,7 +32,7 @@ same kernels, launched one by one), and CPU tensors (``device="cpu"``)
 always run them eagerly.
 
 On the card a walking session whose config the tick kernels implement
-(``tick_fused_cuda.runs_session_kernel``) runs its solve and held-force
+(``tick_fused_cuda.kernel_refusal`` None) runs its solve and held-force
 ticks as one kernel launch each (``walking_session_tick`` /
 ``walking_session_tick_hold``, csrc/session_tick.cu) instead of the plain
 ``controller.tick``: the counterpart of XLA's fusion of the JAX session's
@@ -200,6 +200,14 @@ def _packed(cmd) -> torch.Tensor:
     return torch.cat([cmd.q, cmd.dq, cmd.tau, cmd.kp, cmd.kd], -1)
 
 
+def _kernel_ticks(cfg, device) -> bool:
+    """Whether a session on `device` runs its solve and held-force ticks as
+    the ``walking_session_tick`` kernels: a CUDA device and a walking
+    config that the tick kernels implement."""
+    return (torch.device(device).type == "cuda" and cfg.mode == "walk"
+            and tfc.kernel_refusal(cfg) is None)
+
+
 class ControlSession:
     """The MPCWalking application: init -> start (move to zero) -> run.
 
@@ -256,7 +264,7 @@ class ControlSession:
         self._sens_np[OQUAT.stop - 1] = 1.0
         # the solve and held-force ticks: one kernel launch each where the
         # tick kernels implement the walking config on the card
-        self._kernel = tfc.runs_session_kernel(c, self.device)
+        self._kernel = _kernel_ticks(c, self.device)
         fns = {"est": self._est_fn}
         if self._kernel:
             fns.update({"warm": self._warm_kernel, "hold": self._hold_kernel})

@@ -20,7 +20,6 @@ import torch
 
 from mpc_limx_control_tpu_torch.control import rollout as ro
 from mpc_limx_control_tpu_torch.core.config import ControllerConfig
-from mpc_limx_control_tpu_torch.ops import tick_fused_cuda as tfc
 from mpc_limx_control_tpu_torch.parallel import mesh as pmesh
 
 
@@ -70,8 +69,8 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     state0 = ro.initial_plant_state(cfg, batch=(batch,),
                                     device=mesh.devices[0])
     if on_card:
-        _check(tfc.supports_fused_tick(cfg), "the tick kernel is not the "
-               "card's path")
+        _check(ro.tick_route(cfg).path == "kernel", "the tick kernel is not "
+               "the card's path")
     sharded = pmesh.shard_leading(state0, mesh)
 
     # GSPMD style: the program reduces the statistics
@@ -96,8 +95,8 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
     # (x_hat [12], P [12,12]) through the sharded tick
     cfg_kf = dataclasses.replace(cfg, estimator_mode="kf")
     if on_card:
-        _check(tfc.supports_fused_tick(cfg_kf), "the KF tick kernel is not "
-               "the card's path")
+        _check(ro.tick_route(cfg_kf).path == "kernel", "the KF tick kernel "
+               "is not the card's path")
     state_kf = pmesh.shard_leading(ro.initial_plant_state(
         cfg_kf, batch=(batch,), device=mesh.devices[0]), mesh)
     ns_kf, _ = pmesh.sharded_batch_step(cfg_kf, mesh)(state_kf, 0.0)

@@ -30,13 +30,14 @@ the MPC core with the explicit factor inverse, csrc/mpc_core.cuh, where
 n = nu N <= 64; the substitution sweeps beyond, as the TPU kernel does,
 mpc_fused_pallas.py:249); hold ticks run no solve.
 
-:func:`supports_fused_tick` accepts only what these kernels run.
+:func:`kernel_refusal` says why these kernels do not implement a config
+(None: they do); ``control.rollout.tick_route`` combines it with the
+controller's own answer into the path a config takes on the card.
 
 The live session's walking ticks at batch 1 have two entry points of their
 own (``csrc/session_tick.cu``): ``walking_session_tick`` (the warm solve
 tick) and ``walking_session_tick_hold`` (the held-force tick), which read
-the session's packet and write its command, with no plant step;
-:func:`runs_session_kernel` says which sessions take them.
+the session's packet and write its command, with no plant step.
 """
 
 from __future__ import annotations
@@ -48,53 +49,40 @@ from typing import NamedTuple
 
 import torch
 
-from mpc_limx_control_tpu_torch.control.controller import (IK_METHODS,
-                                                            SOLVER_METHODS)
-from mpc_limx_control_tpu_torch.ops import _build, chol_cuda
+from mpc_limx_control_tpu_torch.ops import _build
 from mpc_limx_control_tpu_torch.ops.mpc_fused_cuda import (
     KERNEL_SOLVE_FORMS, NX, MpcParams, mpc_params, plain_solve_form,
     size_reason)
 
-# The kernels and their launch counters (see ops/_build.py). The hold
-# variants take neither the warm QP state nor return it (it passes
-# through); the KF variants take the filter state, prev_v and prev_q and
-# return the filter state.
+# The kernels and their launch counters (see ops/_build.py), by (mode,
+# estimator_mode, hold, solve_form). The hold variants take neither the
+# warm QP state nor return it (it passes through) and run no solve, so
+# both solve forms share them; the KF variants take the filter state,
+# prev_v and prev_q and return the filter state.
 _SIZER = "walking_tick_params_bytes"
-WALKING_TICK = _build.Kernel("walking_tick", n_ptr=20, params_sizer=_SIZER)
-WALKING_TICK_HOLD = _build.Kernel("walking_tick_hold", n_ptr=17,
-                                  params_sizer=_SIZER)
-WALKING_TICK_KF = _build.Kernel("walking_tick_kf", n_ptr=26,
-                                params_sizer=_SIZER)
-WALKING_TICK_KF_HOLD = _build.Kernel("walking_tick_kf_hold", n_ptr=23,
-                                     params_sizer=_SIZER)
-TICK_KERNELS = {(False, False): WALKING_TICK, (False, True): WALKING_TICK_HOLD,
-                (True, False): WALKING_TICK_KF,
-                (True, True): WALKING_TICK_KF_HOLD}
-# walking with solve_form = "inv": the solving forms change, the hold forms
-# (no solve) are shared
-TICK_KERNELS_INV = dict(TICK_KERNELS)
-TICK_KERNELS_INV.update({
-    key: _build.Kernel(TICK_KERNELS[key].name + "_inv",
-                       n_ptr=TICK_KERNELS[key].n_ptr, params_sizer=_SIZER)
-    for key in ((False, False), (True, False))})
-# the standing forms, same pointer lists; keys (est_kf, hold) as above
-STAND_KERNELS = {
-    key: _build.Kernel(k.name.replace("walking", "standing"), n_ptr=k.n_ptr,
-                       params_sizer=_SIZER)
-    for key, k in TICK_KERNELS.items()}
-STAND_KERNELS_INV = dict(STAND_KERNELS)
-STAND_KERNELS_INV.update({
-    key: _build.Kernel(STAND_KERNELS[key].name + "_inv",
-                       n_ptr=STAND_KERNELS[key].n_ptr, params_sizer=_SIZER)
-    for key in ((False, False), (True, False))})
 
 
-def tick_kernels(cfg) -> dict:
-    """(est_kf, hold) -> kernel for the config's mode and solve form."""
-    inv = cfg.srbd.solver.solve_form == "inv"
-    if cfg.mode == "stand":
-        return STAND_KERNELS_INV if inv else STAND_KERNELS
-    return TICK_KERNELS_INV if inv else TICK_KERNELS
+def _tick_table() -> dict:
+    table = {}
+    for mode, stem in (("walk", "walking_tick"), ("stand", "standing_tick")):
+        for est, kf, n_ptr in (("truth", "", 20), ("kf", "_kf", 26)):
+            hold = _build.Kernel(f"{stem}{kf}_hold", n_ptr=n_ptr - 3,
+                                 params_sizer=_SIZER)
+            for form, suffix in (("subst", ""), ("inv", "_inv")):
+                table[mode, est, False, form] = _build.Kernel(
+                    f"{stem}{kf}{suffix}", n_ptr=n_ptr, params_sizer=_SIZER)
+                table[mode, est, True, form] = hold
+    return table
+
+
+TICK_TABLE = _tick_table()
+
+
+def tick_kernel(cfg, hold: bool) -> _build.Kernel:
+    """The kernel of the config's solving tick (hold False) or held-force
+    tick (hold True)."""
+    return TICK_TABLE[cfg.mode, cfg.estimator_mode, hold,
+                      cfg.srbd.solver.solve_form]
 
 
 class TickParams(ctypes.Structure):
@@ -212,18 +200,9 @@ def session_params(cfg) -> SessionParams:
     return p
 
 
-def runs_session_kernel(cfg, device) -> bool:
-    """True when a ``ControlSession`` on `device` runs its solve and
-    held-force ticks as the ``walking_session_tick`` kernels: a CUDA
-    device and a walking config that the tick kernels implement
-    (:func:`supports_fused_tick`). Standing sessions, CPU sessions and
-    configs the tick kernels refuse keep the plain tick functions."""
-    return (torch.device(device).type == "cuda" and cfg.mode == "walk"
-            and supports_fused_tick(cfg))
-
-
 def _session_checks(cfg, tensors, device) -> int:
-    if not runs_session_kernel(cfg, device):
+    if (device.type != "cuda" or cfg.mode != "walk"
+            or kernel_refusal(cfg) is not None):
         raise ValueError("the session kernels run walking configs that the "
                          "tick kernels implement, on CUDA tensors")
     B = tensors[0][1].shape[0]
@@ -257,18 +236,30 @@ def walking_session_tick_hold(cfg, packet, out) -> None:
                                      packet.device)
 
 
-def supports_fused_tick(cfg) -> bool:
-    """True when the ``walking_tick`` / ``standing_tick`` kernels implement
-    the config's tick: walk or stand mode, truth or KF odometry, analytic
-    IK, the warm ``admm_fused`` solver (solve_form "subst" or "inv"),
-    capture or reference placement, and a QP the MPC core implements
-    (level attitude; a horizon of 1 to 85 steps walking, 1 to 42
-    standing)."""
-    return _config_reason(cfg) is None
-
-
-def _solver_reason(cfg) -> str | None:
-    """Why the config's QP solver is not the tick kernel's (None: it is)."""
+def kernel_refusal(cfg) -> str | None:
+    """Why the ``walking_tick`` / ``standing_tick`` kernels do not implement
+    the config's tick (None: they do). They run walk or stand mode, truth
+    or KF odometry, capture or reference placement, solve_form "subst" or
+    "inv", at a horizon their MPC core takes (``mpc_fused_cuda.size_reason``
+    of the solving kernel: 1 to 85 steps walking, 1 to 42 standing, within
+    a block's shared memory), with the analytic IK, the level attitude
+    reference and the warm ``admm_fused`` solver."""
+    for field, value, runs in (
+            ("mode", cfg.mode, ("walk", "stand")),
+            ("estimator_mode", cfg.estimator_mode, ("truth", "kf")),
+            ("placement_mode", cfg.placement_mode, ("capture", "reference")),
+            ("solve_form", cfg.srbd.solver.solve_form, KERNEL_SOLVE_FORMS)):
+        if value not in runs:
+            return f"the tick kernels run {field} in {runs} (got {value!r})"
+    reason = size_reason(tick_kernel(cfg, False).name, cfg.srbd.horizon)
+    if reason is not None:
+        return reason
+    if cfg.ik_method != "analytic":
+        return ("the tick kernels run the analytic IK (got ik_method="
+                f"{cfg.ik_method!r})")
+    if cfg.srbd.attitude_ref != "level":
+        return ("the tick kernels' MPC is level-attitude only (got "
+                f"attitude_ref={cfg.srbd.attitude_ref!r})")
     if not cfg.qp_warm_start or cfg.srbd.solver.method != "admm_fused":
         return ("only the warm admm_fused solver runs in the tick kernel "
                 f"(got method={cfg.srbd.solver.method!r}, qp_warm_start="
@@ -276,125 +267,11 @@ def _solver_reason(cfg) -> str | None:
     return None
 
 
-def _variant_reason(cfg) -> str | None:
-    """Why the tick kernels refuse a config for its swing IK or attitude
-    reference (None: they do not)."""
-    if cfg.ik_method != "analytic":
-        return ("the tick kernels run the analytic IK (got ik_method="
-                f"{cfg.ik_method!r})")
-    if cfg.srbd.attitude_ref != "level":
-        return ("the tick kernels' MPC is level-attitude only (got "
-                f"attitude_ref={cfg.srbd.attitude_ref!r})")
-    return None
-
-
-def runs_as_composition(cfg) -> bool:
-    """True when the tick kernels refuse a config that the port runs all
-    the same: a solver other than the warm admm_fused (cold starts, PDIP,
-    the dense ADMM, Riccati), an iterative swing IK or the receding
-    attitude reference. ``rollout.plant_step`` then runs the plain
-    composition of the tick on the card, as the JAX package runs its
-    composition for such configs on the TPU: its dense QP solves launch the
-    ``ops/chol_cuda.py`` kernels, its warm admm_fused solves the fused MPC
-    kernels where they apply (level attitude walking, any standing). The
-    horizon is bounded only where the composition launches an MPC kernel
-    (85 steps walking, 42 standing) or a Cholesky kernel
-    (``chol_cuda.MAX_N`` within a block's shared memory)."""
-    return (_other_reason(cfg) is None
-            and (_variant_reason(cfg) or _solver_reason(cfg)) is not None
-            and _composition_reason(cfg) is None)
-
-
-def _config_reason(cfg) -> str | None:
-    return (_other_reason(cfg) or _horizon_reason(cfg)
-            or _variant_reason(cfg) or _solver_reason(cfg))
-
-
-def _other_reason(cfg) -> str | None:
-    """Why the port cannot run the config on the card at all (None: it
-    can): an unknown value."""
-    if cfg.mode not in ("walk", "stand"):
-        return f"mode={cfg.mode!r} is unknown"
-    if cfg.estimator_mode not in ("truth", "kf"):
-        return f"estimator_mode={cfg.estimator_mode!r} is unknown"
-    if cfg.ik_method not in IK_METHODS:
-        return f"ik_method={cfg.ik_method!r} is unknown"
-    if cfg.srbd.solver.method not in SOLVER_METHODS:
-        return f"solver method={cfg.srbd.solver.method!r} is unknown"
-    if cfg.placement_mode not in ("capture", "reference"):
-        return f"placement_mode={cfg.placement_mode!r} is unknown"
-    if cfg.srbd.solver.solve_form not in KERNEL_SOLVE_FORMS:
-        return (f"solve_form={cfg.srbd.solver.solve_form!r} is unknown "
-                f"(the kernels run {KERNEL_SOLVE_FORMS})")
-    if cfg.srbd.attitude_ref not in ("level", "receding"):
-        return f"attitude_ref={cfg.srbd.attitude_ref!r} is unknown"
-    if cfg.srbd.horizon < 1:
-        return f"horizon={cfg.srbd.horizon} is not a horizon"
-    return None
-
-
-def _horizon_reason(cfg, entry: str | None = None) -> str | None:
-    """Why the MPC kernel `entry` (default: the config's solving tick
-    kernel; ``walking_mpc_prep`` or ``fused_qp_nu6`` for a composition)
-    cannot take the config's horizon (None: it can): walking 1 to 85
-    steps, standing 1 to 42, within a block's shared memory."""
-    if entry is None:
-        entry = ("standing_tick" if cfg.mode == "stand" else "walking_tick")
-        entry += "_kf" if cfg.estimator_mode == "kf" else ""
-    return size_reason(entry, cfg.srbd.horizon)
-
-
-def _launches_mpc_kernel(cfg) -> bool:
-    """Whether controller.tick reaches a fused MPC kernel on CUDA tensors:
-    the warm admm_fused walking QP with the level reference
-    (``walking_mpc_prep``, whatever the swing IK) or the warm admm /
-    admm_fused standing QP (``fused_qp_nu6``)."""
-    if not cfg.qp_warm_start:
-        return False
-    method = cfg.srbd.solver.method
-    if cfg.mode == "stand":
-        return method in ("admm", "admm_fused")
-    return method == "admm_fused" and cfg.srbd.attitude_ref == "level"
-
-
-def _composition_reason(cfg) -> str | None:
-    """Why the composition of a config the tick kernels refuse cannot run
-    on the card (None: it can): the horizon of the MPC kernel it launches,
-    or a QP too large for the Cholesky kernels. Every dense-QP path
-    launches ``cholesky``, whose shared memory is the largest of the
-    three K8 kernels a PDIP launches; the warm Riccati walking ADMM
-    launches none."""
-    if _launches_mpc_kernel(cfg):
-        return _horizon_reason(cfg, "fused_qp_nu6" if cfg.mode == "stand"
-                               else "walking_mpc_prep")
-    if (cfg.mode == "walk" and cfg.qp_warm_start
-            and cfg.srbd.solver.method == "riccati"):
-        return None
-    n = cfg.srbd.horizon * (6 if cfg.mode == "stand" else 3)
-    reason = chol_cuda.size_reason("cholesky", n, 1)
-    if reason is None:
-        return None
-    return (f"horizon={cfg.srbd.horizon}: the dense QP (n = {n}) is past "
-            f"the Cholesky kernels' reach ({reason})")
-
-
-def unsupported_reason(cfg, state) -> str | None:
-    """Why plant_step cannot run `state` on the tick kernel (None: it can).
-    For a config the tick kernels refuse, the reason the composition
-    cannot run either comes first."""
-    reason = _other_reason(cfg)
-    if reason is None and (_variant_reason(cfg) or _solver_reason(cfg)):
-        reason = _composition_reason(cfg)
-    reason = reason or _config_reason(cfg)
-    if reason is None and (state.qp_z is None or state.qp_lam is None):
-        reason = "the tick kernel needs the warm QP state (qp_warm_start)"
-    kf_state = (state.kf is not None and state.prev_v is not None
-                and state.prev_q is not None)
-    if reason is None and kf_state != (cfg.estimator_mode == "kf"):
-        reason = (f"estimator_mode={cfg.estimator_mode!r} needs a state "
-                  f"{'with' if not kf_state else 'without'} the filter "
-                  "fields (kf, prev_v, prev_q)")
-    return reason
+def supports_fused_tick(cfg) -> bool:
+    """True when the tick kernels implement the config's tick (the JAX
+    ``tick_fused_pallas.supports_fused_tick``): :func:`kernel_refusal` is
+    None."""
+    return kernel_refusal(cfg) is None
 
 
 def fused_walking_tick(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
@@ -422,7 +299,7 @@ def fused_walking_tick(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
     exact-solve ADMM (``solve_form="subst"``; ``"linv"`` for the ``inv``
     forms where n = nu N <= 64).
     """
-    reason = _config_reason(cfg)
+    reason = kernel_refusal(cfg)
     if reason is not None:
         raise ValueError(f"the tick kernels do not implement this config: "
                          f"{reason}")
@@ -536,7 +413,7 @@ def prepare_tick_launch(xi, q, foot_l, foot_r, z_warm, y_warm, anchor, it,
     state_out, cmd_out, kf_out = outs[:4], outs[n_kf - 4:n_kf], outs[n_kf:]
     results = (state_out + (z_warm, y_warm) + cmd_out + kf_out if hold
                else outs)
-    return TickLaunch(tick_kernels(cfg)[(est_kf, hold)], tick_params(cfg),
+    return TickLaunch(tick_kernel(cfg, hold), tick_params(cfg),
                       [t.data_ptr() for _, t, _ in ins]
                       + [t.data_ptr() for t in outs], B, results,
                       tuple(t for _, t, _ in ins))

@@ -387,7 +387,7 @@ def _shard_rollout(cfg, s, steps: int, start):
     the card, its plain version on the CPU; on the card bit for bit
     ``batched_rollout``) where the tick kernels take the config, else
     ``batched_rollout``."""
-    if tfc.supports_fused_tick(cfg):
+    if tfc.kernel_refusal(cfg) is None:
         return ro.batched_rollout_resident(cfg, s, steps,
                                            start_iteration=start)
     return ro.batched_rollout(cfg, s, steps, start_iteration=start)

@@ -106,9 +106,11 @@ def test_tick_kernel_matches_plain(cuda_device):
     B = 257
     s0 = _states(cfg, B, 0, cuda_device)
     its = _staggered(B, cuda_device)
-    before = tfc.WALKING_TICK.launches
+    kern = ro.tick_route(cfg).solve
+    assert kern.name == "walking_tick"
+    before = kern.launches
     s_k, m_k = ro.plant_step(cfg, s0, its)
-    assert tfc.WALKING_TICK.launches == before + 1
+    assert kern.launches == before + 1
     s_p, m_p = ro._plant_step_ref(cfg, s0, its, solve_form="subst")
     for k, a in (("xi", 3e-4), ("q", 5e-4), ("foot_l", 5e-4),
                  ("foot_r", 5e-4), ("ref_anchor", 1e-5)):
@@ -143,7 +145,7 @@ def test_walking_tick_past_21_steps_matches_plain(cuda_device, est_kf, N):
     for j in range(3):
         s0, _ = ro._plant_step_ref(cfg, s0, its + j, solve_form="subst")
     its = its + 3.0
-    kern = tfc.TICK_KERNELS[(est_kf, False)]
+    kern = ro.tick_route(cfg).solve
     before = kern.launches
     s_k, m_k = ro.plant_step(cfg, s0, its)
     assert kern.launches == before + 1
@@ -176,7 +178,8 @@ def test_tick_variant_matches_plain(cuda_device, variant, B):
     cfg = ControllerConfig.walking()
     if est_kf:
         cfg = dataclasses.replace(cfg, estimator_mode="kf")
-    kern = tfc.TICK_KERNELS[(est_kf, hold)]
+    route = ro.tick_route(cfg)
+    kern = route.hold if hold else route.solve
     # the filter's states get no yaw kick (as in the JAX KF tests): a yaw
     # off the joints' frame puts its measured feet ~10 cm from its state,
     # and within three ticks some swing targets leave the leg's reach,
@@ -231,10 +234,13 @@ def test_dtmpc_rollout_launch_counts(cuda_device):
     cfg = dataclasses.replace(ControllerConfig.walking(),
                               estimator_mode="kf")
     s = ro.initial_plant_state(cfg, batch=(8,), device=cuda_device)
-    counts = [k.launches for k in tfc.TICK_KERNELS.values()]
+    walking = {(est == "kf", hold): k
+               for (mode, est, hold, form), k in tfc.TICK_TABLE.items()
+               if mode == "walk" and form == "subst"}
+    counts = [k.launches for k in walking.values()]
     _, m = ro.batched_rollout(cfg, s, 50, mpc_every=5)
-    after = dict(zip(tfc.TICK_KERNELS, (k.launches - c for k, c in zip(
-        tfc.TICK_KERNELS.values(), counts))))
+    after = dict(zip(walking, (k.launches - c for k, c in zip(
+        walking.values(), counts))))
     assert after == {(False, False): 0, (False, True): 0, (True, False): 10,
                      (True, True): 40}
     assert bool(torch.isfinite(m["kf_cov_pos"]).all())
@@ -261,43 +267,51 @@ def test_unsupported_configs_raise_on_cuda(cuda_device):
     s = ro.initial_plant_state(cfg, batch=(2,), device=cuda_device)
     it = torch.zeros(2, device=cuda_device)
     # held ticks (K4) are ported: they launch the hold variant
-    before = tfc.WALKING_TICK_HOLD.launches
+    kern = ro.tick_route(cfg).hold
+    assert kern.name == "walking_tick_hold"
+    before = kern.launches
     ro.plant_step(cfg, s, it, grf_override=torch.zeros(
         2, 6, device=cuda_device))
-    assert tfc.WALKING_TICK_HOLD.launches == before + 1
+    assert kern.launches == before + 1
     # the receding reference runs the composition: its QP's factorization
     # is the cholesky kernel, no tick kernel launches
     rec = dataclasses.replace(cfg, srbd=dataclasses.replace(
         cfg.srbd, attitude_ref="receding"))
-    ticks = [k.launches for k in tfc.TICK_KERNELS.values()]
+    ticks = [k.launches for k in tfc.TICK_TABLE.values()]
     before = chol_cuda.CHOLESKY.launches
     ro.plant_step(rec, s, it)
     assert chol_cuda.CHOLESKY.launches == before + 1
-    assert [k.launches for k in tfc.TICK_KERNELS.values()] == ticks
+    assert [k.launches for k in tfc.TICK_TABLE.values()] == ticks
     # an unknown value still raises
     with pytest.raises(NotImplementedError, match="ik_method"):
         ro.plant_step(dataclasses.replace(cfg, ik_method="x"), s, it)
     # standing (K6) is ported: it launches the standing kernel
     stand = ControllerConfig.standing()
-    before = tfc.STAND_KERNELS[(False, False)].launches
+    kern = ro.tick_route(stand).solve
+    assert kern.name == "standing_tick"
+    before = kern.launches
     ro.plant_step(stand, ro.initial_plant_state(
         stand, batch=(2,), device=cuda_device), it)
-    assert tfc.STAND_KERNELS[(False, False)].launches == before + 1
+    assert kern.launches == before + 1
     inv = dataclasses.replace(cfg, srbd=dataclasses.replace(
         cfg.srbd, solver=dataclasses.replace(cfg.srbd.solver,
                                              solve_form="inv")))
     # solve_form="inv" (K1) is ported: walking launches the inv entry
     # point
-    before = tfc.TICK_KERNELS_INV[(False, False)].launches
+    kern = ro.tick_route(inv).solve
+    assert kern.name == "walking_tick_inv"
+    before = kern.launches
     ro.plant_step(inv, s, it)
-    assert tfc.TICK_KERNELS_INV[(False, False)].launches == before + 1
+    assert kern.launches == before + 1
     # standing launches its inv entry point (which at n = 120 > 64 runs the
     # substitution sweeps)
     sinv = dataclasses.replace(stand, srbd=inv.srbd)
-    before = tfc.STAND_KERNELS_INV[(False, False)].launches
+    kern = ro.tick_route(sinv).solve
+    assert kern.name == "standing_tick_inv"
+    before = kern.launches
     ro.plant_step(sinv, ro.initial_plant_state(
         sinv, batch=(2,), device=cuda_device), it)
-    assert tfc.STAND_KERNELS_INV[(False, False)].launches == before + 1
+    assert kern.launches == before + 1
 
 
 def _stand_states(cfg, B, seed, device):
@@ -340,7 +354,8 @@ def _stand_variant_vs_plain(cuda_device, variant, N, B=257, inv=False):
     if inv:
         cfg = _inv(cfg)
     form = mfc.plain_solve_form(cfg.srbd.solver.solve_form, 6, N)
-    kern = tfc.tick_kernels(cfg)[(est_kf, hold)]
+    route = ro.tick_route(cfg)
+    kern = route.hold if hold else route.solve
     s0 = _stand_states(cfg, B, 2, cuda_device)
     its = _staggered(B, cuda_device)
     for j in range(3):
@@ -422,7 +437,7 @@ def _hold_across_a_phase_switch(device, mode, B, est_kf):
            else ControllerConfig.standing())
     if est_kf:
         cfg = dataclasses.replace(cfg, estimator_mode="kf")
-    kern = tfc.tick_kernels(cfg)[(est_kf, True)]
+    kern = ro.tick_route(cfg).hold
     assert kern.name == f"{'walking' if mode == 'walk' else 'standing'}" \
         f"_tick{'_kf' if est_kf else ''}_hold"
     s0 = (_states(cfg, B, 3, device, yaw=0.0 if est_kf else 0.1)
@@ -622,8 +637,9 @@ def test_stand_rollout_launch_counts(cuda_device):
     cfg = dataclasses.replace(ControllerConfig.standing(),
                               estimator_mode="kf")
     s = ro.initial_plant_state(cfg, batch=(8,), device=cuda_device)
-    kernels = {**tfc.TICK_KERNELS,
-               **{("stand", *k): v for k, v in tfc.STAND_KERNELS.items()}}
+    kernels = {(mode, est == "kf", hold): k
+               for (mode, est, hold, form), k in tfc.TICK_TABLE.items()
+               if form == "subst"}
     counts = {k: v.launches for k, v in kernels.items()}
     _, m = ro.batched_rollout(cfg, s, 50, mpc_every=5)
     after = {k: v.launches - counts[k] for k, v in kernels.items()}
@@ -1008,7 +1024,7 @@ def test_tick_inv_kernels_match_twin_and_subst(cuda_device, est_kf):
     for j in range(3):
         s0, _ = ro._plant_step_ref(cfg, s0, its + j, solve_form="subst")
     its = its + 3.0
-    kern = tfc.TICK_KERNELS_INV[(est_kf, False)]
+    kern = ro.tick_route(cfg).solve
     assert kern.name == ("walking_tick_kf_inv" if est_kf
                          else "walking_tick_inv")
     before = kern.launches
@@ -1025,7 +1041,8 @@ def test_tick_inv_kernels_match_twin_and_subst(cuda_device, est_kf):
     torch.testing.assert_close(m_k["grf"], m_p["grf"], atol=5e-2, rtol=0)
     torch.testing.assert_close(m_k["grf"], m_s["grf"], atol=5e-2, rtol=0)
     # a held tick of an inv config runs the shared hold kernel
-    hold = tfc.TICK_KERNELS[(est_kf, True)]
+    hold = ro.tick_route(base).hold
+    assert hold is ro.tick_route(cfg).hold
     before = hold.launches
     ro.plant_step(cfg, s0, its, grf_override=m_k["grf"])
     assert hold.launches == before + 1
@@ -1054,7 +1071,7 @@ def test_inv_entries_equal_subst_past_n64(cuda_device):
             else cfg
         s0 = _states(base, 33, 7, cuda_device, yaw=0.0 if est_kf else 0.1)
         its = _staggered(33, cuda_device)
-        kern = tfc.TICK_KERNELS_INV[(est_kf, False)]
+        kern = ro.tick_route(_inv(base)).solve
         before = kern.launches
         s_i, m_i = ro.plant_step(_inv(base), s0, its)
         assert kern.launches == before + 1
@@ -1113,7 +1130,7 @@ def test_stand_inv_entries_equal_subst_past_n64(cuda_device):
             else stand
         s0 = _stand_states(base, 33, 7, cuda_device)
         its = _staggered(33, cuda_device)
-        kern = tfc.STAND_KERNELS_INV[(est_kf, False)]
+        kern = ro.tick_route(_inv(base)).solve
         before = kern.launches
         s_i, m_i = ro.plant_step(_inv(base), s0, its)
         assert kern.launches == before + 1
@@ -1265,11 +1282,10 @@ def test_variant_ticks_run_on_the_card(cuda_device, mode, variant):
             base.srbd, attitude_ref="receding"))
     else:
         cfg = dataclasses.replace(base, ik_method=variant)
-    assert tfc.runs_as_composition(cfg)
+    assert ro.tick_route(cfg) == ro.TickRoute("composition")
     kernels = {k.name: k for k in (
         mfc.WALKING_MPC_PREP, mfc.WALKING_MPC_PREP_INV, mfc.FUSED_QP_NU3_INV,
-        *mfc.FUSED_QP.values(), *tfc.TICK_KERNELS.values(),
-        *tfc.TICK_KERNELS_INV.values(), *tfc.STAND_KERNELS.values(),
+        *mfc.FUSED_QP.values(), *tfc.TICK_TABLE.values(),
         *chol_cuda.KERNELS.values(), qp_cuda.PDIP_FUSED)}
     B = 16
     s0 = _states(cfg, B, 3, cuda_device, yaw=0.0)
@@ -1315,7 +1331,7 @@ def test_composition_runs_past_the_mpc_horizon(cuda_device):
     cfg = _horizon(dataclasses.replace(base, srbd=dataclasses.replace(
         base.srbd, solver=dataclasses.replace(base.srbd.solver,
                                               method="pdip"))), 22)
-    assert tfc.runs_as_composition(cfg)
+    assert ro.tick_route(cfg) == ro.TickRoute("composition")
     B, ticks = 16, 3
     s0 = _states(cfg, B, 3, cuda_device, yaw=0.0)
     its = _staggered(B, cuda_device)
@@ -1352,9 +1368,9 @@ def test_composition_runs_past_the_mpc_horizon(cuda_device):
         stand.srbd, solver=dataclasses.replace(stand.srbd.solver,
                                                method="admm")))
     for c, kern, n in (
-            (_horizon(base, 22), tfc.TICK_KERNELS[(False, False)], 66),
-            (_horizon(kf, 22), tfc.TICK_KERNELS[(True, False)], 66),
-            (_horizon(stand, 22), tfc.STAND_KERNELS[(False, False)], 132),
+            (_horizon(base, 22), ro.tick_route(base).solve, 66),
+            (_horizon(kf, 22), ro.tick_route(kf).solve, 66),
+            (_horizon(stand, 22), ro.tick_route(stand).solve, 132),
             (_horizon(admm, 22), mfc.FUSED_QP[6], 132)):
         sb = ro.initial_plant_state(c, batch=(2,), device=cuda_device)
         before = kern.launches
@@ -1387,7 +1403,7 @@ def test_resident_rollout_equals_batched_rollout(cuda_device, mode, est, T):
     s0 = _states(cfg, B, 5, cuda_device, yaw=0.0)
     it0 = torch.arange(B, dtype=torch.float32, device=cuda_device) * 2.0
     f_ref, m_ref = ro.batched_rollout(cfg, s0, T, start_iteration=it0)
-    kern = tfc.tick_kernels(cfg)[(est == "kf", False)]
+    kern = ro.tick_route(cfg).solve
     kern.reset()
     f_res, m_res = ro.batched_rollout_resident(cfg, s0, T,
                                                start_iteration=it0)
@@ -1546,7 +1562,7 @@ def test_mesh_equals_batched_rollout(cuda_device, shards, est, style):
     mesh = pmesh.make_mesh([cuda_device] * shards)
     make = (pmesh.sharded_rollout if style == "gspmd"
             else pmesh.shard_map_rollout)
-    kern = tfc.tick_kernels(cfg)[(est == "kf", False)]
+    kern = ro.tick_route(cfg).solve
     kern.reset()
     final, stats = make(cfg, mesh, 10)(s0, 0.0)
     torch.cuda.synchronize()
@@ -1637,10 +1653,11 @@ def test_two_processes_share_the_card_over_gloo(cuda_device, tmp_path):
 def test_dryrun_multichip_one_card(cuda_device):
     from mpc_limx_control_tpu_torch import entry
 
-    tfc.WALKING_TICK.reset()
+    kern = ro.tick_route(ControllerConfig.walking()).solve
+    kern.reset()
     entry.dryrun_multichip(1)
     torch.cuda.synchronize()
-    assert tfc.WALKING_TICK.launches == 12
+    assert kern.launches == 12
 
 
 # ---- the band condensation, the Kronecker-cone ADMM and the corpus ------
@@ -1704,8 +1721,8 @@ def test_corpus_on_the_card_within_the_oracle_bands(cuda_device, mode):
 
     smoke = _smoke()
     names = ("walk_steady", "walk_pushed") if mode == "walk" else ("stand",)
-    tick = tfc.TICK_KERNELS[(False, False)] if mode == "walk" \
-        else tfc.STAND_KERNELS[(False, False)]
+    tick = ro.tick_route(ControllerConfig.walking() if mode == "walk"
+                         else ControllerConfig.standing()).solve
     before = tick.launches
     cqs = []
     for name in names:

@@ -420,7 +420,7 @@ def test_kf_and_hold_wrappers_on_cpu_run_the_plain_tick():
     cfg = _kf(TCfg.walking())
     s = tro.initial_plant_state(cfg, batch=(2,), device="cpu")
     it = torch.tensor([3.0, 310.0])
-    before = {k: v.launches for k, v in ttfc.TICK_KERNELS.items()}
+    before = {k: v.launches for k, v in ttfc.TICK_TABLE.items()}
     grf = torch.tensor([[0.0, 0.0, 200.0, 0.0, 0.0, 0.0]] * 2)
     vd = torch.tensor([[0.5, 0.0, 0.0]] * 2)
     outs = ttfc.fused_walking_tick(
@@ -433,12 +433,13 @@ def test_kf_and_hold_wrappers_on_cpu_run_the_plain_tick():
     assert torch.equal(outs[0], s_p.xi) and torch.equal(outs[10],
                                                         s_p.kf.x_hat)
     assert outs[4] is s.qp_z and float(outs[7].abs().max()) == 0.0
-    assert {k: v.launches for k, v in ttfc.TICK_KERNELS.items()} == before
+    assert {k: v.launches for k, v in ttfc.TICK_TABLE.items()} == before
     with pytest.raises(ValueError, match="kf_x"):
         ttfc.fused_walking_tick(s.xi, s.q, s.foot_l, s.foot_r, s.qp_z,
                                 s.qp_lam, s.ref_anchor, it, vd,
                                 torch.zeros(2), cfg=cfg)
     truth = tro.initial_plant_state(TCfg.walking(), batch=(2,), device="cpu")
-    assert "filter fields" in ttfc.unsupported_reason(cfg, truth)
-    assert "filter fields" in ttfc.unsupported_reason(TCfg.walking(), s)
-    assert ttfc.unsupported_reason(cfg, s) is None
+    assert "filter fields" in tro._kernel_state_reason(cfg, truth)
+    assert "filter fields" in tro._kernel_state_reason(TCfg.walking(), s)
+    assert tro._kernel_state_reason(cfg, s) is None
+    assert tro.tick_route(cfg).path == "kernel"

@@ -193,7 +193,7 @@ def test_general_solver_tick_matches_jax_f64(mode, method, warm):
     jbase = JCfg.walking() if mode == "walk" else JCfg.standing()
     jcfg = _variant(jbase, method, warm)
     tcfg = convert.config_from_dict(jcfg)
-    assert ttfc.runs_as_composition(tcfg)
+    assert tro.tick_route(tcfg) == tro.TickRoute("composition")
     sj = _perturbed(jcfg, 3, 11)
     st = _port_state(sj)
     its = np.asarray([0.0, 299.0, 455.0])
@@ -218,7 +218,7 @@ def test_default_config_is_a_cold_pdip_and_runs():
         jcfg = dataclasses.replace(JCfg(), mode=mode)
         tcfg = convert.config_from_dict(jcfg)
         assert tcfg.srbd.solver.method == "pdip" and not tcfg.qp_warm_start
-        assert ttfc.runs_as_composition(tcfg)
+        assert tro.tick_route(tcfg) == tro.TickRoute("composition")
         assert not ttfc.supports_fused_tick(tcfg)
         sj = _perturbed(jcfg, 2, 5)
         st = _port_state(sj)
@@ -362,20 +362,23 @@ def test_inv_dispatch_walking_and_standing():
                                desired_velocity=(0.0, 0.0, 0.0),
                                ref_anchor_band=0.0)
     assert ttfc.supports_fused_tick(winv) and ttfc.supports_fused_tick(sinv)
-    names = {k: v.name for k, v in ttfc.tick_kernels(winv).items()}
-    assert names == {(False, False): "walking_tick_inv",
-                     (False, True): "walking_tick_hold",
-                     (True, False): "walking_tick_kf_inv",
-                     (True, True): "walking_tick_kf_hold"}
-    snames = {k: v.name for k, v in ttfc.tick_kernels(sinv).items()}
-    assert snames == {(False, False): "standing_tick_inv",
-                      (False, True): "standing_tick_hold",
-                      (True, False): "standing_tick_kf_inv",
-                      (True, True): "standing_tick_kf_hold"}
+    def names(c):
+        return {est: (r.path, r.solve.name, r.hold.name) for est, r in (
+            (est, tro.tick_route(dataclasses.replace(c, estimator_mode=est)))
+            for est in ("truth", "kf"))}
+
+    assert names(winv) == {
+        "truth": ("kernel", "walking_tick_inv", "walking_tick_hold"),
+        "kf": ("kernel", "walking_tick_kf_inv", "walking_tick_kf_hold")}
+    assert names(sinv) == {
+        "truth": ("kernel", "standing_tick_inv", "standing_tick_hold"),
+        "kf": ("kernel", "standing_tick_kf_inv", "standing_tick_kf_hold")}
     ssub = dataclasses.replace(sinv, srbd=dataclasses.replace(
         sinv.srbd, solver=dataclasses.replace(sinv.srbd.solver,
                                               solve_form="subst")))
-    assert ttfc.tick_kernels(ssub) is ttfc.STAND_KERNELS
+    assert names(ssub) == {
+        "truth": ("kernel", "standing_tick", "standing_tick_hold"),
+        "kf": ("kernel", "standing_tick_kf", "standing_tick_kf_hold")}
     assert tmfc.plain_solve_form("inv", 3, 20) == "linv"
     for N in range(1, 11):
         assert tmfc.plain_solve_form("inv", 6, N) == "linv", N

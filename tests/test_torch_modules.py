@@ -427,6 +427,27 @@ def test_port_imports_without_jax():
     assert int(out.stdout.strip()) >= 15
 
 
+def test_ops_modules_import_nothing_of_the_control_layer():
+    """Every module under ops/ imports, in a fresh interpreter, without
+    bringing in any module of the control layer: the kernels answer for
+    themselves, and the control layer picks among them."""
+    code = (
+        "import pkgutil, sys\n"
+        "import mpc_limx_control_tpu_torch.ops as ops\n"
+        "names = [m.name for m in pkgutil.iter_modules(ops.__path__)]\n"
+        "for name in names:\n"
+        "    __import__('mpc_limx_control_tpu_torch.ops.' + name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.startswith('mpc_limx_control_tpu_torch.control'))\n"
+        "print(len(names), bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 12 and bad == "[]", out.stdout
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     """Without a card chip_smoke.py exits non-zero and prints no result;
     alone in a directory it fails too."""

@@ -398,8 +398,12 @@ def test_session_kernel_gate(name, device):
 
     cfg = _variant(name)
     want = device == "cuda" and name in KERNEL_SESSIONS
-    assert tfc.runs_session_kernel(cfg, torch.device(device)) is want
-    assert tfc.runs_session_kernel(cfg, device) is want
+    assert ses._kernel_ticks(cfg, torch.device(device)) is want
+    assert ses._kernel_ticks(cfg, device) is want
+    # walking sessions take the kernels exactly where the tick kernels
+    # implement the config
+    if cfg.mode == "walk":
+        assert (tfc.kernel_refusal(cfg) is None) is (name in KERNEL_SESSIONS)
     if want:
         p = tfc.session_params(cfg)
         assert p.tick.mpc.N == cfg.srbd.horizon

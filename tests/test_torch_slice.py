@@ -345,13 +345,23 @@ def test_unsupported_configs_refuse():
         return dataclasses.replace(c, srbd=dataclasses.replace(
             c.srbd, solver=dataclasses.replace(c.srbd.solver, **kw)))
 
+    def refused(c):
+        """The card's refusal of `c`: tick_route's NotImplementedError,
+        which carries controller.card_refusal's reason."""
+        with pytest.raises(NotImplementedError) as info:
+            tro.tick_route(c)
+        assert str(info.value).endswith(tctrl.card_refusal(c))
+        return tctrl.card_refusal(c)
+
     inv = solver(cfg, solve_form="inv")
     for ok in (cfg, kf, stand, dataclasses.replace(kf, mode="stand"), inv,
                solver(stand, solve_form="inv")):
         assert ttfc.supports_fused_tick(ok)
-        assert not ttfc.runs_as_composition(ok)
+        assert ttfc.kernel_refusal(ok) is None
+        assert tro.tick_route(ok).path == "kernel"
     rec = dataclasses.replace(cfg, srbd=dataclasses.replace(
         cfg.srbd, attitude_ref="receding"))
+    composition = tro.TickRoute("composition")
     # refused by the tick kernels for the solver, the swing IK or the
     # attitude reference: the composition runs them, on the card too
     for other in (dataclasses.replace(cfg, qp_warm_start=False),
@@ -361,14 +371,19 @@ def test_unsupported_configs_refuse():
                   dataclasses.replace(stand, ik_method="log6"),
                   solver(cfg, method="riccati"), rec):
         assert not ttfc.supports_fused_tick(other)
-        assert ttfc.runs_as_composition(other)
+        assert tctrl.card_refusal(other) is None
+        assert tro.tick_route(other) == composition
     # refused by both: unknown values
-    for bad in (solver(cfg, solve_form="x"), solver(cfg, method="x"),
-                dataclasses.replace(cfg, ik_method="x"),
-                dataclasses.replace(cfg, srbd=dataclasses.replace(
-                    cfg.srbd, attitude_ref="x"))):
+    for bad, said in (
+            (solver(cfg, solve_form="x"),
+             "solve_form='x' is unknown (the kernels run ('subst', 'inv'))"),
+            (solver(cfg, method="x"), "solver method='x' is unknown"),
+            (dataclasses.replace(cfg, ik_method="x"),
+             "ik_method='x' is unknown"),
+            (dataclasses.replace(cfg, srbd=dataclasses.replace(
+                cfg.srbd, attitude_ref="x")), "attitude_ref='x' is unknown")):
         assert not ttfc.supports_fused_tick(bad)
-        assert not ttfc.runs_as_composition(bad)
+        assert refused(bad) == said
     # a horizon past the 21 steps the walking MPC kernels once took: the
     # compositions that launch no MPC kernel run it; the walking kernels
     # (walking_tick, walking_mpc_prep) take 1 to 85 steps (n = 3 N <= 256),
@@ -382,39 +397,44 @@ def test_unsupported_configs_refuse():
                   dataclasses.replace(stand, qp_warm_start=False),
                   solver(cfg, method="riccati"), rec, TCfg()):
         assert not ttfc.supports_fused_tick(n22(other))
-        assert ttfc.runs_as_composition(n22(other))
-    s22 = tro.initial_plant_state(n22(cfg), batch=(1,), device="cpu")
+        assert tro.tick_route(n22(other)) == composition
     dls = dataclasses.replace(cfg, ik_method="damped_ls")
     for N in (22, 85):
         s_n = tro.initial_plant_state(n22(cfg, N), batch=(1,), device="cpu")
         for ok in (cfg, kf, inv):
             assert ttfc.supports_fused_tick(n22(ok, N))
-        assert ttfc.unsupported_reason(n22(cfg, N), s_n) is None
-        assert ttfc.runs_as_composition(n22(dls, N))
-    s86 = tro.initial_plant_state(n22(cfg, 86), batch=(1,), device="cpu")
+        assert tro.tick_route(n22(cfg, N)).path == "kernel"
+        assert tro._kernel_state_reason(n22(cfg, N), s_n) is None
+        assert tro.tick_route(n22(dls, N)) == composition
     for bad in (cfg, kf, dls):
         assert not ttfc.supports_fused_tick(n22(bad, 86))
-        assert not ttfc.runs_as_composition(n22(bad, 86))
-        assert "1 to 85 steps" in ttfc.unsupported_reason(n22(bad, 86), s86)
+        assert refused(n22(bad, 86)) == (
+            "horizon=86: the walking MPC kernels take 1 to 85 steps (n = 3 "
+            "N <= 256, eight solve rows a lane)")
     for N in (22, 42):
         s_n = tro.initial_plant_state(n22(stand, N), batch=(1,),
                                       device="cpu")
         for ok in (stand, dataclasses.replace(stand, estimator_mode="kf")):
             assert ttfc.supports_fused_tick(n22(ok, N))
-        assert ttfc.unsupported_reason(n22(stand, N), s_n) is None
-        assert ttfc.runs_as_composition(n22(solver(stand, method="admm"), N))
-    s43 = tro.initial_plant_state(n22(stand, 43), batch=(1,), device="cpu")
+        assert tro.tick_route(n22(stand, N)).path == "kernel"
+        assert tro._kernel_state_reason(n22(stand, N), s_n) is None
+        assert tro.tick_route(n22(solver(stand, method="admm"), N)) == \
+            composition
     for bad in (stand, solver(stand, method="admm"),
                 dataclasses.replace(stand, ik_method="log6")):
         assert not ttfc.supports_fused_tick(n22(bad, 43))
-        assert not ttfc.runs_as_composition(n22(bad, 43))
-        assert "1 to 42 steps" in ttfc.unsupported_reason(n22(bad, 43), s43)
+        assert refused(n22(bad, 43)) == (
+            "horizon=43: the standing MPC kernels take 1 to 42 steps (n = 6 "
+            "N <= 256, eight solve rows a lane)")
     # a dense QP past the Cholesky kernels (standing n = 6 N > 256)
     far = dataclasses.replace(stand, qp_warm_start=False,
                               srbd=dataclasses.replace(stand.srbd,
                                                        horizon=45))
-    assert not ttfc.runs_as_composition(far)
-    assert "Cholesky kernels" in ttfc.unsupported_reason(far, s22)
+    assert refused(far) == (
+        "horizon=45: the dense QP (n = 270) is past the Cholesky kernels' "
+        "reach (cholesky: n = 270, k = 1 needs 148500 bytes of shared "
+        "memory; the kernel takes 1 <= n <= 256, k >= 1 within 232448 bytes "
+        "per block)")
     # the KF state, standing and the cold two-foot solve are ported
     assert tro.initial_plant_state(kf, device="cpu").kf.x_hat.shape == (12,)
     s = tro.initial_plant_state(stand, batch=(1,), device="cpu")
@@ -468,7 +488,7 @@ def test_kernel_wrappers_validate_on_cuda_only_paths():
     """CPU tensors never count a launch; a meta-device tensor is refused
     instead of being sent to the kernel or the plain version."""
     cfg = TCfg.walking()
-    kernels = (tmfc.WALKING_MPC_PREP, *ttfc.TICK_KERNELS.values())
+    kernels = (tmfc.WALKING_MPC_PREP, *ttfc.TICK_TABLE.values())
     before = [k.launches for k in kernels]
     s = tro.initial_plant_state(cfg, batch=(2,), device="cpu")
     tro.plant_step(cfg, s, torch.zeros(2))

@@ -482,10 +482,11 @@ def test_core_layout_fits_the_blocks_an_sm(monkeypatch):
     monkeypatch.setattr(tmfc, "SMEM_LIMIT_BYTES", 40000)
     assert tmfc.size_reason("standing_tick", 20) is None
     assert "40000" in tmfc.size_reason("fused_qp_nu6", 20)
-    s20 = tro.initial_plant_state(TCfg.standing(), batch=(1,), device="cpu")
-    assert "40000" in ttfc.unsupported_reason(
-        dataclasses.replace(TCfg.standing(), srbd=dataclasses.replace(
-            TCfg.standing().srbd, horizon=22)), s20)
+    n22 = dataclasses.replace(TCfg.standing(), srbd=dataclasses.replace(
+        TCfg.standing().srbd, horizon=22))
+    assert "40000" in ttfc.kernel_refusal(n22)
+    with pytest.raises(NotImplementedError, match="40000"):
+        tro.tick_route(n22)
 
 
 @pytest.mark.parametrize("est", ["truth", "kf"])
@@ -507,8 +508,7 @@ def test_stand_kf_inv_twin_solve_then_hold_matches_jax_kernel_interpret():
     "subst" case above."""
     jcfg = _inv_form(_small(JCfg.standing()))
     tcfg = _inv_form(_small(TCfg.standing()))
-    assert ttfc.tick_kernels(tcfg)[(True, False)].name == \
-        "standing_tick_kf_inv"
+    assert tro.tick_route(_kf(tcfg)).solve.name == "standing_tick_kf_inv"
     _stand_twin_vs_jax_kernel(jcfg, tcfg, True)
 
 
@@ -679,12 +679,16 @@ def test_stand_wrapper_dispatch_and_refusals():
     kernel set follows the mode; what the tick kernels refuse runs as the
     composition, and an unknown value raises."""
     cfg = TCfg.standing()
-    assert ttfc.tick_kernels(cfg) is ttfc.STAND_KERNELS
-    assert ttfc.tick_kernels(TCfg.walking()) is ttfc.TICK_KERNELS
-    names = sorted(k.name for k in ttfc.STAND_KERNELS.values())
-    assert names == ["standing_tick", "standing_tick_hold",
-                     "standing_tick_kf", "standing_tick_kf_hold"]
-    kernels = (*ttfc.STAND_KERNELS.values(), *tmfc.FUSED_QP.values())
+    route = tro.tick_route(cfg)
+    assert (route.path, route.solve.name, route.hold.name) == (
+        "kernel", "standing_tick", "standing_tick_hold")
+    assert tro.tick_route(TCfg.walking()).solve.name == "walking_tick"
+    stand_kernels = {k for key, k in ttfc.TICK_TABLE.items()
+                     if key[0] == "stand" and key[3] == "subst"}
+    assert sorted(k.name for k in stand_kernels) == [
+        "standing_tick", "standing_tick_hold", "standing_tick_kf",
+        "standing_tick_kf_hold"]
+    kernels = (*stand_kernels, *tmfc.FUSED_QP.values())
     before = [k.launches for k in kernels]
     s = tro.initial_plant_state(cfg, batch=(2,), device="cpu")
     s2, m = tro.plant_step(cfg, s, torch.zeros(2))
@@ -698,17 +702,22 @@ def test_stand_wrapper_dispatch_and_refusals():
     # the iterative IK and the Riccati solver are ported: the tick kernels
     # refuse them, the composition runs them (standing "riccati" is the
     # cold PDIP of stance_mpc, as in JAX)
-    for other, match in (
-            (dataclasses.replace(cfg, ik_method="log6"), "analytic IK"),
-            (ric, "admm_fused")):
-        assert ttfc.runs_as_composition(other)
-        assert match in ttfc.unsupported_reason(other, s)
+    for other, said in (
+            (dataclasses.replace(cfg, ik_method="log6"),
+             "the tick kernels run the analytic IK (got ik_method='log6')"),
+            (ric, "only the warm admm_fused solver runs in the tick kernel "
+                  "(got method='riccati', qp_warm_start=True)")):
+        assert tro.tick_route(other) == tro.TickRoute("composition")
+        assert ttfc.kernel_refusal(other) == said
         _, mo = tro.plant_step(other, tro.initial_plant_state(
             other, batch=(1,), device="cpu"), torch.zeros(1))
         assert bool(torch.isfinite(mo["grf"]).all())
     # a cold standing config is the cold PDIP, not a refusal
     cold = dataclasses.replace(cfg, qp_warm_start=False)
-    assert ttfc.runs_as_composition(cold)
+    assert tro.tick_route(cold) == tro.TickRoute("composition")
+    assert ttfc.kernel_refusal(cold) == (
+        "only the warm admm_fused solver runs in the tick kernel (got "
+        "method='admm_fused', qp_warm_start=False)")
     _, mc = tro.plant_step(cold, tro.initial_plant_state(
         cold, batch=(1,), device="cpu"), torch.zeros(1))
     assert bool(torch.isfinite(mc["grf"]).all())
@@ -717,8 +726,11 @@ def test_stand_wrapper_dispatch_and_refusals():
     inv = dataclasses.replace(cfg, srbd=dataclasses.replace(
         cfg.srbd, solver=dataclasses.replace(cfg.srbd.solver,
                                              solve_form="inv")))
-    assert ttfc.unsupported_reason(inv, s) is None
-    assert ttfc.tick_kernels(inv) is ttfc.STAND_KERNELS_INV
+    assert tro._kernel_state_reason(inv, s) is None
+    route = tro.tick_route(inv)
+    assert (route.path, route.solve.name, route.hold.name) == (
+        "kernel", "standing_tick_inv", "standing_tick_hold")
+    assert route.hold is tro.tick_route(cfg).hold
     assert tmfc.plain_solve_form("inv", 6, 20) == "subst"
     with pytest.raises(ValueError, match="estimator_mode"):
         ttfc.fused_walking_tick(

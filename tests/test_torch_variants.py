@@ -36,7 +36,6 @@ from mpc_limx_control_tpu_torch.models import kinematics as tkin
 from mpc_limx_control_tpu_torch.models import srbd as tsrbd
 from mpc_limx_control_tpu_torch.ops import mpc_fused_cuda as tmfc
 from mpc_limx_control_tpu_torch.ops import riccati as tric
-from mpc_limx_control_tpu_torch.ops import tick_fused_cuda as ttfc
 from mpc_limx_control_tpu_torch.utils import convert
 
 F64 = 1e-9
@@ -377,7 +376,7 @@ def test_variant_tick_matches_jax_f64(mode, name):
     jbase = JCfg.walking() if mode == "walk" else JCfg.standing()
     jcfg = _variant(jbase, name)
     tcfg = convert.config_from_dict(jcfg)
-    assert ttfc.runs_as_composition(tcfg)
+    assert tro.tick_route(tcfg) == tro.TickRoute("composition")
     B = 4
     sj = _kicked(jcfg, B, 20 + VARIANTS.index((mode, name)))
     its = np.asarray([40.0, 299.0, 300.0, 455.0])
